@@ -7,41 +7,74 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
   1. device: the card, its power limit, and the build of the CUDA kernels
      from ``rtsds_tpu_torch/ops/cuda/csrc``;
-  2. hist_check: the confusion-matrix kernel against its plain PyTorch
+  2. hist_check: the confusion-matrix kernel (K1) against its plain PyTorch
      version, exactly, on edge cases and at the eval batch's size;
-  3. serving: BiSeNet-R18 at 1024x2048, batch 8, bf16, from a Flax-layout
+  3. remap_check: the RGB -> trainId remap kernel (K2) against its plain
+     version, exactly, at the training batch's size and on edge cases;
+  4. serving: BiSeNet-R18 at 1024x2048, batch 8, bf16, from a Flax-layout
      weight tree made with numpy from a seed and loaded through the weight
      bridge; masks checked, timed, and held against an f32 run;
-  4. validation: ``validate`` over synthetic batches at the same size, each
+  5. validation: ``validate`` over synthetic batches at the same size, each
      step's histogram held against the plain version;
-  5. the ``kernels`` line: each kernel's launches on the main path (phases
-     3-4), its time, its plain version's, a one-call library yardstick and
-     the card's bound.
+  6. training: the supervised trainer at full width (BiSeNet-R18, GTA5
+     720x1280, batch 8, bf16, blur + flip) on colour-coded synthetic
+     labels through the loader, ``make_transform`` (K2), ``make_train_step``
+     and ``supervised_fit``, validated each epoch at 512x1024 (K1); every
+     K2 output held against the plain remap, the checkpoint restored into
+     a fresh model, one train step on the card held against the same step
+     on the CPU (float64, and float32 with TF32 off), and the step timed;
+  7. train_profile: torch.profiler over a few train steps: the device's
+     idle share and kernel time by group (run after the kernel timings,
+     which the profiler's tracing could slow);
+  8. the ``kernels`` line: each kernel's launches on the main paths (phases
+     4-5 and phase 6, each counted from zero), its time, its plain
+     version's, a one-call library yardstick where one exists, and the
+     card's bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from rtsds_tpu_torch.data.synthetic import SyntheticSegDataset
+from rtsds_tpu_torch.callbacks.base import Callback
+from rtsds_tpu_torch.callbacks.checkpoint import ModelCheckpoint
+from rtsds_tpu_torch.config import load_config
+from rtsds_tpu_torch.data.pipeline import (
+    DataLoader, batch_generator, device_batches)
+from rtsds_tpu_torch.data.synthetic import (
+    ColorCodedLabels, SyntheticSegDataset)
 from rtsds_tpu_torch.eval.validate import make_eval_step, validate
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.pretrained import (
     load_flax_variables, torch_scope)
+from rtsds_tpu_torch.ops import preprocess
+from rtsds_tpu_torch.ops.augment import AugmentConfig
 from rtsds_tpu_torch.ops.cuda import _build
 from rtsds_tpu_torch.ops.cuda.hist import fast_hist_cuda
-from rtsds_tpu_torch.ops.preprocess import normalize
+from rtsds_tpu_torch.ops.cuda.remap import rgb_to_train_ids_cuda
+from rtsds_tpu_torch.ops.losses import segmentation_loss
+from rtsds_tpu_torch.ops.preprocess import make_transform, normalize
+from rtsds_tpu_torch.ops.remap import rgb_to_train_ids
 from rtsds_tpu_torch.serve import Predictor
-from rtsds_tpu_torch.utils.colors import CLASS_NAMES
+from rtsds_tpu_torch.train.factory import build_supervised, make_bisenet
+from rtsds_tpu_torch.train.loop import supervised_fit
+from rtsds_tpu_torch.train.optim import make_optimizer
+from rtsds_tpu_torch.train.state import TrainState
+from rtsds_tpu_torch.train.supervised import make_train_step
+from rtsds_tpu_torch.utils.colors import CLASS_NAMES, class_colors_for_remap
 from rtsds_tpu_torch.utils.metrics import fast_hist
 
 SIZE = (1024, 2048)
@@ -50,6 +83,14 @@ CLASSES = 19
 SEED = 0
 SERVE_FRAMES = 16
 VAL_BATCHES = 3
+# the supervised trainer: GTA5 frames, validated on Cityscapes-sized ones
+TRAIN_SIZE = (720, 1280)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 4        # per epoch
+TRAIN_EPOCHS = 2
+TRAIN_VAL_SIZE = (512, 1024)
+TRAIN_VAL_BATCHES = 2
+UNMATCHED = 0.05       # share of label pixels whose colour is no class key
 # H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 # least share of pixels whose bf16 mask equals the f32 mask.  Random
@@ -257,6 +298,68 @@ def phase_hist_check() -> float:
     return float(worst)
 
 
+def gta5_label_batch(gen: torch.Generator, shape: tuple,
+                     unmatched: float = UNMATCHED) -> torch.Tensor:
+    """(..., 3) uint8 GTA5 key colours on the card, ``unmatched`` of them
+    replaced by random colours."""
+    dev = torch.device("cuda")
+    table = torch.from_numpy(class_colors_for_remap()).to(dev)
+    ids = torch.randint(0, len(table), shape, generator=gen, device=dev)
+    rgb = table[ids]
+    noise = torch.randint(0, 256, (*shape, 3), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.uint8)
+    off = torch.rand(shape, generator=gen, device=dev) < unmatched
+    return torch.where(off[..., None], noise, rgb)
+
+
+def phase_remap_check() -> float:
+    """Kernel == plain on every case; returns the largest |difference|."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    batch = gta5_label_batch(gen, (TRAIN_BATCH, *TRAIN_SIZE))
+    # 128 random keys with row 77 repeating row 5: the first one must win
+    keys128 = torch.randint(0, 256, (128, 3), generator=gen, device=dev,
+                            dtype=torch.int64).to(torch.uint8)
+    keys128[77] = keys128[5]
+    pick = torch.randint(0, 128, (1_000_003,), generator=gen, device=dev)
+    dup = torch.where((torch.rand(pick.shape, generator=gen, device=dev)
+                       < 0.1)[:, None],
+                      torch.randint(0, 256, (len(pick), 3), generator=gen,
+                                    device=dev).to(torch.uint8),
+                      keys128[pick])
+    flat = batch.reshape(-1, 3)
+    cases = {
+        "train_batch": (batch, None, 255),
+        "ragged": (flat[:flat.shape[0] - 5], None, 255),
+        "empty": (flat[:0], None, 255),
+        "keys128_duplicate": (dup, keys128.cpu().numpy(), 255),
+        "default_id_0": (batch, None, 0),
+        "non_contiguous": (batch[:, 100:600:2, 7:1000:3], None, 255),
+        "misaligned": (flat[1:1_000_002], None, 255),
+    }
+    report = {}
+    for name, (rgb, table, default_id) in cases.items():
+        before = rgb_to_train_ids_cuda.launches
+        got = rgb_to_train_ids_cuda(rgb, table, default_id)
+        torch.cuda.synchronize()
+        want = rgb_to_train_ids(rgb, table, default_id)
+        if got.dtype != torch.int32 or got.shape != want.shape:
+            raise AssertionError(f"remap kernel on {name}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if not torch.equal(got, want):
+            err = int((got.long() - want.long()).abs().max())
+            raise AssertionError(f"remap kernel != plain on {name}: max "
+                                 f"|diff| {err}")
+        launched = rgb_to_train_ids_cuda.launches - before
+        if launched != (1 if rgb.numel() else 0):
+            raise AssertionError(f"remap on {name} launched {launched}x")
+        report[name] = {"pixels": got.numel(), "keys": 19 if table is None
+                        else len(table), "default_id": default_id,
+                        "unmatched": int((want == default_id).sum())}
+    emit({"phase": "remap_check", "exact": True, "cases": report})
+    return 0.0
+
+
 def phase_serving(tree: dict, frames: np.ndarray) -> Predictor:
     predictor = Predictor(variables=tree, image_size=SIZE, batch_size=BATCH,
                           device="cuda").warmup()
@@ -364,6 +467,345 @@ def phase_validation(predictor: Predictor):
     return last["labels"], last["preds"]
 
 
+class _LossRecorder(Callback):
+    def __init__(self):
+        self.losses = []
+
+    def on_batch_end(self, batch, logs=None):
+        self.losses.append(logs["train_loss"])
+
+
+def _checked_remap(counter: dict):
+    """K2 as ``make_transform`` calls it, each output held against the
+    plain remap of the same labels (the plain call launches no kernel)."""
+    def remap(rgb, color_table=None, default_id=255):
+        got = rgb_to_train_ids_cuda(rgb, color_table, default_id)
+        if not torch.equal(got, rgb_to_train_ids(rgb, color_table,
+                                                 default_id)):
+            raise AssertionError("K2 output in the trainer != plain remap")
+        counter["checked"] += 1
+        return got
+    return remap
+
+
+def train_config():
+    """The default config (Adam, poly LR, blur + flip) in bf16, for
+    ``TRAIN_EPOCHS`` epochs."""
+    return load_config(overrides={
+        "precision": {"compute_dtype": "bfloat16"},
+        "training": {"segmentation": {"epochs": TRAIN_EPOCHS,
+                                      "do_validation": 1}}})
+
+
+@contextlib.contextmanager
+def relu_routing(masks: list, replay: bool = False):
+    """``F.relu`` records, in call order, which inputs it passes; with
+    ``replay`` it passes the inputs that ``masks`` recorded instead, so the
+    step takes another run's ReLU routing.  Yields a dict whose ``flips``
+    counts the inputs whose own sign disagreed with the replayed mask."""
+    relu = F.relu
+    recorded = iter(list(masks)) if replay else None
+    seen = {"flips": 0}
+
+    def routed(x, inplace=False):
+        if recorded is None:
+            masks.append((x.detach() > 0).cpu())
+            return relu(x, inplace)
+        mask = next(recorded).to(x.device)
+        seen["flips"] += int(((x.detach() > 0) != mask).sum())
+        return x * mask.to(x.dtype)
+
+    F.relu = routed
+    try:
+        yield seen
+    finally:
+        F.relu = relu
+
+
+def step_card_vs_cpu(dtype: torch.dtype, batch: int) -> dict:
+    """One SGD step of BiSeNet-R18 at 64x128 on the card and on the CPU,
+    same weights and batch, in ``dtype``, TF32 off; fails unless they
+    agree.  The CPU step takes the card's ReLU routing: an input within
+    rounding of zero may round to either side, and one such flip moves
+    some tensors' updates by tens of times the limit (PERF.md).  Returns
+    the loss's relative difference, the largest difference of the BN
+    running statistics over ``1e-5 + 1e-4 * |cpu|``, per parameter tensor
+    the largest difference of the two updates over ``1e-3 * largest update
+    + 1e-6``, and the count of ReLU inputs whose sign on the CPU differed
+    from the card's."""
+    ds = SyntheticSegDataset(batch, (64, 128), CLASSES, seed=SEED + 3,
+                             fixed_tints=True)
+    images = normalize(torch.from_numpy(np.stack([ds[i][0]
+                                                  for i in range(batch)])))
+    images = images.to(dtype)
+    labels = torch.from_numpy(np.stack([ds[i][1] for i in range(batch)]))
+    labels[:, :3] = 19  # a band of ignored pixels
+    cfg = load_config().model["bisenet"]
+    states = {}
+    for dev in ("cpu", "cuda"):
+        model = make_bisenet(cfg, seed=SEED).to(dev, dtype)
+        opt = make_optimizer("SGD", model.parameters(), 0.01, momentum=0.9)
+        states[dev] = TrainState(model, opt)
+    before = {k: v.detach().clone() for k, v in
+              states["cpu"].model.named_parameters()}
+    step = make_train_step(19)
+    losses, masks = {}, []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for dev in ("cuda", "cpu"):
+                with relu_routing(masks, replay=dev == "cpu") as seen:
+                    losses[dev] = float(step(states[dev], images.to(dev),
+                                             labels.to(dev))["train_loss"])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    cpu_state = states["cpu"].model.state_dict()
+    stats_err = max(float(((v.cpu() - cpu_state[k]).abs()
+                           / (1e-5 + 1e-4 * cpu_state[k].abs())).max())
+                    for k, v in states["cuda"].model.state_dict().items()
+                    if "running_" in k)
+    ratios = {}
+    gpu_params = dict(states["cuda"].model.named_parameters())
+    for k, p in states["cpu"].model.named_parameters():
+        want = p.detach() - before[k]
+        got = gpu_params[k].detach().cpu() - before[k]
+        limit = 1e-3 * float(want.abs().max()) + 1e-6
+        ratios[k] = float((got - want).abs().max()) / limit
+    worst = sorted(ratios, key=ratios.get, reverse=True)
+    result = {"dtype": str(dtype).replace("torch.", ""), "batch": batch,
+              "loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"],
+              "loss_rel_diff": abs(losses["cuda"] - losses["cpu"])
+              / abs(losses["cpu"]),
+              "bn_stats_err_over_limit": stats_err,
+              "tensors_over_limit": sum(r > 1.0 for r in ratios.values()),
+              "worst_update_err_over_limit": {k: ratios[k]
+                                              for k in worst[:3]},
+              "relu_sign_flips": seen["flips"]}
+    if (result["loss_rel_diff"] > 1e-4 or stats_err > 1.0
+            or result["tensors_over_limit"]):
+        raise AssertionError(f"the train step on the card differs from the "
+                             f"CPU's: {result}")
+    return result
+
+
+def train_step_split(state, images, labels, reps: int = 10) -> dict:
+    """Median ms of the parts of one train step, with CUDA events between
+    them: forward + loss (autocast), backward, optimizer update."""
+    model = state.model.train()
+    marks = {"forward_loss": [], "backward": [], "optimizer": []}
+    for i in range(reps + 2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with state.autocast():
+            outputs = model(images.permute(0, 3, 1, 2))
+            loss = segmentation_loss(outputs, labels, 19)
+        ev[1].record()
+        state.optimizer.zero_grad()
+        loss.backward()
+        ev[2].record()
+        state.optimizer.step()
+        ev[3].record()
+        ev[3].synchronize()
+        if i >= 2:
+            for j, key in enumerate(marks):
+                marks[key].append(ev[j].elapsed_time(ev[j + 1]))
+    return {k: statistics.median(v) for k, v in marks.items()}
+
+
+KERNEL_GROUPS = (  # first match wins; names lower-cased
+    ("conv/gemm", ("conv", "cudnn", "xmma", "gemm", "sm90", "implicit",
+                   "wgrad", "dgrad", "fprop")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_")),
+    ("resize", ("upsample", "interp")),
+    ("pool", ("pool",)),
+    ("loss", ("nll", "softmax", "cross_entropy")),
+    ("optimizer", ("adam", "multi_tensor", "foreach")),
+    ("copy", ("memcpy", "memset", "copy")),
+)
+
+
+def profile_train_steps(state, images, labels, steps: int = 5) -> dict:
+    """torch.profiler over ``steps`` train steps: device busy time (the
+    union of kernel intervals), the idle share of the host-clock window,
+    device time by kernel group and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_train_step(19)
+    step(state, images, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, images, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return {"device_time": "not measured (no device events)",
+                "wall_ms_per_step": wall_ms / steps}
+    busy, end = 0.0, -math.inf
+    for a, b, _ in spans:  # union of the intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_group: dict = {}
+    by_kernel: dict = {}
+    for a, b, name in spans:
+        low = name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in low for k in keys)), "elementwise/other")
+        by_group[group] = by_group.get(group, 0.0) + (b - a) / 1e3
+        by_kernel[name] = by_kernel.get(name, 0.0) + (b - a) / 1e3
+    total = sum(by_group.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
+            "kernel_ms_per_step": total / steps,
+            "share_by_group": {g: v / total for g, v in
+                               sorted(by_group.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms_per_step": [[n[:80], v / steps] for n, v in top]}
+
+
+def phase_training() -> dict:
+    """Trains through the port's entry points; returns the K2 timing batch
+    and the main-path launch counts of this phase."""
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_")
+    config = train_config()
+    gta5 = ColorCodedLabels(
+        SyntheticSegDataset(TRAIN_STEPS * TRAIN_BATCH, TRAIN_SIZE, CLASSES,
+                            seed=SEED + 4, fixed_tints=True),
+        class_colors_for_remap(), unmatched=UNMATCHED, seed=SEED)
+    val = SyntheticSegDataset(TRAIN_VAL_BATCHES * TRAIN_BATCH, TRAIN_VAL_SIZE,
+                              CLASSES, seed=SEED + 5, fixed_tints=True)
+    loader = DataLoader(gta5, TRAIN_BATCH, shuffle=True, num_workers=4,
+                        seed=SEED)
+    val_loader = DataLoader(val, TRAIN_BATCH, shuffle=False, num_workers=4,
+                            drop_last=False)
+    transform = make_transform(TRAIN_SIZE, CLASSES, antialias=False,
+                               augment_cfg=AugmentConfig.from_config(config),
+                               decode_label_colors=True)
+    val_transform = make_transform(TRAIN_VAL_SIZE, CLASSES, antialias=True)
+    state = build_supervised(config, "bisenet", len(loader), dev, seed=SEED)
+    recorder = _LossRecorder()
+    checkpoint = ModelCheckpoint(save_dir=tmp.name, save_name="smoke",
+                                 save_best=False)
+    checked = {"checked": 0}
+    plain_remap = preprocess.rgb_to_train_ids_cuda
+
+    fast_hist_cuda.launches = 0
+    rgb_to_train_ids_cuda.launches = 0
+    preprocess.rgb_to_train_ids_cuda = _checked_remap(checked)
+    t0 = time.perf_counter()
+    try:
+        _, history = supervised_fit(
+            state, make_train_step(19),
+            lambda epoch: device_batches(loader, transform, dev, seed=SEED,
+                                         epoch=epoch),
+            lambda epoch: device_batches(val_loader, val_transform, dev),
+            epochs=TRAIN_EPOCHS, num_classes=CLASSES,
+            class_names=CLASS_NAMES, callbacks=[recorder],
+            checkpoint=checkpoint, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        preprocess.rgb_to_train_ids_cuda = plain_remap
+    fit_s = time.perf_counter() - t0
+    launches = {"fast_hist_cuda": fast_hist_cuda.launches,
+                "rgb_to_train_ids_cuda": rgb_to_train_ids_cuda.launches}
+
+    if len(recorder.losses) != TRAIN_EPOCHS * TRAIN_STEPS or not all(
+            math.isfinite(x) for x in recorder.losses):
+        raise AssertionError(f"train losses {recorder.losses}")
+    if checked["checked"] != TRAIN_EPOCHS * TRAIN_STEPS:
+        raise AssertionError(f"{checked['checked']} K2 calls checked")
+    if len(history) != TRAIN_EPOCHS or not all(
+            0.0 <= h["validation_mIoU"] <= 1.0 for h in history):
+        raise AssertionError(f"history {history}")
+
+    # one batch of the path, kept for the timings below
+    host_images, host_rgb = next(iter(loader))
+    images_dev = torch.from_numpy(host_images).to(dev)
+    rgb_dev = torch.from_numpy(host_rgb).to(dev)
+    images, labels = transform(images_dev, rgb_dev,
+                               batch_generator(SEED, 0, 0))
+    val_images, val_labels = next(iter(device_batches(
+        val_loader, val_transform, dev)))
+
+    # the saved checkpoint restored into a freshly initialised model
+    fresh = build_supervised(config, "bisenet", len(loader), dev,
+                             seed=SEED + 9)
+    if not checkpoint.manager.restore({"model": fresh}):
+        raise AssertionError("checkpoint restore failed")
+    if fresh.step != state.step:
+        raise AssertionError(f"restored step {fresh.step} != {state.step}")
+    with torch.inference_mode(), state.autocast():
+        want = state.model.eval()(val_images.permute(0, 3, 1, 2))
+        got = fresh.model.eval()(val_images.permute(0, 3, 1, 2))
+    restore_err = float((got - want).abs().max())
+    if restore_err > 1e-5 * max(1.0, float(want.abs().max())):
+        raise AssertionError(f"restored model's logits differ by "
+                             f"{restore_err}")
+    del want, got, fresh
+
+    # float32 at four frames: at two, with the routing fixed, rounding
+    # alone still moves a few tensors' updates past the limit (PERF.md)
+    step_checks = [step_card_vs_cpu(torch.float64, 2),
+                   step_card_vs_cpu(torch.float32, 4)]
+
+    step = make_train_step(19)
+    step_ms = cuda_ms(lambda: step(state, images, labels), reps=10)
+    split = train_step_split(state, images, labels)
+    h2d_frames_ms = cuda_ms(lambda: torch.from_numpy(host_images).to(dev))
+    h2d_labels_ms = cuda_ms(lambda: torch.from_numpy(host_rgb).to(dev))
+    gen = torch.Generator().manual_seed(SEED)
+    transform_ms = cuda_ms(lambda: transform(images_dev, rgb_dev, gen))
+    eval_step = make_eval_step(state.model.eval(), CLASSES,
+                               compute_dtype=state.compute_dtype)
+    hist = torch.zeros((CLASSES, CLASSES), dtype=torch.int32, device=dev)
+    eval_ms = cuda_ms(lambda: eval_step(val_images, val_labels, hist))
+    tmp.cleanup()
+    emit({"phase": "training", "model": "bisenet-resnet18",
+          "image_size": list(TRAIN_SIZE), "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "epochs": TRAIN_EPOCHS,
+          "steps_per_epoch": TRAIN_STEPS, "losses": recorder.losses,
+          "history": history, "fit_s": fit_s,
+          "k2_outputs_checked": checked["checked"],
+          "launches": launches, "restore_max_abs_err": restore_err,
+          "step_card_vs_cpu": step_checks, "train_step_p50_ms": step_ms,
+          "samples_per_s": TRAIN_BATCH * 1000.0 / step_ms,
+          "train_step_split_ms": split,
+          "h2d_frames_ms": h2d_frames_ms, "h2d_rgb_labels_ms": h2d_labels_ms,
+          "transform_ms": transform_ms, "eval_image_size":
+          list(TRAIN_VAL_SIZE), "eval_step_ms": eval_ms,
+          "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"rgb": rgb_dev, "launches": launches, "state": state,
+            "batch": (images, labels)}
+
+
+def remap_timing(rgb: torch.Tensor, launches: int,
+                 max_abs_err: float) -> dict:
+    """The remap kernel's entry of the ``kernels`` line, timed on one
+    training batch's colour-coded labels."""
+    ms = cuda_ms(lambda: rgb_to_train_ids_cuda(rgb), inner=10)
+    plain_ms = cuda_ms(lambda: rgb_to_train_ids(rgb), inner=10)
+    pixels = rgb.numel() // 3
+    nbytes = pixels * 3 + pixels * 4  # uint8 RGB in, int32 ids out
+    return {"name": "rgb_to_train_ids_cuda", "route": "cuda",
+            "source": "rtsds_tpu_torch/ops/cuda/csrc/remap.cu",
+            "replaces": "rtsds_tpu/ops/pallas/remap.py:42",
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None}
+
+
 def kernel_timing(labels: torch.Tensor, preds: torch.Tensor,
                   launches: int, max_abs_err: float) -> dict:
     """The hist kernel's entry of the ``kernels`` line, timed on the eval
@@ -390,6 +832,7 @@ def kernel_timing(labels: torch.Tensor, preds: torch.Tensor,
 def main() -> int:
     device = phase_device()
     hist_err = phase_hist_check()
+    remap_err = phase_remap_check()
 
     ds = SyntheticSegDataset(SERVE_FRAMES + 2, SIZE, CLASSES, seed=SEED,
                              fixed_tints=True)
@@ -397,14 +840,34 @@ def main() -> int:
     calib = np.stack([ds[SERVE_FRAMES + i][0] for i in range(2)])
     tree = calibrate_batch_stats(random_flax_bisenet(SEED), calib, "cuda")
 
+    # main path 1: serving and validation
     fast_hist_cuda.launches = 0
+    rgb_to_train_ids_cuda.launches = 0
     predictor = phase_serving(tree, frames)
     labels, preds = phase_validation(predictor)
-    launches = fast_hist_cuda.launches
-    if launches < 1:
-        raise AssertionError("the main path never launched the hist kernel")
+    serve_launches = fast_hist_cuda.launches
+    if serve_launches < 1:
+        raise AssertionError("serving/validation never launched K1")
+    del predictor
+    torch.cuda.empty_cache()
 
-    kernels = [kernel_timing(labels, preds, launches, hist_err)]
+    # main path 2: supervised training (counts reset inside, just before)
+    trained = phase_training()
+    train_launches = trained["launches"]
+    for name, n in train_launches.items():
+        if n < 1:
+            raise AssertionError(f"the training path never launched {name}")
+
+    kernels = [
+        kernel_timing(labels, preds,
+                      serve_launches + train_launches["fast_hist_cuda"],
+                      hist_err),
+        remap_timing(trained["rgb"], train_launches["rgb_to_train_ids_cuda"],
+                     remap_err)]
+    # last: the profiler's tracing may slow what runs after it
+    emit({"phase": "train_profile", "image_size": list(TRAIN_SIZE),
+          "batch": TRAIN_BATCH, **profile_train_steps(trained["state"],
+                                                      *trained["batch"])})
     emit({"kernels": kernels})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],

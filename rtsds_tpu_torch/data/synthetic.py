@@ -5,6 +5,9 @@ tinted with its class's color plus noise.  With ``fixed_tints=True`` one
 class -> color mapping is shared by every dataset with the same
 ``num_classes`` (independent of ``seed``), so a model can learn it; by
 default each image draws its own mapping.
+
+:class:`ColorCodedLabels` wraps such a dataset so its labels come as GTA5's
+raw colour-coded (H, W, 3) uint8 maps, for runs of the on-device remap.
 """
 
 from __future__ import annotations
@@ -41,3 +44,36 @@ class SyntheticSegDataset:
         image = tints[label] + rng.normal(0, 12, size=(h, w, 3))
         image = np.clip(image, 0, 255).astype(np.uint8)
         return image, label.astype(np.int32)
+
+
+class ColorCodedLabels:
+    """A dataset whose (H, W) trainId labels are colour-coded through the
+    remap table, as raw GTA5 labels are: each id < len(table) becomes its
+    key colour, any other id (void) a colour that is no key.  With
+    ``unmatched > 0`` that share of pixels, drawn from the seed, also gets
+    a non-key colour, so the remap's no-match path runs."""
+
+    VOID_COLOR = (1, 2, 3)  # no row of the GTA5 key table
+
+    def __init__(self, dataset, color_table, unmatched: float = 0.0,
+                 seed: int = 0):
+        self.dataset = dataset
+        self.table = np.asarray(color_table, dtype=np.uint8)
+        if (self.table == np.asarray(self.VOID_COLOR)).all(axis=1).any():
+            raise ValueError(f"the colour table holds {self.VOID_COLOR}")
+        self.unmatched = unmatched
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        image, label = self.dataset[idx]
+        valid = (label >= 0) & (label < len(self.table))
+        rgb = np.empty((*label.shape, 3), dtype=np.uint8)
+        rgb[...] = self.VOID_COLOR
+        rgb[valid] = self.table[label[valid]]
+        if self.unmatched > 0:
+            rng = np.random.default_rng((self.seed, int(idx)))
+            rgb[rng.random(label.shape) < self.unmatched] = self.VOID_COLOR
+        return image, rgb

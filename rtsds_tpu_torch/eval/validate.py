@@ -8,6 +8,7 @@ shaped like the reference training script's.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Iterable
 
 import numpy as np
@@ -20,20 +21,26 @@ from rtsds_tpu_torch.utils.metrics import per_class_iou
 
 
 def make_eval_step(model: nn.Module, num_classes: int,
-                   return_preds: bool = False) -> Callable:
+                   return_preds: bool = False,
+                   compute_dtype: torch.dtype | None = None) -> Callable:
     """Returns ``eval_step(images, labels, hist) -> hist`` (or
     ``(hist, preds)`` with ``return_preds``, for image-plot callbacks).
 
     ``images`` are normalized (N, H, W, 3) floats and ``labels`` (N, H, W)
     integer ids, both on the model's device; the model must be in eval
     mode (:func:`validate` sees to it).  The returned ``hist`` is a new
-    tensor: the one passed in is not modified.
+    tensor: the one passed in is not modified.  ``compute_dtype`` (e.g.
+    bf16 for a model trained in it) runs the forward under autocast.
     """
     dtype = next(model.parameters()).dtype
+    autocast = compute_dtype not in (None, dtype)
 
     @torch.inference_mode()
     def eval_step(images, labels, hist):
-        outputs = model(images.to(dtype).permute(0, 3, 1, 2))
+        with (torch.autocast(device_type=images.device.type,
+                             dtype=compute_dtype) if autocast
+              else contextlib.nullcontext()):
+            outputs = model(images.to(dtype).permute(0, 3, 1, 2))
         if isinstance(outputs, (tuple, list)):
             outputs = outputs[0]
         preds = outputs.argmax(dim=1)

@@ -78,6 +78,11 @@ def load() -> ctypes.CDLL:
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p]
             lib.rtsds_hist_launch.restype = ctypes.c_int
+            lib.rtsds_remap_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int32, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_void_p]
+            lib.rtsds_remap_launch.restype = ctypes.c_int
             lib.rtsds_cuda_error_string.argtypes = [ctypes.c_int]
             lib.rtsds_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

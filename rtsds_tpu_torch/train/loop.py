@@ -1,0 +1,111 @@
+"""The supervised training loop: epochs of train steps, validation every
+``do_validation`` epochs, callbacks and checkpoints.
+
+The loop reads each step's metrics one step late: it queues the next step
+on the device before it fetches the previous step's loss and counts, so
+the host never waits for the step it has just launched.  The best
+validation metric is tracked across epochs by :class:`ModelCheckpoint`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable
+
+from rtsds_tpu_torch.device import resolve_device
+from rtsds_tpu_torch.eval.validate import make_eval_step, validate
+
+
+def _fan_out(callbacks, method: str, *args, **kwargs):
+    for cb in callbacks or []:
+        getattr(cb, method)(*args, **kwargs)
+
+
+def train_epoch(state, train_step: Callable, batches: Iterable, epoch: int,
+                callbacks=None) -> dict:
+    """One epoch over ``batches`` of device-ready (images, labels).
+
+    Returns ``{'train_loss', 'train_accuracy'}``; each batch's callbacks
+    get the step's loss and the running pixel accuracy in percent.
+    """
+    _fan_out(callbacks, "on_train_begin")
+    running_loss = 0.0
+    correct = 0
+    total = 0
+    pending = None  # (batch_idx, metrics) of the previous step
+    n_batches = 0
+
+    def consume(item):
+        nonlocal running_loss, correct, total
+        batch_idx, metrics = item
+        loss = float(metrics["train_loss"])
+        running_loss += loss
+        correct += int(metrics["correct"])
+        total += int(metrics["total"])
+        logs = {"train_loss": loss,
+                "train_accuracy": 100.0 * correct / max(total, 1)}
+        for k, v in metrics.items():
+            if k not in ("train_loss", "correct", "total"):
+                logs[k] = float(v)
+        _fan_out(callbacks, "on_batch_end", batch_idx, logs)
+
+    for batch_idx, (images, labels) in enumerate(batches):
+        metrics = train_step(state, images, labels)
+        n_batches += 1
+        if pending is not None:
+            consume(pending)
+        pending = (batch_idx, metrics)
+    if pending is not None:
+        consume(pending)
+
+    train_loss = running_loss / max(n_batches, 1)
+    train_accuracy = 100.0 * correct / max(total, 1)
+    print(f"Train Epoch: {epoch + 1} Loss: {train_loss:.6f} "
+          f"Acc: {train_accuracy:.2f}%")
+    logs = {"train_loss": train_loss, "train_accuracy": train_accuracy}
+    _fan_out(callbacks, "on_epoch_end", epoch, logs)
+    return logs
+
+
+def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
+                   make_val_batches: Callable, epochs: int, num_classes: int,
+                   class_names=None, callbacks=None, do_validation: int = 1,
+                   checkpoint=None, start_epoch: int = 0, device=None):
+    """Epochs ``start_epoch .. epochs - 1`` of training and validation.
+
+    ``make_train_batches(epoch)`` and ``make_val_batches(epoch)`` return
+    iterables of device batches.  The model is moved to ``device``
+    (``None`` means the GPU, and raises without one).  ``checkpoint`` (a
+    :class:`~rtsds_tpu_torch.callbacks.checkpoint.ModelCheckpoint`) saves
+    ``{"model": state}``.  Returns ``(state, history)``, one history entry
+    per validation.
+    """
+    device = resolve_device(device)
+    state.model.to(device)
+    callbacks = list(callbacks or [])
+    if checkpoint is not None:
+        if checkpoint not in callbacks:
+            callbacks.append(checkpoint)
+        checkpoint.attach(lambda: {"model": state})
+    plot_cbs = any(hasattr(cb, "add_sample") for cb in callbacks)
+    eval_step = make_eval_step(state.model, num_classes,
+                               return_preds=plot_cbs,
+                               compute_dtype=state.compute_dtype)
+
+    history = []
+    for epoch in range(start_epoch, epochs):
+        if checkpoint is not None:
+            checkpoint.set_epoch(epoch)
+        train_logs = train_epoch(state, train_step, make_train_batches(epoch),
+                                 epoch, callbacks)
+        if do_validation and epoch % do_validation == 0:
+            miou, _ = validate(
+                state.model, make_val_batches(epoch), num_classes,
+                class_names=class_names, epoch=epoch, callbacks=callbacks,
+                detailed_report=class_names is not None, eval_step=eval_step,
+                device=device)
+            history.append({"epoch": epoch, **train_logs,
+                            "validation_mIoU": miou})
+        if any(getattr(cb, "should_stop", False) for cb in callbacks):
+            break
+    _fan_out(callbacks, "on_train_end")
+    return state, history

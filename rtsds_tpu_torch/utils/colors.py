@@ -1,4 +1,5 @@
-"""Cityscapes class names and display palette (the 19 training classes)."""
+"""Cityscapes class names, display palette and GTA5 label-colour keys (the
+19 training classes)."""
 
 from __future__ import annotations
 
@@ -35,6 +36,14 @@ TRAIN_ID_TO_COLOR = np.array([
     [0, 0, 230],      # motorcycle
     [119, 11, 32],    # bicycle
 ], dtype=np.uint8)
+
+
+def class_colors_for_remap() -> np.ndarray:
+    """(19, 3) uint8 RGB key of each trainId 0..18 in GTA5's colour-coded
+    labels: the Cityscapes label colours of the 19 training classes, which
+    the remap (:mod:`rtsds_tpu_torch.ops.remap` and its CUDA kernel) looks
+    up.  A fresh copy on every call."""
+    return TRAIN_ID_TO_COLOR.copy()
 
 
 def apply_color_map(segmentation_map: np.ndarray) -> np.ndarray:

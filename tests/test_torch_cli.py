@@ -1,0 +1,216 @@
+"""The port's training CLI on the CPU, end to end at tiny sizes: synthetic
+data, and GTA5-layout PNGs with colour-coded labels remapped on the
+device; best-model checkpoints, ``--resume`` and ``--validate_only``, as
+the JAX package's CLI does them; the checkpoint and early-stopping
+callbacks; and the switches not ported yet."""
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from rtsds_tpu_torch import cli
+from rtsds_tpu_torch.callbacks.checkpoint import EarlyStopping, ModelCheckpoint
+from rtsds_tpu_torch.utils.colors import class_colors_for_remap
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Tiny shapes gain nothing from many threads, and the test workers
+    share the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _config(tmp_path, extra=""):
+    path = tmp_path / "config.yaml"
+    path.write_text(f"""
+device: cpu
+data:
+  cityscapes:
+    image_size: "32, 64"
+    batch_size: 2
+    num_workers: 2
+    images_train_dir: "{tmp_path}/cs/img/train"
+    images_val_dir: "{tmp_path}/cs/img/val"
+    segmentation_train_dir: "{tmp_path}/cs/gt/train"
+    segmentation_val_dir: "{tmp_path}/cs/gt/val"
+  gta5_modified:
+    image_size: "40, 72"
+    batch_size: 2
+    num_workers: 2
+    images_dir: "{tmp_path}/gta5/images"
+    segmentation_dir: "{tmp_path}/gta5/labels"
+    decode_label_colors: true
+training:
+  segmentation: {{epochs: 2, do_validation: 1}}
+callbacks:
+  model_checkpoint: {{save_dir: "{tmp_path}/ckpt", save_name: "m",
+                     save_best: true, save_freq: 1}}
+  images_plots: null
+{extra}
+""")
+    return str(path)
+
+
+def _write_pngs(tmp_path):
+    rng = np.random.default_rng(0)
+    table = class_colors_for_remap()
+    for split in ("train", "val"):
+        img = tmp_path / "cs" / "img" / split / "city"
+        gt = tmp_path / "cs" / "gt" / split / "city"
+        img.mkdir(parents=True)
+        gt.mkdir(parents=True)
+        for i in range(4):
+            stem = f"city_{i:06d}_000019"
+            Image.fromarray(rng.integers(0, 256, (32, 64, 3), np.uint8)).save(
+                img / f"{stem}_leftImg8bit.png")
+            Image.fromarray(rng.integers(0, 19, (32, 64)).astype(np.uint8)
+                            ).save(gt / f"{stem}_gtFine_labelTrainIds.png")
+    for sub in ("images", "labels"):
+        (tmp_path / "gta5" / sub).mkdir(parents=True)
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (40, 72, 3), np.uint8)).save(
+            tmp_path / "gta5" / "images" / f"{i:05d}.png")
+        rgb = table[rng.integers(0, 19, (50, 90))]  # resized nearest
+        rgb[:5] = (1, 2, 3)  # void rows
+        Image.fromarray(rgb.astype(np.uint8)).save(
+            tmp_path / "gta5" / "labels" / f"{i:05d}.png")
+
+
+def _check_history(history, epochs):
+    assert [h["epoch"] for h in history] == list(epochs)
+    for h in history:
+        assert 0.0 <= h["validation_mIoU"] <= 1.0
+        assert np.isfinite(h["train_loss"])
+
+
+def test_gta5_pngs_train_resume_and_validate_only(tmp_path, capsys):
+    _write_pngs(tmp_path)
+    config = _config(tmp_path)
+    history = cli.main(["--config", config, "--dataset", "gta5",
+                        "--augmented", "--seed", "3"])
+    _check_history(history, [0, 1])
+    out = capsys.readouterr().out
+    assert "Training on GTA5" in out and "Best Model Saved at Epoch 0" in out
+    assert (tmp_path / "ckpt" / "m" / "epoch_0.pt").exists()
+
+    # a longer run resumes after the last saved epoch
+    path = tmp_path / "longer.yaml"
+    path.write_text((tmp_path / "config.yaml").read_text().replace(
+        "epochs: 2", "epochs: 3"))
+    saved = max(int(p.stem.split("_")[1])
+                for p in (tmp_path / "ckpt" / "m").glob("epoch_*.pt"))
+    history = cli.main(["--config", str(path), "--dataset", "gta5",
+                        "--resume", "--seed", "3"])
+    _check_history(history, range(saved + 1, 3))
+    assert f"Resuming from epoch {saved + 1}" in capsys.readouterr().out
+
+    miou = cli.main(["--config", config, "--dataset", "gta5",
+                     "--validate_only"])
+    assert 0.0 <= miou <= 1.0
+    assert "validate_only: checkpoint epoch" in capsys.readouterr().out
+
+
+def test_synthetic_cityscapes_run(tmp_path, capsys):
+    history = cli.main(["--config", _config(tmp_path), "--synthetic"])
+    _check_history(history, [0, 1])
+    assert "Validation mIoU for Epoch 2" in capsys.readouterr().out
+
+
+def test_validate_only_without_a_checkpoint_exits(tmp_path):
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        cli.main(["--config", _config(tmp_path), "--synthetic",
+                  "--validate_only"])
+
+
+@pytest.mark.parametrize("argv,extra,match", [
+    (["--domain_adaptation"], "", "--domain_adaptation"),
+    (["--model", "deeplab"], "", "DeepLabV2"),
+    (["--multihost"], "", "--multihost"),
+    ([], "validation: {sliding: {enabled: true}}", "validation.sliding"),
+    ([], "validation: {ensemble: {enabled: true}}", "validation.ensemble"),
+])
+def test_not_ported_switches_exit(tmp_path, argv, extra, match):
+    with pytest.raises(SystemExit, match=match) as info:
+        cli.main(["--config", _config(tmp_path, extra), "--synthetic",
+                  *argv])
+    assert "not ported yet" in str(info.value)
+
+
+@pytest.mark.parametrize("section", [
+    "accumulate_steps: 2", "ema: {enabled: true}",
+    "distillation: {enabled: true}"])
+def test_not_ported_training_options_exit(tmp_path, section):
+    config = _config(tmp_path)
+    text = (tmp_path / "config.yaml").read_text().replace(
+        "segmentation: {epochs: 2, do_validation: 1}",
+        f"segmentation: {{epochs: 2, do_validation: 1, {section}}}")
+    (tmp_path / "config.yaml").write_text(text)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(["--config", config, "--synthetic"])
+
+
+def test_criterion_other_than_cross_entropy_exits(tmp_path):
+    config = _config(tmp_path, "model: {bisenet: {criterion: {name: Dice}}}")
+    with pytest.raises(SystemExit, match="trains with CrossEntropy"):
+        cli.main(["--config", config, "--synthetic"])
+
+
+def test_colour_jitter_is_refused(tmp_path):
+    config = _config(tmp_path, "augmentation: {ColorJitter: {hue: 0.1}}")
+    with pytest.raises(NotImplementedError, match="ColorJitter"):
+        cli.main(["--config", config, "--synthetic", "--dataset", "gta5",
+                  "--augmented"])
+
+
+class _State:
+    """A train-state stand-in: one tensor."""
+
+    def __init__(self, value, n=3):
+        self.w = torch.full((n,), float(value))
+
+    def state_dict(self):
+        return {"w": self.w.clone()}
+
+    def load_state_dict(self, state):
+        if state["w"].shape != self.w.shape:
+            raise RuntimeError("size mismatch for w")
+        self.w.copy_(state["w"])
+
+
+def test_checkpoint_keeps_the_latest_and_the_best(tmp_path):
+    ckpt = ModelCheckpoint(str(tmp_path), "m", save_best=False,
+                           max_to_keep=2)
+    state = _State(0)
+    ckpt.attach(lambda: {"model": state})
+    for epoch, miou in enumerate([0.5, 0.9, 0.2, 0.3]):
+        state.w.fill_(epoch)
+        ckpt.on_epoch_end(epoch)
+        ckpt.on_validation_end({"validation_mIoU": miou})
+    mgr = ckpt.manager
+    assert mgr.all_steps() == [1, 2, 3]  # the last two, and the best
+    assert mgr.best_step() == 1 and mgr.latest_step() == 3
+
+    fresh = _State(-1)
+    resumed = ModelCheckpoint(str(tmp_path), "m")
+    states, start = resumed.resume({"model": fresh})
+    assert start == 4 and states["model"] is fresh
+    assert fresh.w.tolist() == [3.0] * 3 and resumed.best == 0.9
+
+    wrong = _State(-1, n=4)
+    assert not mgr.restore({"model": wrong})
+    assert wrong.w.tolist() == [-1.0] * 4
+    assert not mgr.restore({"generator": _State(0)})
+    assert ModelCheckpoint(str(tmp_path), "empty").resume(
+        {"model": fresh}) == ({"model": fresh}, 0)
+
+
+def test_early_stopping_counts_validations_without_gain():
+    stop = EarlyStopping(patience=2)
+    for miou in (0.3, 0.4, 0.4, 0.35):
+        assert not stop.should_stop
+        stop.on_validation_end({"validation_mIoU": miou})
+    assert stop.should_stop and stop.best == 0.4

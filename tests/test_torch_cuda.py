@@ -6,15 +6,26 @@ and no JAX installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from rtsds_tpu_torch.config import load_config
 from rtsds_tpu_torch.data.synthetic import SyntheticSegDataset
 from rtsds_tpu_torch.eval.validate import validate
 from rtsds_tpu_torch.ops.cuda.hist import fast_hist_cuda
+from rtsds_tpu_torch.ops.cuda.remap import rgb_to_train_ids_cuda
 from rtsds_tpu_torch.ops.preprocess import normalize
+from rtsds_tpu_torch.ops.remap import rgb_to_train_ids
 from rtsds_tpu_torch.serve import Predictor
+from rtsds_tpu_torch.train.factory import make_bisenet
+from rtsds_tpu_torch.train.optim import make_optimizer
+from rtsds_tpu_torch.train.state import TrainState
+from rtsds_tpu_torch.train.supervised import make_train_step
+from rtsds_tpu_torch.utils.colors import class_colors_for_remap
 from rtsds_tpu_torch.utils.metrics import fast_hist
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +84,108 @@ def test_serving_and_validation_on_the_card(cuda):
     miou, _ = validate(predictor.model, iter(batches), 19)
     assert fast_hist_cuda.launches == before + 2
     assert 0.0 <= miou <= 1.0
+
+
+def _rgb(rng, shape, table, unmatched=0.1):
+    rgb = table[rng.integers(0, len(table), shape)]
+    off = rng.random(shape) < unmatched
+    rgb[off] = rng.integers(0, 256, (int(off.sum()), 3))
+    return torch.from_numpy(rgb.astype(np.uint8))
+
+
+DUP_TABLE = np.random.default_rng(1).integers(0, 256, (128, 3)).astype(
+    np.uint8)
+DUP_TABLE[77] = DUP_TABLE[5]  # the first of two equal keys wins
+
+
+@pytest.mark.parametrize("shape,table,default_id", [
+    ((2, 37, 53), None, 255),
+    ((4097,), None, 0),          # ragged: not a multiple of 4 pixels
+    ((3,), None, 255),           # the tail alone
+    ((1000,), DUP_TABLE, 255),
+])
+def test_remap_kernel_equals_plain(cuda, shape, table, default_id):
+    keys = class_colors_for_remap() if table is None else table
+    rgb = _rgb(np.random.default_rng(0), shape, keys).to(cuda)
+    before = rgb_to_train_ids_cuda.launches
+    got = rgb_to_train_ids_cuda(rgb, table, default_id)
+    torch.cuda.synchronize()
+    assert rgb_to_train_ids_cuda.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got, rgb_to_train_ids(rgb, table, default_id))
+
+
+def test_remap_kernel_on_views_and_refusals(cuda):
+    rgb = _rgb(np.random.default_rng(2), (2, 64, 96),
+               class_colors_for_remap()).to(cuda)
+    for view in (rgb[:, ::2, 1::3], rgb.reshape(-1, 3)[1:]):
+        assert torch.equal(rgb_to_train_ids_cuda(view),
+                           rgb_to_train_ids(view))
+    empty = rgb_to_train_ids_cuda(rgb[:, :0])
+    assert empty.shape == (2, 0, 96)
+    with pytest.raises(TypeError, match="uint8"):
+        rgb_to_train_ids_cuda(rgb.to(torch.int32))
+
+
+@contextlib.contextmanager
+def _relu_routing(masks, replay=False):
+    """``F.relu`` records which inputs it passes; with ``replay`` it passes
+    the ones ``masks`` recorded, so a step takes another run's routing."""
+    relu = F.relu
+    recorded = iter(list(masks)) if replay else None
+
+    def routed(x, inplace=False):
+        if recorded is None:
+            masks.append((x.detach() > 0).cpu())
+            return relu(x, inplace)
+        return x * next(recorded).to(x.device, x.dtype)
+
+    F.relu = routed
+    try:
+        yield
+    finally:
+        F.relu = relu
+
+
+@pytest.mark.parametrize("dtype,batch", [(torch.float64, 2),
+                                         (torch.float32, 4)])
+def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, batch):
+    """One SGD step at 64x128, TF32 off, the CPU on the card's ReLU routing:
+    a ReLU input within rounding of zero may round to either side, and one
+    such flip moves some float32 updates by tens of times the limit; at two
+    frames float32 rounding alone can pass it (PERF.md)."""
+    ds = SyntheticSegDataset(batch, (64, 128), seed=3, fixed_tints=True)
+    images = normalize(torch.from_numpy(np.stack([ds[i][0]
+                                                  for i in range(batch)])))
+    images = images.to(dtype)
+    labels = torch.from_numpy(np.stack([ds[i][1] for i in range(batch)]))
+    labels[:, :3] = 19
+    cfg = load_config().model["bisenet"]
+    states = []
+    for dev in (cuda, "cpu"):
+        model = make_bisenet(cfg, seed=0).to(dev, dtype)
+        states.append(TrainState(model, make_optimizer(
+            "SGD", model.parameters(), 0.01, momentum=0.9)))
+    before = {k: v.detach().clone()
+              for k, v in states[1].model.named_parameters()}
+    step = make_train_step(19)
+    masks = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        with _relu_routing(masks):
+            loss_gpu = float(step(states[0], images.to(cuda),
+                                  labels.to(cuda))["train_loss"])
+        with _relu_routing(masks, replay=True):
+            loss_cpu = float(step(states[1], images, labels)["train_loss"])
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    gpu_state = states[0].model.state_dict()
+    for k, want in states[1].model.state_dict().items():
+        if "running_" in k:
+            torch.testing.assert_close(gpu_state[k].cpu(), want, rtol=1e-4,
+                                       atol=1e-5, msg=k)
+    gpu = dict(states[0].model.named_parameters())
+    for k, p in states[1].model.named_parameters():
+        want = p.detach() - before[k]
+        got = gpu[k].detach().cpu() - before[k]
+        limit = 1e-3 * float(want.abs().max()) + 1e-6
+        assert float((got - want).abs().max()) <= limit, k

@@ -11,10 +11,16 @@ from pathlib import Path
 import pytest
 import torch
 
+from rtsds_tpu_torch import cli
+from rtsds_tpu_torch.config import load_config
 from rtsds_tpu_torch.eval.validate import validate
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.ops.cuda import hist as cuda_hist
+from rtsds_tpu_torch.ops.cuda import remap as cuda_remap
 from rtsds_tpu_torch.serve import Predictor
+from rtsds_tpu_torch.train.factory import build_supervised
+from rtsds_tpu_torch.train.loop import supervised_fit
+from rtsds_tpu_torch.train.supervised import make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -57,8 +63,32 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         validate(BiSeNet(), iter([]), 19)
 
 
+def test_trainer_and_cli_refuse_to_fall_back_to_the_cpu(monkeypatch,
+                                                        tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = load_config(overrides={
+        "training": {"segmentation": {"epochs": 1}}})
+    state = build_supervised(config, "bisenet", 1, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        supervised_fit(state, make_train_step(), lambda e: [],
+                       lambda e: [], epochs=1, num_classes=19)
+    # the default config's device is the GPU; the CLI resolves it first
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--synthetic"])
+    path = tmp_path / "c.yaml"
+    path.write_text("device: tpu\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--config", str(path), "--synthetic"])
+
+
 def test_hist_wrapper_has_no_fallback():
     """On a CUDA tensor the wrapper launches the kernel or raises: no
     ``try`` in its module may catch a failed build or launch."""
     tree = ast.parse(inspect.getsource(cuda_hist))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_remap_wrapper_has_no_fallback():
+    """The same for the RGB remap kernel's wrapper."""
+    tree = ast.parse(inspect.getsource(cuda_remap))
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
