@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``rtsds_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py                 # from the repository root, one card
+    python3 chip_smoke.py --kernels-only  # build and time K1 and K2 alone
+
+Kernels are timed on the device alone with the L2 cold: each timed launch
+follows a write of a 256 MB buffer, as K2 follows the transform's write of
+the float32 image on the training path, and CUDA events bracket that
+launch only, so the wrapper's host cost (timed on its own) drops out.
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -24,12 +30,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
      a fresh model, one train step on the card held against the same step
      on the CPU (float64, and float32 with TF32 off), and the step timed;
   7. train_profile: torch.profiler over a few train steps: the device's
-     idle share and kernel time by group (run after the kernel timings,
-     which the profiler's tracing could slow);
+     idle share and kernel time by group, and each hand-written kernel's
+     device time per launch beside the timer's (run after the kernel
+     timings, which the profiler's tracing could slow);
   8. the ``kernels`` line: each kernel's launches on the main paths (phases
-     4-5 and phase 6, each counted from zero), its time, its plain
-     version's, a one-call library yardstick where one exists, and the
-     card's bound.
+     4-5 and phase 6, each counted from zero), its device time (median,
+     min, max), its wrapper's host cost, its plain version's time, a
+     one-call library yardstick where one exists, and the card's bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -93,6 +100,14 @@ TRAIN_VAL_BATCHES = 2
 UNMATCHED = 0.05       # share of label pixels whose colour is no class key
 # H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+# each kernel timing: this many launches, each after an L2 flush that
+# writes FLUSH_BYTES, more than 5x the H100's 50 MB L2, and a device sleep
+# of HOST_LEAD_CYCLES clock cycles that keeps the host's enqueue ahead of
+# the device
+TIMED_LAUNCHES = 100
+FLUSH_BYTES = 256 << 20
+HOST_LEAD_CYCLES = 200_000
+KERNEL_TIMING = "device-only, L2 flushed"
 # least share of pixels whose bf16 mask equals the f32 mask.  Random
 # weights leave small top-1/top-2 logit margins, so bf16 rounding flips
 # more pixels than it would with trained weights; a broken bf16 path
@@ -112,9 +127,10 @@ def gpu_name_and_power_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20, inner: int = 1, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms: CUDA events around ``inner``
-    back-to-back calls, ``reps`` times, after ``warmup`` calls."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median time of one call of ``fn`` in ms, host enqueue included: CUDA
+    events around each call, ``reps`` times, after ``warmup`` calls.  For
+    the end-to-end metrics (a predict call, a train step)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -123,12 +139,65 @@ def cuda_ms(fn, reps: int = 20, inner: int = 1, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
-            fn()
+        fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def l2_flush():
+    """A call that keeps the device busy with a sleep and then evicts the
+    card's 50 MB L2 by writing a buffer of ``FLUSH_BYTES``.  The write
+    leaves the L2 full of dirty lines, whose write-back to memory the next
+    kernel pays beside its own bytes, as K2 does after the transform writes
+    its float32 image.  The sleep before it lets the host enqueue the next
+    call before the device is done."""
+    buf = torch.ones(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def flush():
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
+        buf.fill_(1)
+    return flush
+
+
+def device_ms(fn, reps: int = TIMED_LAUNCHES, warmup: int = 3) -> dict:
+    """Device time of one call of ``fn`` with the L2 cold, in ms: before
+    each timed call the card flushes its L2 (:func:`l2_flush`), and CUDA
+    events bracket that one call.  The flush keeps the device busy while
+    the host enqueues the call, so the host's own cost per call
+    (:func:`host_us`) drops out.  Median, min and max over ``reps``
+    calls."""
+    flush = l2_flush()
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in events)
+    return {"ms": statistics.median(times), "ms_min": times[0],
+            "ms_max": times[-1]}
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn`` in microseconds (``time.perf_counter``
+    over ``calls`` calls) while the device runs a long sleep enqueued
+    before them, so that no call waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's ~2 GHz
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
 
 
 def random_flax_bisenet(seed: int, num_classes: int = CLASSES,
@@ -328,14 +397,45 @@ def phase_remap_check() -> float:
                                     device=dev).to(torch.uint8),
                       keys128[pick])
     flat = batch.reshape(-1, 3)
+    # rows a uint8 pixel never matches ((0, 0, 256) packs like the valid
+    # (0, 1, 0) further down), black and white as keys, 33 keys
+    rng = np.random.default_rng(SEED)
+    odd_rows = rng.integers(0, 256, (12, 3))
+    odd_rows[[0, 3, 7, 8]] = [[256, 0, 0], [-1, 5, 5], [0, 0, 256], [0, 1, 0]]
+    black_white = rng.integers(0, 256, (10, 3)).astype(np.uint8)
+    black_white[4], black_white[6] = (0, 0, 0), (255, 255, 255)
+    keys33 = rng.integers(0, 256, (33, 3)).astype(np.uint8)
+
+    def edge_pixels(table) -> torch.Tensor:
+        """Each valid key, each moved by +-1 on one channel, black, white
+        and random colours, on the card."""
+        keys = np.asarray(table, np.int64)
+        keys = keys[((keys >= 0) & (keys <= 255)).all(axis=1)]
+        near = [keys] + [(keys + step * np.eye(3, dtype=np.int64)[c]) % 256
+                         for c in range(3) for step in (-1, 1)]
+        px = np.concatenate([*near, [[0, 0, 0], [255, 255, 255]],
+                             rng.integers(0, 256, (3 * 4096, 3))])
+        return torch.from_numpy(rng.permutation(px).astype(np.uint8)).to(dev)
+
+    gta5 = class_colors_for_remap()
+    n4 = flat.shape[0] - 2  # from byte 4 on: 4- but not 16-byte aligned
+    aligned4 = flat.reshape(-1)[4:4 + 3 * n4].view(n4, 3)
     cases = {
         "train_batch": (batch, None, 255),
         "ragged": (flat[:flat.shape[0] - 5], None, 255),
         "empty": (flat[:0], None, 255),
         "keys128_duplicate": (dup, keys128.cpu().numpy(), 255),
         "default_id_0": (batch, None, 0),
+        "default_id_negative": (batch, None, -1),
         "non_contiguous": (batch[:, 100:600:2, 7:1000:3], None, 255),
         "misaligned": (flat[1:1_000_002], None, 255),
+        "aligned_4_not_16": (aligned4, None, 255),
+        "gta5_edge_colours": (edge_pixels(gta5), None, 7),
+        "rows_never_matched": (edge_pixels(odd_rows), odd_rows, 255),
+        "black_white_keys": (edge_pixels(black_white), black_white, 0),
+        "keys33": (edge_pixels(keys33), keys33, 255),
+        **{f"pixels_{n}": (flat[:n], None, 255)
+           for n in (1, 15, 16, 17, 4095, 4096, 4097)},
     }
     report = {}
     for name, (rgb, table, default_id) in cases.items():
@@ -356,6 +456,17 @@ def phase_remap_check() -> float:
         report[name] = {"pixels": got.numel(), "keys": 19 if table is None
                         else len(table), "default_id": default_id,
                         "unmatched": int((want == default_id).sum())}
+    # imported here: ``--kernels-only`` also runs in trees without it
+    from rtsds_tpu_torch.ops.cuda.remap import remap_table
+    hashed = {name: remap_table(table)
+              for name, table in (("gta5", None), ("keys128", keys128.cpu()
+                                                   .numpy()),
+                                  ("keys33", keys33))}
+    report["hash_tables"] = {name: {"slots": len(t.slots),
+                                    "probes": t.probes}
+                             for name, t in hashed.items()}
+    if (hashed["gta5"].probes, len(hashed["gta5"].slots)) != (1, 32):
+        raise AssertionError(f"the GTA5 table hashed into {hashed['gta5']}")
     emit({"phase": "remap_check", "exact": True, "cases": report})
     return 0.0
 
@@ -789,47 +900,127 @@ def phase_training() -> dict:
             "batch": (images, labels)}
 
 
+def timed_entry(kernel, plain, library, nbytes: int) -> dict:
+    """The measured keys of a ``kernels`` entry: the kernel's device time
+    (median, min, max), its wrapper's host cost, the plain version's and
+    the library call's (if any) device time, and the bytes bound; each of
+    ``kernel``, ``plain`` and ``library`` is a call of no arguments."""
+    timed = device_ms(kernel)
+    return {"ms": timed["ms"], "ms_min": timed["ms_min"],
+            "ms_max": timed["ms_max"], "timing": KERNEL_TIMING,
+            "host_us": host_us(kernel), "plain_ms": device_ms(plain)["ms"],
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": device_ms(library)["ms"] if library else None}
+
+
 def remap_timing(rgb: torch.Tensor, launches: int,
                  max_abs_err: float) -> dict:
     """The remap kernel's entry of the ``kernels`` line, timed on one
-    training batch's colour-coded labels."""
-    ms = cuda_ms(lambda: rgb_to_train_ids_cuda(rgb), inner=10)
-    plain_ms = cuda_ms(lambda: rgb_to_train_ids(rgb), inner=10)
+    training batch's colour-coded labels.  No single PyTorch call computes
+    a first-match colour-key lookup, so ``library_ms`` is null."""
     pixels = rgb.numel() // 3
     nbytes = pixels * 3 + pixels * 4  # uint8 RGB in, int32 ids out
     return {"name": "rgb_to_train_ids_cuda", "route": "cuda",
             "source": "rtsds_tpu_torch/ops/cuda/csrc/remap.cu",
             "replaces": "rtsds_tpu/ops/pallas/remap.py:42",
             "launches": launches, "max_abs_err": max_abs_err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None}
+            **timed_entry(lambda: rgb_to_train_ids_cuda(rgb),
+                          lambda: rgb_to_train_ids(rgb), None, nbytes)}
 
 
 def kernel_timing(labels: torch.Tensor, preds: torch.Tensor,
                   launches: int, max_abs_err: float) -> dict:
     """The hist kernel's entry of the ``kernels`` line, timed on the eval
-    step's own labels and int32 predictions."""
+    step's own labels and int32 predictions.  The library yardstick is
+    ``torch.bincount`` of the joint ids, which syncs with the host to size
+    its output."""
     n = CLASSES
-    preds = preds.to(torch.int32)
-    ms = cuda_ms(lambda: fast_hist_cuda(labels, preds, n), inner=10)
-    plain_ms = cuda_ms(lambda: fast_hist(labels, preds, n), inner=10)
     l64, p64 = labels.reshape(-1).long(), preds.reshape(-1).long()
     idx = torch.where((l64 >= 0) & (l64 < n) & (p64 >= 0) & (p64 < n),
                       l64 * n + p64, n * n)
-    library_ms = cuda_ms(lambda: torch.bincount(idx, minlength=n * n + 1),
-                         inner=10)
     nbytes = labels.numel() * 4 + preds.numel() * 4 + n * n * 4
     return {"name": "fast_hist_cuda", "route": "cuda",
             "source": "rtsds_tpu_torch/ops/cuda/csrc/hist.cu",
             "replaces": "rtsds_tpu/ops/pallas/hist.py:48",
             "launches": launches, "max_abs_err": max_abs_err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": library_ms}
+            **timed_entry(lambda: fast_hist_cuda(labels, preds, n),
+                          lambda: fast_hist(labels, preds, n),
+                          lambda: torch.bincount(idx, minlength=n * n + 1),
+                          nbytes)}
+
+
+def profile_kernels(calls: dict, launches: int = 20) -> dict:
+    """torch.profiler's device time per launch of each hand-written kernel,
+    each launch after the same L2 flush as :func:`device_ms`: a cross-check
+    of that timer.  ``calls`` maps a kernel's name in the trace to a call
+    that launches it once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = l2_flush()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(launches):
+                flush()
+                fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in calls:
+        spans = [(e.time_range.end - e.time_range.start) / 1e3
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+        out[name] = {"launches_seen": len(spans),
+                     "median_ms": statistics.median(spans) if spans
+                     else "not measured (no device events)"}
+    return out
+
+
+def kernels_only() -> int:
+    """Builds the kernels and times K1 and K2 alone with :func:`device_ms`,
+    at the main paths' shapes; K2's output is held against the plain
+    remap.  K2's labels are made as the trainer's are; K1's predictions
+    are the labels with 30% noise, not a model's argmax.  To compare two
+    trees in one call, copy this script to each tree's root and run it
+    there with ``--kernels-only``."""
+    phase_device()
+    dev = torch.device("cuda")
+    gta5 = ColorCodedLabels(
+        SyntheticSegDataset(TRAIN_BATCH, TRAIN_SIZE, CLASSES, seed=SEED + 4,
+                            fixed_tints=True),
+        class_colors_for_remap(), unmatched=UNMATCHED, seed=SEED)
+    rgb = torch.from_numpy(np.stack([gta5[i][1]
+                                     for i in range(TRAIN_BATCH)])).to(dev)
+    if not torch.equal(rgb_to_train_ids_cuda(rgb), rgb_to_train_ids(rgb)):
+        raise AssertionError("remap kernel != plain on the training batch")
+    label_map = SyntheticSegDataset(1, SIZE, CLASSES, seed=SEED)[0][1]
+    labels = torch.from_numpy(label_map).to(dev).expand(
+        BATCH, *SIZE).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    noise = torch.randint(0, CLASSES, labels.shape, generator=gen,
+                          device=dev, dtype=torch.int32)
+    preds = torch.where(torch.rand(labels.shape, generator=gen, device=dev)
+                        < 0.3, noise, labels)
+    times = {}
+    for name, fn in (
+            ("fast_hist_cuda", lambda: fast_hist_cuda(labels, preds,
+                                                      CLASSES)),
+            ("rgb_to_train_ids_cuda", lambda: rgb_to_train_ids_cuda(rgb))):
+        times[name] = {**device_ms(fn), "host_us": host_us(fn)}
+    emit({"phase": "kernel_times", "timing": KERNEL_TIMING,
+          "launches_per_timing": TIMED_LAUNCHES,
+          "remap_pixels": rgb.numel() // 3, "hist_pixels": labels.numel(),
+          "kernels": times})
+    print(gpu_name_and_power_limit(), flush=True)
+    return 0
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--kernels-only"]:
+        return kernels_only()
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only]")
     device = phase_device()
     hist_err = phase_hist_check()
     remap_err = phase_remap_check()
@@ -858,6 +1049,7 @@ def main() -> int:
         if n < 1:
             raise AssertionError(f"the training path never launched {name}")
 
+    preds = preds.to(torch.int32)
     kernels = [
         kernel_timing(labels, preds,
                       serve_launches + train_launches["fast_hist_cuda"],
@@ -865,9 +1057,17 @@ def main() -> int:
         remap_timing(trained["rgb"], train_launches["rgb_to_train_ids_cuda"],
                      remap_err)]
     # last: the profiler's tracing may slow what runs after it
+    traced = profile_kernels({
+        "hist_kernel": lambda: fast_hist_cuda(labels, preds, CLASSES),
+        "remap_kernel": lambda: rgb_to_train_ids_cuda(trained["rgb"])})
+    for entry, name in zip(kernels, ("hist_kernel", "remap_kernel")):
+        seen = traced[name]
+        seen["timer_ms"] = entry["ms"]
+        if isinstance(seen["median_ms"], float):
+            seen["profiler_over_timer"] = seen["median_ms"] / entry["ms"]
     emit({"phase": "train_profile", "image_size": list(TRAIN_SIZE),
-          "batch": TRAIN_BATCH, **profile_train_steps(trained["state"],
-                                                      *trained["batch"])})
+          "batch": TRAIN_BATCH, "kernel_device_ms": traced,
+          **profile_train_steps(trained["state"], *trained["batch"])})
     emit({"kernels": kernels})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],

@@ -1,6 +1,7 @@
 """Builds the CUDA kernels in ``csrc/`` at first use and binds them.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, which is loaded with ``ctypes``.  The
 library lands in ``_build/`` beside this file, named by a hash of the
 sources and flags, so a changed source builds anew.  A failed build raises:
@@ -20,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -56,14 +57,30 @@ def build() -> Path:
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, target)
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    try:
+        compiles = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)]
+        build_log = "".join(proc.communicate()[0] for proc in compiles)
+        codes = [proc.returncode for proc in compiles]
+        if any(codes):
+            raise RuntimeError(f"nvcc failed {codes}:\n{build_log}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, target)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return target
 
 
@@ -79,9 +96,9 @@ def load() -> ctypes.CDLL:
                 ctypes.c_void_p]
             lib.rtsds_hist_launch.restype = ctypes.c_int
             lib.rtsds_remap_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int32, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                ctypes.c_int, ctypes.c_int32, ctypes.c_void_p]
             lib.rtsds_remap_launch.restype = ctypes.c_int
             lib.rtsds_cuda_error_string.argtypes = [ctypes.c_int]
             lib.rtsds_cuda_error_string.restype = ctypes.c_char_p

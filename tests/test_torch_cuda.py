@@ -4,6 +4,10 @@ This file imports nothing of JAX, so it also runs on a machine with a card
 and no JAX installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+
+Its remap edge cases (``EDGE_TABLES``, ``DEFAULT_IDS``, ``edge_pixels``)
+also drive the CPU tests of the kernel's hash table in
+``test_torch_remap.py``.
 """
 
 import contextlib
@@ -98,11 +102,74 @@ DUP_TABLE = np.random.default_rng(1).integers(0, 256, (128, 3)).astype(
 DUP_TABLE[77] = DUP_TABLE[5]  # the first of two equal keys wins
 
 
+def _random_table(seed: int, rows: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, (rows, 3)).astype(
+        np.uint8)
+
+
+def _duplicates() -> np.ndarray:
+    table = _random_table(3, 40)
+    table[[9, 21, 39]] = table[[2, 2, 30]]  # the first of equal keys wins
+    return table
+
+
+def _out_of_range_rows() -> np.ndarray:
+    """Rows with a channel outside [0, 255] match no uint8 pixel; (0, 0,
+    256) packs like (0, 1, 0), a valid row further down."""
+    table = _random_table(4, 12).astype(np.int64)
+    table[[0, 3, 7, 8]] = [[256, 0, 0], [-1, 5, 5], [0, 0, 256], [0, 1, 0]]
+    return table
+
+
+def _black_and_white() -> np.ndarray:
+    table = _random_table(5, 10)
+    table[4], table[6] = (0, 0, 0), (255, 255, 255)
+    return table
+
+
+EDGE_TABLES = {
+    "gta5": None,  # the 19 GTA5 keys; neither black nor white
+    "random33": _random_table(1, 33),
+    "random128": _random_table(2, 128),
+    "duplicates": _duplicates(),
+    "out_of_range_rows": _out_of_range_rows(),
+    "black_and_white": _black_and_white(),
+}
+DEFAULT_IDS = (0, 255, 7, -1)  # void 0 ('road'), 255, a class id, negative
+
+
+def edge_pixels(table, seed: int = 0, n_random: int = 2000) -> np.ndarray:
+    """(N, 3) uint8, shuffled: every valid key colour of ``table`` (None:
+    the GTA5 keys), each with one channel moved by +-1, black, white and
+    ``n_random`` random colours."""
+    rng = np.random.default_rng(seed)
+    keys = np.asarray(class_colors_for_remap() if table is None else table,
+                      np.int64)
+    valid = keys[((keys >= 0) & (keys <= 255)).all(axis=1)]
+    near = [valid]
+    for channel in range(3):
+        for step in (-1, 1):
+            moved = valid.copy()
+            moved[:, channel] = (moved[:, channel] + step) % 256
+            near.append(moved)
+    pixels = np.concatenate([*near, [[0, 0, 0], [255, 255, 255]],
+                             rng.integers(0, 256, (n_random, 3))])
+    return rng.permutation(pixels).astype(np.uint8)
+
+
 @pytest.mark.parametrize("shape,table,default_id", [
     ((2, 37, 53), None, 255),
-    ((4097,), None, 0),          # ragged: not a multiple of 4 pixels
-    ((3,), None, 255),           # the tail alone
+    ((4097,), None, 0),          # one whole 4096-pixel tile and one pixel
+    ((3,), None, 255),           # a partial tile alone
     ((1000,), DUP_TABLE, 255),
+    ((1,), None, 255),
+    ((15,), None, 255),
+    ((16,), None, 255),
+    ((17,), None, 255),
+    ((4095,), None, 255),
+    ((4096,), None, 255),
+    ((3, 4096 + 5), DUP_TABLE, -1),
+    ((8, 720, 1280), None, 255),  # the training batch: 1800 whole tiles
 ])
 def test_remap_kernel_equals_plain(cuda, shape, table, default_id):
     keys = class_colors_for_remap() if table is None else table
@@ -115,12 +182,32 @@ def test_remap_kernel_equals_plain(cuda, shape, table, default_id):
     assert torch.equal(got, rgb_to_train_ids(rgb, table, default_id))
 
 
+@pytest.mark.parametrize("default_id", DEFAULT_IDS)
+@pytest.mark.parametrize("name", EDGE_TABLES)
+def test_remap_kernel_on_edge_tables(cuda, name, default_id):
+    """Duplicated keys, rows no pixel matches, black and white in the
+    table or only in the pixels, 33 and 128 keys; 3 whole tiles and a
+    partial one."""
+    table = EDGE_TABLES[name]
+    rgb = torch.from_numpy(edge_pixels(table, n_random=3 * 4096)).to(cuda)
+    before = rgb_to_train_ids_cuda.launches
+    got = rgb_to_train_ids_cuda(rgb, table, default_id)
+    torch.cuda.synchronize()
+    assert rgb_to_train_ids_cuda.launches == before + 1
+    assert torch.equal(got, rgb_to_train_ids(rgb, table, default_id))
+
+
 def test_remap_kernel_on_views_and_refusals(cuda):
     rgb = _rgb(np.random.default_rng(2), (2, 64, 96),
                class_colors_for_remap()).to(cuda)
-    for view in (rgb[:, ::2, 1::3], rgb.reshape(-1, 3)[1:]):
+    flat = rgb.reshape(-1)
+    aligned4 = flat[4:4 + 3 * 5000].view(5000, 3)  # 4- but not 16-byte
+    assert aligned4.data_ptr() % 4 == 0 and aligned4.data_ptr() % 16
+    for view in (rgb[:, ::2, 1::3], rgb.reshape(-1, 3)[1:], aligned4):
+        before = rgb_to_train_ids_cuda.launches
         assert torch.equal(rgb_to_train_ids_cuda(view),
                            rgb_to_train_ids(view))
+        assert rgb_to_train_ids_cuda.launches == before + 1
     empty = rgb_to_train_ids_cuda(rgb[:, :0])
     assert empty.shape == (2, 0, 96)
     with pytest.raises(TypeError, match="uint8"):

@@ -1,16 +1,20 @@
 """The port's RGB -> trainId remap (plain version and the K2 wrapper's CPU
 path) against the JAX package's vectorized remap and its Pallas kernel in
-interpret mode, on the same numpy inputs: exact."""
+interpret mode, on the same numpy inputs: exact.  The kernel's hash-table
+lookup, emulated in numpy, is held exactly against the plain version."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_cuda import DEFAULT_IDS, EDGE_TABLES, edge_pixels
 
 from rtsds_tpu.ops.pallas.remap import rgb_to_train_ids_pallas
 from rtsds_tpu.ops.remap import rgb_to_train_ids as jax_remap
 from rtsds_tpu.utils.colors import class_colors_for_remap as jax_colors
-from rtsds_tpu_torch.ops.cuda.remap import pack_keys, rgb_to_train_ids_cuda
+from rtsds_tpu_torch.ops.cuda.remap import (
+    EMPTY, MAX_BITS, HashTable, build_hash_table, pack_keys, remap_table,
+    rgb_to_train_ids_cuda)
 from rtsds_tpu_torch.ops.remap import rgb_to_train_ids
 from rtsds_tpu_torch.utils.colors import class_colors_for_remap
 
@@ -96,3 +100,80 @@ def test_cpu_path_launches_nothing():
     before = rgb_to_train_ids_cuda.launches
     rgb_to_train_ids_cuda(torch.zeros((2, 4, 4, 3), dtype=torch.uint8))
     assert rgb_to_train_ids_cuda.launches == before
+
+
+def _kernel_lookup(table: HashTable, rgb: np.ndarray,
+                   default_id: int) -> np.ndarray:
+    """``csrc/remap.cu``'s lookup in numpy, in uint32 as the kernel does
+    it: the multiplicative hash, ``probes`` slot reads, and per read a
+    compare of ``slot & 0x80FFFFFF`` with the key and a select of the id in
+    bits 24-30."""
+    px = rgb.astype(np.uint32)
+    key = px[..., 0] << 16 | px[..., 1] << 8 | px[..., 2]
+    home = (key * np.uint32(table.multiplier)) >> np.uint32(32 - table.bits)
+    ids = np.full(key.shape, default_id, np.int32)
+    for j in range(table.probes):
+        word = table.slots[(home + np.uint32(j)) & np.uint32(
+            (1 << table.bits) - 1)]
+        ids = np.where((word & np.uint32(0x80FFFFFF)) == key,
+                       (word >> np.uint32(24)).astype(np.int32), ids)
+    return ids
+
+
+@pytest.mark.parametrize("default_id", DEFAULT_IDS)
+@pytest.mark.parametrize("name", EDGE_TABLES)
+def test_hash_lookup_equals_plain_remap(name, default_id):
+    table = EDGE_TABLES[name]
+    rgb = edge_pixels(table)
+    want = rgb_to_train_ids(torch.from_numpy(rgb), table, default_id).numpy()
+    got = _kernel_lookup(remap_table(table), rgb, default_id)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        rgb_to_train_ids_cuda(torch.from_numpy(rgb), table,
+                              default_id).numpy(), want)
+    assert (want == default_id).any() and (want != default_id).any()
+
+
+def test_hash_lookup_equals_pallas_on_the_gta5_table():
+    rgb = edge_pixels(None, seed=1).reshape(1, -1, 3)
+    want = np.asarray(rgb_to_train_ids_pallas(jnp.asarray(rgb),
+                                              interpret=True))
+    np.testing.assert_array_equal(_kernel_lookup(remap_table(), rgb, 255),
+                                  want)
+
+
+def test_gta5_table_hashes_perfectly_into_32_slots():
+    """One probe, one slot per shared-memory bank; the seeded search gives
+    the same table each time it runs."""
+    table = remap_table()
+    assert (table.bits, table.probes) == (5, 1)
+    assert table.multiplier % 2 == 1 and table.slots.dtype == np.uint32
+    assert int((table.slots != EMPTY).sum()) == 19
+    again = build_hash_table(pack_keys(class_colors_for_remap()))
+    assert again.multiplier == table.multiplier
+    np.testing.assert_array_equal(again.slots, table.slots)
+
+
+@pytest.mark.parametrize("name", ["random33", "random128", "duplicates"])
+def test_larger_tables_take_a_short_fixed_probe_count(name):
+    """A pixel's work does not grow with the keys: 128 keys take 2 probes
+    in at most 512 slots; the duplicated rows take no slot."""
+    table = EDGE_TABLES[name]
+    hashed = remap_table(table)
+    assert hashed.bits <= MAX_BITS and hashed.probes <= 2
+    assert int((hashed.slots != EMPTY).sum()) == len(
+        np.unique(pack_keys(table)))
+
+
+def test_remap_table_is_cached_per_table():
+    table = EDGE_TABLES["duplicates"]
+    assert remap_table(table) is remap_table(table.copy())
+    assert remap_table() is remap_table(None)
+    assert remap_table(table) is not remap_table(table.astype(np.int64))
+
+
+def test_a_table_no_pixel_can_match_leaves_every_slot_empty():
+    table = remap_table([[256, 0, 0], [-1, 0, 0]])
+    assert (table.slots == EMPTY).all()
+    rgb = np.array([[0, 0, 0], [255, 255, 255], [0, 0, 255]], np.uint8)
+    assert _kernel_lookup(table, rgb, -3).tolist() == [-3, -3, -3]
