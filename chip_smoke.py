@@ -29,14 +29,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
      K2 output held against the plain remap, the checkpoint restored into
      a fresh model, one train step on the card held against the same step
      on the CPU (float64, and float32 with TF32 off), and the step timed;
-  7. train_profile: torch.profiler over a few train steps: the device's
+  7. da_training: adversarial GTA5 -> Cityscapes domain adaptation at full
+     width (BiSeNet-R18 generator, Tiny discriminator, source 720x1280 and
+     target 512x1024, batch 8, bf16, Adam) through ``build_adversarial``,
+     ``make_adversarial_step`` (v1), endless ``device_batches`` streams (K2
+     in the source transform) and ``adversarial_fit``, validated each
+     epoch at 512x1024 (K1); every loss finite, every K2 output held
+     against the plain remap, the generator/discriminator checkpoint
+     restored into fresh states, one step of each of v1, the
+     gradient-reversal step and v2 on the card held against the same step
+     on the CPU in float64, and the v1 and v2 steps timed
+     (``rtsds_tpu_torch.bench.da_bench``) with v1's generator and
+     discriminator phases apart and the peak device memory;
+  8. train_profile: torch.profiler over a few train steps: the device's
      idle share and kernel time by group, and each hand-written kernel's
      device time per launch beside the timer's (run after the kernel
      timings, which the profiler's tracing could slow);
-  8. the ``kernels`` line: each kernel's launches on the main paths (phases
-     4-5 and phase 6, each counted from zero), its device time (median,
-     min, max), its wrapper's host cost, its plain version's time, a
-     one-call library yardstick where one exists, and the card's bound.
+  9. the ``kernels`` line: each kernel's launches on the main paths (phases
+     4-5, phase 6 and phase 7, each counted from zero), its device time
+     (median, min, max), its wrapper's host cost, its plain version's
+     time, a one-call library yardstick where one exists, and the card's
+     bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -56,6 +69,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rtsds_tpu_torch.bench.da_bench import da_step_benchmark
 from rtsds_tpu_torch.callbacks.base import Callback
 from rtsds_tpu_torch.callbacks.checkpoint import ModelCheckpoint
 from rtsds_tpu_torch.config import load_config
@@ -76,8 +90,11 @@ from rtsds_tpu_torch.ops.losses import segmentation_loss
 from rtsds_tpu_torch.ops.preprocess import make_transform, normalize
 from rtsds_tpu_torch.ops.remap import rgb_to_train_ids
 from rtsds_tpu_torch.serve import Predictor
-from rtsds_tpu_torch.train.factory import build_supervised, make_bisenet
-from rtsds_tpu_torch.train.loop import supervised_fit
+from rtsds_tpu_torch.train.adversarial import make_adversarial_step
+from rtsds_tpu_torch.train.factory import (
+    build_adversarial, build_supervised, make_bisenet, make_discriminator)
+from rtsds_tpu_torch.train.loop import (
+    DA_LOSS_KEYS, adversarial_fit, supervised_fit)
 from rtsds_tpu_torch.train.optim import make_optimizer
 from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.train.supervised import make_train_step
@@ -98,6 +115,13 @@ TRAIN_EPOCHS = 2
 TRAIN_VAL_SIZE = (512, 1024)
 TRAIN_VAL_BATCHES = 2
 UNMATCHED = 0.05       # share of label pixels whose colour is no class key
+# domain adaptation: GTA5-sized source, Cityscapes-sized target, each batch
+# 8; validated like the supervised trainer
+DA_TGT_SIZE = (512, 1024)
+DA_ITERATIONS = 4      # per epoch
+DA_EPOCHS = 2
+DA_BENCH_STEPS = 5     # per timed repeat
+DA_BENCH_REPEATS = 3
 # H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 # each kernel timing: this many launches, each after an L2 flush that
@@ -737,26 +761,30 @@ KERNEL_GROUPS = (  # first match wins; names lower-cased
 )
 
 
-def profile_train_steps(state, images, labels, steps: int = 5) -> dict:
-    """torch.profiler over ``steps`` train steps: device busy time (the
-    union of kernel intervals), the idle share of the host-clock window,
-    device time by kernel group and the top kernels."""
+def profile_steps(run, steps: int = 5) -> dict:
+    """torch.profiler over ``steps`` calls of ``run`` (one train step each,
+    after one untraced call): device busy time (the union of kernel
+    intervals), the idle share of the host-clock window, device time by
+    kernel group and the top kernels.  User annotations on the device's
+    timeline (``Optimizer.step#Adam.step`` spans the optimizer's kernels)
+    are no kernels and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step = make_train_step(19)
-    step(state, images, labels)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(state, images, labels)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    notes = {e.name for e in device if getattr(e, "is_user_annotation", False)}
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   for e in device
+                   if not getattr(e, "is_user_annotation", False))
     if not spans:
         return {"device_time": "not measured (no device events)",
                 "wall_ms_per_step": wall_ms / steps}
@@ -776,6 +804,7 @@ def profile_train_steps(state, images, labels, steps: int = 5) -> dict:
     total = sum(by_group.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "annotations_left_out": sorted(notes),
             "device_busy_ms_per_step": busy / 1e3 / steps,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
             "kernel_ms_per_step": total / steps,
@@ -898,6 +927,224 @@ def phase_training() -> dict:
           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     return {"rgb": rgb_dev, "launches": launches, "state": state,
             "batch": (images, labels)}
+
+
+class _DALossRecorder(Callback):
+    def __init__(self):
+        self.losses = []
+
+    def on_batch_end(self, batch, logs=None):
+        self.losses.append(dict(logs))
+
+
+def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0) -> dict:
+    """One float64 SGD step of the adversarial trainer (BiSeNet-R18 and the
+    Tiny discriminator, b2, source 64x96, target 64x128) on the card and
+    on the CPU, same weights and batches; fails unless every loss agrees
+    to 1e-4 relative, G's BN running statistics to rtol 1e-4 / atol 1e-5,
+    and each parameter tensor's update, of G and of D, to 1e-3 of its
+    largest update + 1e-6.  Returns the worst of each, over its limit."""
+    def batch(size, seed):
+        ds = SyntheticSegDataset(2, size, CLASSES, seed=seed,
+                                 fixed_tints=True)
+        images = normalize(torch.from_numpy(np.stack([ds[i][0]
+                                                      for i in range(2)])))
+        labels = torch.from_numpy(np.stack([ds[i][1] for i in range(2)]))
+        return images.double(), labels
+
+    src, labels = batch((64, 96), SEED + 8)
+    labels[:, :3] = 19  # a band of ignored pixels
+    tgt, _ = batch((64, 128), SEED + 9)
+    config = load_config()
+    states = {}
+    for dev in ("cpu", "cuda"):
+        gen = make_bisenet(config.model["bisenet"], seed=SEED).to(
+            dev, torch.float64)
+        dis = make_discriminator(
+            config.model["adversarial_model"]["discriminator"],
+            seed=SEED + 1).to(dev, torch.float64)
+        states[dev] = (
+            TrainState(gen, make_optimizer("SGD", gen.parameters(), 0.01,
+                                           momentum=0.0)),
+            TrainState(dis, make_optimizer("SGD", dis.parameters(), 0.02,
+                                           momentum=0.0)))
+    before = [{k: v.detach().clone() for k, v in s.model.named_parameters()}
+              for s in states["cpu"]]
+    step = make_adversarial_step(0.1, DA_ITERATIONS, DA_EPOCHS, 19, variant,
+                                 grl_alpha=grl_alpha)
+    metrics = {dev: step(*states[dev], src.to(dev), labels.to(dev),
+                         tgt.to(dev)) for dev in ("cuda", "cpu")}
+    loss_err = max(abs(float(metrics["cuda"][k]) - float(v)) / abs(float(v))
+                   for k, v in metrics["cpu"].items()
+                   if k.startswith("loss_"))
+    cpu_state = states["cpu"][0].model.state_dict()
+    stats_err = max(float(((v.cpu() - cpu_state[k]).abs()
+                           / (1e-5 + 1e-4 * cpu_state[k].abs())).max())
+                    for k, v in states["cuda"][0].model.state_dict().items()
+                    if "running_" in k)
+    ratios = {}
+    for net, cpu_s, gpu_s, start in zip("GD", states["cpu"], states["cuda"],
+                                        before):
+        gpu_params = dict(gpu_s.model.named_parameters())
+        for k, p in cpu_s.model.named_parameters():
+            want = p.detach() - start[k]
+            got = gpu_params[k].detach().cpu() - start[k]
+            limit = 1e-3 * float(want.abs().max()) + 1e-6
+            ratios[f"{net}:{k}"] = float((got - want).abs().max()) / limit
+    worst = sorted(ratios, key=ratios.get, reverse=True)
+    result = {"variant": variant, "grl_alpha": grl_alpha,
+              "loss_gen_source_cpu": float(metrics["cpu"]["loss_gen_source"]),
+              "loss_rel_diff": loss_err, "bn_stats_err_over_limit": stats_err,
+              "tensors_over_limit": sum(r > 1.0 for r in ratios.values()),
+              "worst_update_err_over_limit": {k: ratios[k]
+                                              for k in worst[:2]}}
+    if loss_err > 1e-4 or stats_err > 1.0 or result["tensors_over_limit"]:
+        raise AssertionError(f"the DA step on the card differs from the "
+                             f"CPU's: {result}")
+    return result
+
+
+def da_config():
+    """The default config (Tiny discriminator, Adam, v1, blur + flip) in
+    bf16, for ``DA_EPOCHS`` epochs of ``DA_ITERATIONS`` steps."""
+    return load_config(overrides={
+        "precision": {"compute_dtype": "bfloat16"},
+        "training": {"domain_adaptation": {"epochs": DA_EPOCHS,
+                                           "iterations": DA_ITERATIONS,
+                                           "do_validation": 1}}})
+
+
+def phase_da_training() -> dict:
+    """Domain adaptation through the port's entry points; returns the
+    main-path launch counts of this phase."""
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_da_")
+    config = da_config()
+    tcfg = config.training["domain_adaptation"]
+    n = DA_ITERATIONS * TRAIN_BATCH
+    source = ColorCodedLabels(
+        SyntheticSegDataset(n, TRAIN_SIZE, CLASSES, seed=SEED + 6,
+                            fixed_tints=True),
+        class_colors_for_remap(), unmatched=UNMATCHED, seed=SEED)
+    target = SyntheticSegDataset(n, DA_TGT_SIZE, CLASSES, seed=SEED + 7,
+                                 fixed_tints=True)
+    val = SyntheticSegDataset(TRAIN_VAL_BATCHES * TRAIN_BATCH, TRAIN_VAL_SIZE,
+                              CLASSES, seed=SEED + 5, fixed_tints=True)
+    src_loader = DataLoader(source, TRAIN_BATCH, num_workers=4, seed=SEED,
+                            infinite=True)
+    tgt_loader = DataLoader(target, TRAIN_BATCH, num_workers=4,
+                            seed=SEED + 1, infinite=True)
+    val_loader = DataLoader(val, TRAIN_BATCH, shuffle=False, num_workers=4,
+                            drop_last=False)
+    src_transform = make_transform(
+        TRAIN_SIZE, CLASSES, antialias=False,
+        augment_cfg=AugmentConfig.from_config(config),
+        decode_label_colors=True)
+    tgt_transform = make_transform(DA_TGT_SIZE, CLASSES, antialias=True)
+    val_transform = make_transform(TRAIN_VAL_SIZE, CLASSES, antialias=True)
+    gen, dis = build_adversarial(config, dev, seed=SEED)
+    step = make_adversarial_step(float(tcfg["lambda"]), DA_ITERATIONS,
+                                 DA_EPOCHS, 19, "v1")
+    recorder = _DALossRecorder()
+    checkpoint = ModelCheckpoint(save_dir=tmp.name, save_name="smoke_da",
+                                 save_best=False)
+    checked = {"checked": 0}
+    plain_remap = preprocess.rgb_to_train_ids_cuda
+    source_iter = device_batches(src_loader, src_transform, dev, seed=SEED)
+    target_iter = device_batches(tgt_loader, tgt_transform, dev)
+
+    with contextlib.closing(source_iter), contextlib.closing(target_iter):
+        fast_hist_cuda.launches = 0
+        rgb_to_train_ids_cuda.launches = 0
+        preprocess.rgb_to_train_ids_cuda = _checked_remap(checked)
+        t0 = time.perf_counter()
+        try:
+            _, _, history = adversarial_fit(
+                gen, dis, step, source_iter, target_iter,
+                lambda epoch: device_batches(val_loader, val_transform, dev),
+                iterations=DA_ITERATIONS, epochs=DA_EPOCHS,
+                num_classes=CLASSES, class_names=CLASS_NAMES,
+                callbacks=[recorder], checkpoint=checkpoint, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            preprocess.rgb_to_train_ids_cuda = plain_remap
+        fit_s = time.perf_counter() - t0
+        launches = {"fast_hist_cuda": fast_hist_cuda.launches,
+                    "rgb_to_train_ids_cuda": rgb_to_train_ids_cuda.launches}
+        # the next batch of each stream, kept for the profile
+        batch = (*next(source_iter), next(target_iter)[0])
+
+    steps = DA_EPOCHS * DA_ITERATIONS
+    if len(recorder.losses) != steps or not all(
+            sorted(logs) == sorted(DA_LOSS_KEYS[:4])
+            and all(math.isfinite(v) for v in logs.values())
+            for logs in recorder.losses):
+        raise AssertionError(f"DA losses {recorder.losses}")
+    if checked["checked"] != steps:
+        raise AssertionError(f"{checked['checked']} K2 calls checked")
+    if len(history) != DA_EPOCHS or not all(
+            0.0 <= h["validation_mIoU"] <= 1.0 for h in history):
+        raise AssertionError(f"history {history}")
+
+    # the saved checkpoint restored into freshly initialised states
+    val_images, _ = next(iter(device_batches(val_loader, val_transform,
+                                             dev)))
+    fresh_gen, fresh_dis = build_adversarial(config, dev, seed=SEED + 9)
+    if not checkpoint.manager.restore({"generator": fresh_gen,
+                                       "discriminator": fresh_dis}):
+        raise AssertionError("DA checkpoint restore failed")
+    if (fresh_gen.step, fresh_dis.step) != (gen.step, dis.step):
+        raise AssertionError(f"restored steps {fresh_gen.step}, "
+                             f"{fresh_dis.step} != {gen.step}, {dis.step}")
+    with torch.inference_mode(), gen.autocast():
+        x = val_images.permute(0, 3, 1, 2)
+        want, got = gen.model.eval()(x), fresh_gen.model.eval()(x)
+        feat = torch.softmax(want, dim=1)
+        d_want, d_got = dis.model(feat), fresh_dis.model(feat)
+    restore_err = {
+        "generator_logits": float((got - want).abs().max()),
+        "discriminator_outputs": float((d_got - d_want).abs().max())}
+    if (restore_err["generator_logits"]
+            > 1e-5 * max(1.0, float(want.abs().max()))
+            or restore_err["discriminator_outputs"]
+            > 1e-5 * max(1.0, float(d_want.abs().max()))):
+        raise AssertionError(f"restored states differ: {restore_err}")
+    del fresh_gen, fresh_dis, want, got, feat, x
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    step_checks = [da_step_card_vs_cpu("v1"),
+                   da_step_card_vs_cpu("v1", grl_alpha=0.1),
+                   da_step_card_vs_cpu("v2")]
+    torch.cuda.empty_cache()
+    bench = {}
+    for variant in ("v1", "v2"):
+        bench[variant] = da_step_benchmark(
+            batch_size=TRAIN_BATCH, src_hw=TRAIN_SIZE, tgt_hw=DA_TGT_SIZE,
+            steps=DA_BENCH_STEPS, repeats=DA_BENCH_REPEATS,
+            dtype=torch.bfloat16, variant=variant, seed=SEED)
+        torch.cuda.empty_cache()
+    emit({"phase": "da_training", "generator": "bisenet-resnet18",
+          "discriminator": "tiny", "source_size": list(TRAIN_SIZE),
+          "target_size": list(DA_TGT_SIZE), "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "variant": "v1", "epochs": DA_EPOCHS,
+          "iterations": DA_ITERATIONS, "losses": recorder.losses,
+          "history": history, "fit_s": fit_s,
+          "k2_outputs_checked": checked["checked"], "launches": launches,
+          "restore_max_abs_err": restore_err,
+          "step_card_vs_cpu_float64": step_checks,
+          "v1_ms_per_step": bench["v1"]["ms_per_step"],
+          "v1_steps_per_sec": bench["v1"]["steps_per_sec"],
+          "v1_split_ms": bench["v1"]["split_ms"],
+          "v2_ms_per_step": bench["v2"]["ms_per_step"],
+          "v2_steps_per_sec": bench["v2"]["steps_per_sec"],
+          "bench": bench})
+    for variant, b in bench.items():
+        if not math.isfinite(b["last_loss_gen_source"]):
+            raise AssertionError(f"DA bench {variant}: loss "
+                                 f"{b['last_loss_gen_source']}")
+    return {"launches": launches,
+            "profile_run": lambda: step(gen, dis, *batch)}
 
 
 def timed_entry(kernel, plain, library, nbytes: int) -> dict:
@@ -1049,13 +1296,20 @@ def main() -> int:
         if n < 1:
             raise AssertionError(f"the training path never launched {name}")
 
+    # main path 3: domain adaptation (counts reset inside, just before)
+    da = phase_da_training()
+    da_launches = da["launches"]
+    for name, n in da_launches.items():
+        if n < 1:
+            raise AssertionError(f"the DA path never launched {name}")
+
     preds = preds.to(torch.int32)
     kernels = [
         kernel_timing(labels, preds,
-                      serve_launches + train_launches["fast_hist_cuda"],
-                      hist_err),
-        remap_timing(trained["rgb"], train_launches["rgb_to_train_ids_cuda"],
-                     remap_err)]
+                      serve_launches + train_launches["fast_hist_cuda"]
+                      + da_launches["fast_hist_cuda"], hist_err),
+        remap_timing(trained["rgb"], train_launches["rgb_to_train_ids_cuda"]
+                     + da_launches["rgb_to_train_ids_cuda"], remap_err)]
     # last: the profiler's tracing may slow what runs after it
     traced = profile_kernels({
         "hist_kernel": lambda: fast_hist_cuda(labels, preds, CLASSES),
@@ -1065,9 +1319,13 @@ def main() -> int:
         seen["timer_ms"] = entry["ms"]
         if isinstance(seen["median_ms"], float):
             seen["profiler_over_timer"] = seen["median_ms"] / entry["ms"]
+    step = make_train_step(19)
     emit({"phase": "train_profile", "image_size": list(TRAIN_SIZE),
           "batch": TRAIN_BATCH, "kernel_device_ms": traced,
-          **profile_train_steps(trained["state"], *trained["batch"])})
+          **profile_steps(lambda: step(trained["state"], *trained["batch"])),
+          "da_v1": {"source_size": list(TRAIN_SIZE),
+                    "target_size": list(DA_TGT_SIZE),
+                    **profile_steps(da["profile_run"], steps=3)}})
     emit({"kernels": kernels})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],

@@ -1,13 +1,21 @@
-"""Supervised training CLI of the port, flag-compatible with ``main.py``.
+"""Training CLI of the port, flag-compatible with ``main.py``.
 
     python -m rtsds_tpu_torch.cli --config <yaml> --dataset gta5 [--augmented]
+    python -m rtsds_tpu_torch.cli --config <yaml> --domain_adaptation \
+        [--augmented]
 
-trains BiSeNet on GTA5 (or Cityscapes) and validates on Cityscapes every
-``training.segmentation.do_validation`` epochs, saving the best model
-(``callbacks.model_checkpoint``).  ``--resume`` continues from the latest
-checkpoint; ``--validate_only`` restores the best (else the latest) one
-and reports its mIoU; ``--synthetic`` runs on generated data.  Raw GTA5
-labels (``data.gta5_modified.decode_label_colors: true``) are remapped to
+The first trains BiSeNet on GTA5 (or Cityscapes) and validates on
+Cityscapes every ``training.segmentation.do_validation`` epochs, saving the
+best model (``callbacks.model_checkpoint``).  The second runs adversarial
+GTA5 -> Cityscapes domain adaptation (``training.domain_adaptation``:
+``variant`` v1 or v2, ``model.adversarial_model.discriminator.grl`` for
+the gradient-reversal step): ``iterations`` generator/discriminator steps
+per epoch on endless source and target streams, the generator validated on
+Cityscapes, checkpoints of both networks under ``<save_name>_da``.
+``--resume`` continues from the latest checkpoint; ``--validate_only``
+restores the best (else the latest) one and reports its mIoU;
+``--synthetic`` runs on generated data.  Raw GTA5 labels
+(``data.gta5_modified.decode_label_colors: true``) are remapped to
 trainIds on the device.
 
 The config's ``device`` key picks the device: ``cpu`` is the CPU, anything
@@ -47,7 +55,10 @@ def argument_parser(argv=None):
     parser.add_argument("--validate_only", action="store_true",
                         help="Restore the best (else latest) checkpoint and "
                              "validate once; no training.")
-    for flag in ("--domain_adaptation", "--multihost", "--wandb", "--debug"):
+    parser.add_argument("--domain_adaptation", action="store_true",
+                        help="Adversarial GTA5 -> Cityscapes domain "
+                             "adaptation instead of supervised training.")
+    for flag in ("--multihost", "--wandb", "--debug"):
         parser.add_argument(flag, action="store_true",
                             help="Not ported yet.")
     return parser.parse_args(argv)
@@ -62,12 +73,7 @@ def _enabled(node) -> bool:
     return bool(node and node.get("enabled", False))
 
 
-def check_ported(args, config) -> None:
-    """Exit on every flag or config switch the port does not run yet, and
-    say what is skipped."""
-    for flag in ("domain_adaptation", "multihost", "wandb", "debug"):
-        if getattr(args, flag):
-            raise _not_ported(f"--{flag}")
+def _check_supervised(args, config) -> None:
     if args.model == "deeplab":
         raise _not_ported("DeepLabV2 training (--model deeplab)")
     if args.model != "bisenet":
@@ -83,14 +89,53 @@ def check_ported(args, config) -> None:
     for key in ("ema", "distillation"):
         if _enabled(tcfg.get(key)):
             raise _not_ported(f"training.segmentation.{key}")
+
+
+def _check_domain_adaptation(config) -> None:
+    tcfg = config.training["domain_adaptation"]
+    adv = config.model["adversarial_model"]
+    self_training = _enabled(tcfg.get("self_training"))
+    grl = _enabled(adv["discriminator"].get("grl"))
+    if grl and self_training:
+        raise SystemExit("discriminator.grl does not compose with "
+                         "self_training (one joint backward vs the "
+                         "teacher-student step); disable one")
+    if grl and str(tcfg.get("variant", "v1")) != "v1":
+        raise SystemExit("discriminator.grl composes with the v1 "
+                         "adversarial step only; set variant: v1")
+    for key in ("self_training", "ema", "entropy_min", "fda"):
+        if _enabled(tcfg.get(key)):
+            raise _not_ported(f"training.domain_adaptation.{key}")
+    if adv["generator"]["name"] == "deeplab":
+        raise _not_ported("a DeepLabV2 generator "
+                          "(model.adversarial_model.generator.name)")
+    for net, want in (("generator", "CrossEntropy"),
+                      ("discriminator", "BCEWithLogits")):
+        name = adv[net]["criterion"].get("name")
+        if name != want:
+            raise SystemExit(f"model.adversarial_model.{net}.criterion.name "
+                             f"{name!r}: the adversarial step trains the "
+                             f"{net} with {want}")
+
+
+def check_ported(args, config) -> None:
+    """Exit on every flag or config switch the port does not run yet, and
+    say what is skipped."""
+    for flag in ("multihost", "wandb", "debug"):
+        if getattr(args, flag):
+            raise _not_ported(f"--{flag}")
+    if args.domain_adaptation:
+        _check_domain_adaptation(config)
+    else:
+        _check_supervised(args, config)
     vcfg = config.get("validation") or {}
     for key in ("ensemble", "sliding"):
         if _enabled(vcfg.get(key)):
             raise _not_ported(f"the validation.{key} protocol")
     mesh = dict(config.get("mesh") or {})
     if any(int(mesh.get(axis, 1) or 1) > 1
-           for axis in ("spatial", "model", "pipe")):
-        raise _not_ported(f"mesh {mesh}")
+           for axis in ("data", "spatial", "model", "pipe")):
+        raise _not_ported(f"mesh {mesh} (the port runs on one device)")
     if config.callbacks.get("history"):
         raise _not_ported("callbacks.history")
     if config.callbacks.get("images_plots"):
@@ -109,9 +154,10 @@ def device_from_config(config) -> torch.device:
 
 
 def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
-                    seed: int = 42) -> dict:
+                    seed: int = 42, infinite: bool = False) -> dict:
     """Host loaders of Cityscapes train/val and GTA5, and their device
-    transforms (``make_transform``) and sizes."""
+    transforms (``make_transform``) and sizes.  ``infinite`` makes the two
+    training loaders endless, for domain adaptation."""
     from rtsds_tpu_torch.data.indexing import (
         build_cityscapes_index, build_gta5_index)
     from rtsds_tpu_torch.data.pipeline import DataLoader, SegmentationDataset
@@ -153,10 +199,12 @@ def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
     correct = bool(config.data.get("correct_preprocessing", False))
     mk = partial(DataLoader, num_workers=cs["num_workers"], seed=seed)
     return {
-        "cs_train": mk(cs_train_ds, cs["batch_size"], shuffle=True),
+        "cs_train": mk(cs_train_ds, cs["batch_size"], shuffle=True,
+                       infinite=infinite),
         "cs_val": mk(cs_val_ds, cs["batch_size"], shuffle=False,
                      drop_last=False),
-        "gta5_train": mk(gta5_ds, gta5["batch_size"], shuffle=True),
+        "gta5_train": mk(gta5_ds, gta5["batch_size"], shuffle=True,
+                         infinite=infinite),
         "cs_transform": make_transform(cs_size, cs["num_classes"],
                                        antialias=True,
                                        correct_preprocessing=correct),
@@ -170,9 +218,10 @@ def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
     }
 
 
-def build_callbacks(config):
+def build_callbacks(config, mode_suffix: str = ""):
     """(callbacks, checkpoint) from ``config.callbacks``; a section set to
-    null is off."""
+    null is off.  Checkpoints go to ``<save_name><mode_suffix>``, so
+    supervised and domain-adaptation runs of one config keep apart."""
     from rtsds_tpu_torch.callbacks.checkpoint import (
         EarlyStopping, ModelCheckpoint)
 
@@ -182,7 +231,7 @@ def build_callbacks(config):
     if cb_cfg.get("model_checkpoint"):
         mc = cb_cfg["model_checkpoint"]
         checkpoint = ModelCheckpoint(
-            save_dir=mc["save_dir"], save_name=mc["save_name"],
+            save_dir=mc["save_dir"], save_name=mc["save_name"] + mode_suffix,
             save_best=bool(mc.get("save_best", True)),
             monitor=mc.get("monitor", "validation_mIoU"),
             mode=mc.get("mode", "max"),
@@ -196,9 +245,10 @@ def build_callbacks(config):
     return callbacks, checkpoint
 
 
-def run_validation_only(state, checkpoint, val_batches, num_classes: int,
-                        class_names, device) -> float:
-    """Restore the best (else latest) checkpoint and validate once."""
+def run_validation_only(states: dict, which: str, checkpoint, val_batches,
+                        num_classes: int, class_names, device) -> float:
+    """Restore the best (else latest) checkpoint into ``states`` and
+    validate ``states[which]`` once."""
     from rtsds_tpu_torch.eval.validate import make_eval_step, validate
 
     if checkpoint is None:
@@ -211,10 +261,11 @@ def run_validation_only(state, checkpoint, val_batches, num_classes: int,
     if step is None:
         raise SystemExit(f"--validate_only: no checkpoint found under "
                          f"{checkpoint.save_dir}")
-    if not mgr.restore({"model": state}, step=step):
+    if not mgr.restore(states, step=step):
         raise SystemExit(f"--validate_only: checkpoint at epoch {step} under "
                          f"{checkpoint.save_dir} does not match this run's "
                          f"model")
+    state = states[which]
     eval_step = make_eval_step(state.model, num_classes,
                                compute_dtype=state.compute_dtype)
     miou, _ = validate(state.model, val_batches(0), num_classes,
@@ -223,6 +274,69 @@ def run_validation_only(state, checkpoint, val_batches, num_classes: int,
     print(f"validate_only: checkpoint epoch {step} -> "
           f"validation_mIoU = {miou:.6f}")
     return miou
+
+
+def run_domain_adaptation(args, config, data, callbacks, checkpoint,
+                          class_names, device):
+    """The ``--domain_adaptation`` branch: returns the history, or the mIoU
+    with ``--validate_only``."""
+    from rtsds_tpu_torch.data.pipeline import device_batches
+    from rtsds_tpu_torch.train.adversarial import make_adversarial_step
+    from rtsds_tpu_torch.train.factory import build_adversarial
+    from rtsds_tpu_torch.train.loop import adversarial_fit
+
+    tcfg = config.training["domain_adaptation"]
+    num_classes = int(tcfg["num_classes"])
+    iterations = int(tcfg["iterations"])
+    gen_state, dis_state = build_adversarial(config, device, seed=args.seed)
+    states = {"generator": gen_state, "discriminator": dis_state}
+
+    def val_batches(_epoch):
+        return device_batches(data["cs_val"], data["cs_transform"], device)
+
+    if args.validate_only:
+        return run_validation_only(states, "generator", checkpoint,
+                                   val_batches, num_classes, class_names,
+                                   device)
+
+    start_epoch = 0
+    if args.resume and checkpoint is not None:
+        _, start_epoch = checkpoint.resume(states)
+    # fast-forward both streams past the batches the finished epochs drew,
+    # so the resumed run draws the shuffles and augmentation the
+    # uninterrupted run would have
+    consumed = start_epoch * iterations
+    for loader in (data["gta5_train"], data["cs_train"]):
+        per_pass = max(len(loader), 1)
+        loader.set_epoch(consumed // per_pass)
+        loader.skip_batches(consumed % per_pass)
+    source_iter = device_batches(
+        data["gta5_train"], data["gta5_transform"], device,
+        seed=args.seed if args.augmented else None, start_index=consumed)
+    target_iter = device_batches(data["cs_train"], data["cs_transform"],
+                                 device)
+
+    grl_cfg = config.model["adversarial_model"]["discriminator"].get("grl")
+    da_step = make_adversarial_step(
+        lambda_=float(tcfg["lambda"]), iterations=iterations,
+        epochs=int(tcfg["epochs"]),
+        ignore_index=config.model["bisenet"]["criterion"].get("ignore_index"),
+        variant=str(tcfg.get("variant", "v1")),
+        grl_alpha=(float(grl_cfg.get("alpha", 0.1)) if _enabled(grl_cfg)
+                   else 0.0))
+    try:
+        _, _, history = adversarial_fit(
+            gen_state, dis_state, da_step, source_iter, target_iter,
+            val_batches, iterations=iterations, epochs=int(tcfg["epochs"]),
+            num_classes=num_classes, class_names=class_names,
+            callbacks=callbacks, do_validation=int(tcfg["do_validation"]),
+            checkpoint=checkpoint, when_print=int(tcfg.get("when_print", -1)),
+            start_epoch=start_epoch, device=device)
+    finally:
+        # stops the loaders' prefetch threads
+        source_iter.close()
+        target_iter.close()
+    return history
 
 
 def main(argv=None):
@@ -238,9 +352,15 @@ def main(argv=None):
     check_ported(args, config)
     device = device_from_config(config)
     data = datasets_loader(config, is_augmented=args.augmented,
-                           synthetic=args.synthetic, seed=args.seed)
-    callbacks, checkpoint = build_callbacks(config)
+                           synthetic=args.synthetic, seed=args.seed,
+                           infinite=args.domain_adaptation)
+    callbacks, checkpoint = build_callbacks(
+        config, mode_suffix="_da" if args.domain_adaptation else "")
     class_names = list(config.meta["class_names"])
+
+    if args.domain_adaptation:
+        return run_domain_adaptation(args, config, data, callbacks,
+                                     checkpoint, class_names, device)
 
     if args.dataset == "gta5":
         print(" ------> Training on GTA5, validating on Cityscapes ------ ")
@@ -268,8 +388,9 @@ def main(argv=None):
         return device_batches(data["cs_val"], data["cs_transform"], device)
 
     if args.validate_only:
-        return run_validation_only(state, checkpoint, val_batches,
-                                   num_classes, class_names, device)
+        return run_validation_only({"model": state}, "model", checkpoint,
+                                   val_batches, num_classes, class_names,
+                                   device)
 
     start_epoch = 0
     if args.resume and checkpoint is not None:

@@ -88,18 +88,20 @@ class DataLoader:
     Yields host numpy batches ``(images (N, H, W, 3) uint8, labels)``.  The
     shuffle of pass k is a function of ``(seed, k)`` alone, so
     :meth:`set_epoch` and :meth:`skip_batches` replay any position of a
-    run.
+    run.  ``infinite=True`` chains pass after pass, each with its own
+    shuffle, for the domain-adaptation loop's endless streams.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 2):
+                 prefetch: int = 2, infinite: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.infinite = infinite
         self.seed = seed
         self._epoch = 0
         self._skip = 0
@@ -125,14 +127,20 @@ class DataLoader:
 
     def _batch_indices(self) -> Iterator[np.ndarray]:
         n = len(self.dataset)
-        order = self._order(n)
-        self._epoch += 1
         stop = n - (n % self.batch_size) if self.drop_last else n
-        for i in range(0, stop, self.batch_size):
-            if self._skip > 0:
-                self._skip -= 1
-                continue
-            yield order[i:i + self.batch_size]
+        if self.infinite and stop == 0:
+            raise ValueError(f"an infinite loader needs at least one batch: "
+                             f"{n} samples, batch size {self.batch_size}")
+        while True:
+            order = self._order(n)
+            self._epoch += 1
+            for i in range(0, stop, self.batch_size):
+                if self._skip > 0:
+                    self._skip -= 1
+                    continue
+                yield order[i:i + self.batch_size]
+            if not self.infinite:
+                return
 
     def _load_batch(self, pool: ThreadPoolExecutor, idxs: np.ndarray):
         pairs = list(pool.map(self.dataset.__getitem__, idxs))
@@ -184,11 +192,16 @@ def batch_generator(seed: int, epoch: int, index: int) -> torch.Generator:
 
 
 def device_batches(loader, transform: Callable, device: torch.device,
-                   seed: int | None = None, epoch: int = 0
+                   seed: int | None = None, epoch: int = 0,
+                   start_index: int = 0
                    ) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
-    """Host batches -> device tensors -> ``transform``.  With ``seed`` each
-    batch gets its own :func:`batch_generator` for augmentation."""
-    for i, (images, labels) in enumerate(loader):
+    """Host batches -> device tensors -> ``transform``.  With ``seed`` batch
+    ``i`` gets :func:`batch_generator` ``(seed, epoch, start_index + i)``
+    for augmentation.  Over an infinite loader this is an endless stream
+    whose augmentation is a function of the seed and the global batch
+    index; a resumed stream passes the count of batches already drawn as
+    ``start_index``."""
+    for i, (images, labels) in enumerate(loader, start_index):
         images = torch.from_numpy(images).to(device, non_blocking=True)
         labels = torch.from_numpy(labels).to(device, non_blocking=True)
         if seed is None:

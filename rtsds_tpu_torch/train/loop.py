@@ -1,15 +1,17 @@
-"""The supervised training loop: epochs of train steps, validation every
+"""The training loops: supervised (``supervised_fit``) and adversarial
+domain adaptation (``adversarial_fit``), each with validation every
 ``do_validation`` epochs, callbacks and checkpoints.
 
-The loop reads each step's metrics one step late: it queues the next step
-on the device before it fetches the previous step's loss and counts, so
+The loops read each step's metrics one step late: they queue the next step
+on the device before they fetch the previous step's losses and counts, so
 the host never waits for the step it has just launched.  The best
 validation metric is tracked across epochs by :class:`ModelCheckpoint`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+import time
+from typing import Callable, Iterable, Iterator
 
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.eval.validate import make_eval_step, validate
@@ -109,3 +111,115 @@ def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
             break
     _fan_out(callbacks, "on_train_end")
     return state, history
+
+
+# the adversarial steps' losses, in the epoch table's order (v2 adds the
+# two totals)
+DA_LOSS_KEYS = ("loss_gen_source", "loss_adversarial", "loss_disc_source",
+                "loss_disc_target", "loss_gen_total", "loss_disc_total")
+
+
+def tabular_print(row: dict) -> None:
+    """Print a one-row ASCII table of ``row``."""
+    keys = [str(k) for k in row]
+    vals = [f"{v:.6g}" if isinstance(v, float) else str(v)
+            for v in row.values()]
+    widths = [max(len(k), len(v)) for k, v in zip(keys, vals)]
+    sep = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+
+    def line(cells):
+        return "|" + "|".join(f" {c:<{w}} " for c, w in zip(cells, widths)) \
+            + "|"
+    print("\n".join([sep, line(keys), sep, line(vals), sep]))
+
+
+def adversarial_fit(gen_state, dis_state, da_step: Callable,
+                    source_iter: Iterator, target_iter: Iterator,
+                    make_val_batches: Callable, iterations: int, epochs: int,
+                    num_classes: int, class_names=None, callbacks=None,
+                    do_validation: int = 1, checkpoint=None,
+                    when_print: int = -1, start_epoch: int = 0, device=None):
+    """Epochs ``start_epoch .. epochs - 1`` of domain adaptation.
+
+    ``source_iter`` and ``target_iter`` are endless iterators of device
+    batches (GTA5 and Cityscapes); each epoch runs ``iterations`` calls of
+    ``da_step(gen_state, dis_state, src_images, src_labels, tgt_images)``,
+    prints the epoch table (the mean of each loss, ``Generator Accuracy``
+    and ``steps_per_sec``), validates the generator, and hands
+    ``{"generator", "discriminator"}`` to ``checkpoint``.  ``when_print >
+    0`` prints every ``when_print``-th step's losses.  Both models are
+    moved to ``device`` (``None`` means the GPU, and raises without one).
+    Returns ``(gen_state, dis_state, history)``, one history entry per
+    validation.
+    """
+    device = resolve_device(device)
+    gen_state.model.to(device)
+    dis_state.model.to(device)
+    callbacks = list(callbacks or [])
+    if checkpoint is not None:
+        if checkpoint not in callbacks:
+            callbacks.append(checkpoint)
+        checkpoint.attach(lambda: {"generator": gen_state,
+                                   "discriminator": dis_state})
+    plot_cbs = any(hasattr(cb, "add_sample") for cb in callbacks)
+    eval_step = make_eval_step(gen_state.model, num_classes,
+                               return_preds=plot_cbs,
+                               compute_dtype=gen_state.compute_dtype)
+
+    history = []
+    for epoch in range(start_epoch, epochs):
+        if checkpoint is not None:
+            checkpoint.set_epoch(epoch)
+        _fan_out(callbacks, "on_train_begin")
+        running = {}
+        counts = {"correct": 0, "total": 0}
+        pending = None  # (step index, metrics) of the previous step
+
+        def consume(item):
+            i, metrics = item
+            logs = {k: float(metrics[k]) for k in DA_LOSS_KEYS
+                    if k in metrics}
+            for k, v in logs.items():
+                running[k] = running.get(k, 0.0) + v
+            counts["correct"] += int(metrics["correct"])
+            counts["total"] += int(metrics["total"])
+            _fan_out(callbacks, "on_batch_end", i, logs)
+            if when_print > 0 and (i + 1) % when_print == 0:
+                print(f"  iter {i + 1}/{iterations}: " + ", ".join(
+                    f"{k}={v:.4f}" for k, v in logs.items()))
+
+        t0 = time.perf_counter()
+        for i in range(iterations):
+            src_images, src_labels = next(source_iter)
+            tgt_images, _ = next(target_iter)
+            metrics = da_step(gen_state, dis_state, src_images, src_labels,
+                              tgt_images)
+            if pending is not None:
+                consume(pending)
+            pending = (i, metrics)
+        if pending is not None:
+            consume(pending)
+        dt = time.perf_counter() - t0
+
+        summary = {k: v / iterations for k, v in running.items()}
+        summary["Generator Accuracy"] = (100.0 * counts["correct"]
+                                         / max(counts["total"], 1))
+        summary["steps_per_sec"] = iterations / dt
+        print(f"Epoch Results {epoch}")
+        tabular_print(summary)
+        _fan_out(callbacks, "on_epoch_end", epoch, summary)
+
+        if do_validation and epoch % do_validation == 0:
+            print("-" * 50, "Validation", "-" * 50)
+            miou, _ = validate(
+                gen_state.model, make_val_batches(epoch), num_classes,
+                class_names=class_names, epoch=epoch, callbacks=callbacks,
+                detailed_report=class_names is not None, eval_step=eval_step,
+                device=device)
+            print("-" * 100)
+            history.append({"epoch": epoch, **summary,
+                            "validation_mIoU": miou})
+        if any(getattr(cb, "should_stop", False) for cb in callbacks):
+            break
+    _fan_out(callbacks, "on_train_end")
+    return gen_state, dis_state, history

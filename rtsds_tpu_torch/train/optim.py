@@ -13,7 +13,8 @@ The update rule, in order:
      first step uses ``schedule(0)``.
 
 ``head_lr_mult`` puts every BiSeNet module except the pretrained
-``context_path`` into a second param group whose rate is scaled by it.
+``context_path`` into a second param group whose rate is scaled by it; on a
+model without a ``context_path`` it raises.
 """
 
 from __future__ import annotations
@@ -106,9 +107,14 @@ def make_optimizer(name: str, param_groups, learning_rate: float | Schedule,
 
 def head_param_groups(model: nn.Module, head_mult: float) -> list[dict]:
     """Two groups: the ``context_path`` at 1x, every other module at
-    ``head_mult``; one group when ``head_mult`` is 0 or 1."""
+    ``head_mult``; one group when ``head_mult`` is 0 or 1.  A model without
+    a ``context_path`` (a discriminator) has no head to scale: raises."""
     if not head_mult or head_mult == 1.0:
         return [{"params": list(model.parameters()), "lr_mult": 1.0}]
+    if not hasattr(model, "context_path"):
+        raise ValueError(
+            f"head_lr_mult is defined for segmentor optimizers only "
+            f"(bisenet's non-backbone modules), not {type(model).__name__}")
     backbone, head = [], []
     for name, p in model.named_parameters():
         (backbone if name.split(".")[0] == "context_path" else head).append(p)

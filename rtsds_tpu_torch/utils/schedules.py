@@ -27,6 +27,31 @@ def poly_lr_schedule(init_lr: float, max_iter: int, power: float = 0.9,
     return schedule
 
 
+def poly_epoch_schedule(init_lr: float, epochs: int, power: float,
+                        iterations_per_epoch: int) -> Schedule:
+    """Poly decay once per epoch: ``init_lr * (1 - epoch / epochs) **
+    power`` with ``epoch = step // iterations_per_epoch`` (the adversarial
+    discriminator's rate under v1)."""
+
+    def schedule(step: int) -> float:
+        epoch = int(step) // iterations_per_epoch
+        return init_lr * (1.0 - epoch / float(epochs)) ** power
+
+    return schedule
+
+
+def lambda_adv_schedule(lambda_: float, iterations_per_epoch: int
+                        ) -> Schedule:
+    """The v2 adversarial weight ``max(lambda, 10 * lambda - 0.001 *
+    epoch)``, ``epoch = step // iterations_per_epoch``."""
+
+    def schedule(step: int) -> float:
+        epoch = int(step) // iterations_per_epoch
+        return max(lambda_, lambda_ * 10.0 - 0.001 * epoch)
+
+    return schedule
+
+
 def with_warmup(schedule: Schedule, warmup_iters: int) -> Schedule:
     """Linear warmup: the schedule scaled by ``min((step + 1) / warmup,
     1)``.  ``warmup_iters <= 0`` returns the schedule unchanged."""

@@ -127,7 +127,9 @@ def test_validate_only_without_a_checkpoint_exits(tmp_path):
 
 
 @pytest.mark.parametrize("argv,extra,match", [
-    (["--domain_adaptation"], "", "--domain_adaptation"),
+    (["--domain_adaptation"],
+     "model: {adversarial_model: {generator: {name: deeplab}}}",
+     "DeepLabV2 generator"),
     (["--model", "deeplab"], "", "DeepLabV2"),
     (["--multihost"], "", "--multihost"),
     ([], "validation: {sliding: {enabled: true}}", "validation.sliding"),
@@ -138,6 +140,107 @@ def test_not_ported_switches_exit(tmp_path, argv, extra, match):
         cli.main(["--config", _config(tmp_path, extra), "--synthetic",
                   *argv])
     assert "not ported yet" in str(info.value)
+
+
+def _da_config(tmp_path, da="", extra=""):
+    config = _config(tmp_path, extra)
+    text = (tmp_path / "config.yaml").read_text().replace(
+        "segmentation: {epochs: 2, do_validation: 1}",
+        "segmentation: {epochs: 2, do_validation: 1}\n"
+        f"  domain_adaptation: {{epochs: 1, iterations: 3, do_validation: 1, "
+        f"when_print: 2{da}}}")
+    (tmp_path / "config.yaml").write_text(text)
+    return config
+
+
+@pytest.mark.parametrize("variant,grl", [("v1", False), ("v1", True),
+                                         ("v2", False)])
+def test_domain_adaptation_run_resume_and_validate_only(tmp_path, capsys,
+                                                        variant, grl):
+    """One epoch of three steps on synthetic data: the epoch table, the
+    validation, and a checkpoint of both networks under ``<save_name>_da``,
+    apart from a supervised run of the same config; then ``--resume`` runs
+    the second epoch of a longer config and ``--validate_only`` reports the
+    generator's mIoU."""
+    extra = ("model: {adversarial_model: {discriminator: {grl: "
+             "{enabled: true, alpha: 0.5}}}}" if grl else "")
+    config = _da_config(tmp_path, f", variant: {variant}", extra)
+    history = cli.main(["--config", config, "--synthetic",
+                        "--domain_adaptation", "--augmented", "--seed", "3"])
+    assert [h["epoch"] for h in history] == [0]
+    h = history[0]
+    assert 0.0 <= h["validation_mIoU"] <= 1.0
+    for key in ("loss_gen_source", "loss_adversarial", "loss_disc_source",
+                "loss_disc_target", "Generator Accuracy", "steps_per_sec"):
+        assert np.isfinite(h[key]), key
+    assert ("loss_gen_total" in h) == (variant == "v2")
+    out = capsys.readouterr().out
+    assert "Epoch Results 0" in out and "Generator Accuracy" in out
+    assert "iter 2/3: loss_gen_source=" in out
+    assert "Validation mIoU for Epoch 1" in out
+    saved = torch.load(tmp_path / "ckpt" / "m_da" / "epoch_0.pt",
+                       weights_only=True)
+    assert sorted(saved) == ["discriminator", "generator"]
+    assert saved["generator"]["step"] == saved["discriminator"]["step"] == 3
+    assert not (tmp_path / "ckpt" / "m").exists()
+
+    longer = tmp_path / "longer.yaml"
+    longer.write_text((tmp_path / "config.yaml").read_text().replace(
+        "epochs: 1, iterations: 3", "epochs: 2, iterations: 3"))
+    history = cli.main(["--config", str(longer), "--synthetic",
+                        "--domain_adaptation", "--augmented", "--resume",
+                        "--seed", "3"])
+    assert [h["epoch"] for h in history] == [1]
+    assert "Resuming from epoch 1" in capsys.readouterr().out
+
+    miou = cli.main(["--config", config, "--synthetic", "--domain_adaptation",
+                     "--validate_only"])
+    assert 0.0 <= miou <= 1.0
+    assert "validate_only: checkpoint epoch" in capsys.readouterr().out
+
+
+def test_supervised_and_da_checkpoints_keep_apart(tmp_path):
+    config = _da_config(tmp_path)
+    text = (tmp_path / "config.yaml").read_text().replace(
+        "segmentation: {epochs: 2,", "segmentation: {epochs: 1,")
+    (tmp_path / "config.yaml").write_text(text)
+    cli.main(["--config", config, "--synthetic"])
+    cli.main(["--config", config, "--synthetic", "--domain_adaptation"])
+    ckpt = tmp_path / "ckpt"
+    assert sorted(p.name for p in ckpt.iterdir()) == ["m", "m_da"]
+    assert sorted(torch.load(ckpt / "m" / "epoch_0.pt",
+                             weights_only=True)) == ["model"]
+    # each mode resumes from its own directory
+    assert cli.main(["--config", config, "--synthetic", "--resume"]) == []
+    assert cli.main(["--config", config, "--synthetic", "--resume",
+                     "--domain_adaptation"]) == []
+
+
+@pytest.mark.parametrize("da,extra,match", [
+    (", self_training: {enabled: true}", "", "self_training"),
+    (", ema: {enabled: true}", "", "domain_adaptation.ema"),
+    (", entropy_min: {enabled: true}", "", "entropy_min"),
+    (", fda: {enabled: true}", "", "fda"),
+    ("", "mesh: {data: 2}", "mesh"),
+])
+def test_not_ported_da_switches_exit(tmp_path, da, extra, match):
+    with pytest.raises(SystemExit, match=match) as info:
+        cli.main(["--config", _da_config(tmp_path, da, extra), "--synthetic",
+                  "--domain_adaptation"])
+    assert "not ported yet" in str(info.value)
+
+
+@pytest.mark.parametrize("da,match", [
+    (", variant: v2", "composes with the v1 adversarial step only"),
+    (", self_training: {enabled: true}", "does not compose with "
+                                         "self_training"),
+])
+def test_grl_refusals_keep_the_jax_messages(tmp_path, da, match):
+    grl = ("model: {adversarial_model: {discriminator: {grl: "
+           "{enabled: true}}}}")
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["--config", _da_config(tmp_path, da, grl), "--synthetic",
+                  "--domain_adaptation"])
 
 
 @pytest.mark.parametrize("section", [

@@ -17,6 +17,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import chip_smoke
+from rtsds_tpu_torch import cli
+from rtsds_tpu_torch.bench.da_bench import da_step_benchmark
 from rtsds_tpu_torch.config import load_config
 from rtsds_tpu_torch.data.synthetic import SyntheticSegDataset
 from rtsds_tpu_torch.eval.validate import validate
@@ -276,3 +279,49 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, batch):
         got = gpu[k].detach().cpu() - before[k]
         limit = 1e-3 * float(want.abs().max()) + 1e-6
         assert float((got - want).abs().max()) <= limit, k
+
+
+@pytest.mark.parametrize("variant,grl_alpha", [("v1", 0.0), ("v1", 0.1),
+                                               ("v2", 0.0)])
+def test_da_step_on_the_card_matches_the_cpu(cuda, variant, grl_alpha):
+    """One float64 SGD step of the adversarial trainer (BiSeNet-R18 and the
+    Tiny discriminator, b2, source 64x96, target 64x128), as chip_smoke.py
+    checks it: every loss within 1e-4 relative, G's BN running statistics
+    rtol 1e-4 / atol 1e-5, each update of G and D within 1e-3 of its
+    tensor's largest update + 1e-6 (the check raises otherwise)."""
+    result = chip_smoke.da_step_card_vs_cpu(variant, grl_alpha)
+    assert result["tensors_over_limit"] == 0
+
+
+def test_da_bench_on_the_card(cuda):
+    out = da_step_benchmark(batch_size=2, src_hw=(64, 96), tgt_hw=(64, 128),
+                            steps=2, repeats=2)
+    assert out["ms_per_step"] > 0 and len(out["ms_per_step_all"]) == 2
+    assert np.isfinite(out["last_loss_gen_source"])
+    assert set(out["split_ms"]) == {"generator", "discriminator"}
+    assert out["device"] == torch.cuda.get_device_name(0)
+
+
+def test_da_cli_launches_both_kernels_on_the_card(cuda, tmp_path):
+    """``--domain_adaptation`` on the card with colour-coded labels: the
+    source transform launches K2 once per step, the validation K1."""
+    path = tmp_path / "config.yaml"
+    path.write_text(f"""
+device: cuda
+data:
+  cityscapes: {{image_size: "32, 64", batch_size: 2, num_workers: 1}}
+  gta5_modified: {{image_size: "40, 72", batch_size: 2, num_workers: 1,
+                  decode_label_colors: true}}
+training:
+  domain_adaptation: {{epochs: 1, iterations: 3, do_validation: 1}}
+callbacks:
+  model_checkpoint: {{save_dir: "{tmp_path}/ckpt", save_name: "m"}}
+  images_plots: null
+""")
+    k1, k2 = fast_hist_cuda.launches, rgb_to_train_ids_cuda.launches
+    history = cli.main(["--config", str(path), "--synthetic",
+                        "--domain_adaptation", "--augmented"])
+    assert len(history) == 1 and 0.0 <= history[0]["validation_mIoU"] <= 1.0
+    assert rgb_to_train_ids_cuda.launches - k2 == 3
+    assert fast_hist_cuda.launches - k1 >= 1
+    assert (tmp_path / "ckpt" / "m_da" / "epoch_0.pt").exists()

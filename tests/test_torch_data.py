@@ -1,5 +1,6 @@
 """The port's host data pipeline against the JAX package's: batch order,
-``set_epoch``, ``skip_batches``, and PNG decoding with
+``set_epoch``, ``skip_batches``, endless loaders and a resumed augmented
+stream, and PNG decoding with
 ``decode_label_colors`` (RGB labels kept for the device remap here,
 remapped on the host there).  Exact."""
 
@@ -17,6 +18,7 @@ from rtsds_tpu_torch.data.indexing import (
 from rtsds_tpu_torch.data.pipeline import (
     DataLoader, SegmentationDataset, batch_generator, device_batches)
 from rtsds_tpu_torch.data.synthetic import ColorCodedLabels, SyntheticSegDataset
+from rtsds_tpu_torch.ops.augment import AugmentConfig
 from rtsds_tpu_torch.ops.preprocess import make_transform
 from rtsds_tpu_torch.ops.remap import rgb_to_train_ids
 from rtsds_tpu_torch.utils.colors import class_colors_for_remap
@@ -71,6 +73,50 @@ def test_set_epoch_and_skip_batches_match_jax():
     fresh = DataLoader(_Indexed(11), 2, seed=3, num_workers=2)
     fresh.set_epoch(4)
     assert got == _ids(fresh)[3:5]
+
+
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_infinite_loader_matches_jax(drop_last):
+    """Pass after pass, each with its own shuffle, as the JAX loader's
+    ``infinite=True`` draws them; a resumed loader continues the stream."""
+    kwargs = {"batch_size": 3, "seed": 5, "num_workers": 2,
+              "drop_last": drop_last, "infinite": True}
+    ours = _ids(DataLoader(_Indexed(10), **kwargs), 11)
+    assert ours == _ids(JaxDataLoader(_Indexed(10), **kwargs), 11)
+    per_pass = 3 if drop_last else 4
+    assert ours[:per_pass] != ours[per_pass:2 * per_pass]
+    resumed = DataLoader(_Indexed(10), **kwargs)
+    resumed.set_epoch(7 // per_pass)
+    resumed.skip_batches(7 % per_pass)
+    assert _ids(resumed, 4) == ours[7:11]
+    with pytest.raises(ValueError, match="at least one batch"):
+        next(iter(DataLoader(_Indexed(2), 3, num_workers=1, infinite=True)))
+
+
+def test_resumed_stream_draws_the_same_batches_and_augmentation():
+    """An endless augmented stream resumed at batch k (the loader fast-
+    forwarded, ``start_index=k``) yields what the uninterrupted stream
+    yielded from batch k on."""
+    ds = SyntheticSegDataset(6, (16, 24), seed=4)
+    transform = make_transform((16, 24), 19, augment_cfg=AugmentConfig(
+        apply_p=1.0, blur_kernel=(3, 5)))
+
+    def stream(skip):
+        loader = DataLoader(ds, 2, seed=9, num_workers=1, infinite=True)
+        loader.set_epoch(skip // len(loader))
+        loader.skip_batches(skip % len(loader))
+        batches = device_batches(loader, transform, torch.device("cpu"),
+                                 seed=1, start_index=skip)
+        try:
+            return [next(batches) for _ in range(7 - skip)]
+        finally:
+            batches.close()
+
+    full, resumed = stream(0), stream(4)
+    for (a_img, a_lbl), (b_img, b_lbl) in zip(full[4:], resumed):
+        assert torch.equal(a_img, b_img) and torch.equal(a_lbl, b_lbl)
+    # the stream is a function of the global index, not of the pass
+    assert not torch.equal(full[0][0], full[3][0])
 
 
 def test_loader_reraises_a_failed_load():

@@ -65,6 +65,59 @@ def test_bf16_logits_are_promoted():
     assert got.dtype == torch.float32
 
 
+@pytest.mark.parametrize("target", [0.0, 1.0, "array"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bce_with_logits_matches_jax(target, dtype):
+    """The discriminator's loss, rtol 1e-6, and its gradient, rtol 1e-6
+    and atol 1e-6 of its largest entry (entries where the terms of
+    ``sigmoid(x) - y`` cancel keep only absolute precision)."""
+    rng = np.random.default_rng(12)
+    logits = (4 * rng.standard_normal((4, 1, 3, 5))).astype(dtype)
+    if target == "array":
+        target = rng.random(logits.shape).astype(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        want, want_grad = jax.value_and_grad(jax_losses.bce_with_logits)(
+            jnp.asarray(logits), target)
+    x = torch.from_numpy(logits).requires_grad_()
+    got = losses.bce_with_logits(
+        x, torch.from_numpy(target) if isinstance(target, np.ndarray)
+        else target)
+    got.backward()
+    assert got.dtype == x.dtype and got.ndim == 0
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
+    want_grad = np.asarray(want_grad)
+    np.testing.assert_allclose(x.grad.numpy(), want_grad, rtol=1e-6,
+                               atol=1e-6 * np.abs(want_grad).max())
+
+
+def test_bce_with_logits_promotes_bf16():
+    logits = torch.tensor([[-3.0, 0.5], [2.0, 40.0]]).bfloat16()
+    got = losses.bce_with_logits(logits, 1.0)
+    assert got.dtype == torch.float32 and torch.isfinite(got)
+
+
+def test_make_criterion_matches_jax():
+    logits, labels = _case(13)
+    for cfg, args in (
+            ({"name": "CrossEntropy", "ignore_index": 19},
+             (logits, labels)),
+            ({"name": "CrossEntropy"}, (logits, np.minimum(labels, 18))),
+            ({"name": "BCEWithLogits"}, (logits[:, :1], 1.0))):
+        want = jax_losses.make_criterion(cfg)(
+            _nhwc(args[0]), jnp.asarray(args[1]) if isinstance(
+                args[1], np.ndarray) else args[1])
+        got = losses.make_criterion(cfg)(
+            torch.from_numpy(args[0]), torch.from_numpy(args[1])
+            if isinstance(args[1], np.ndarray) else args[1])
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6,
+                                   err_msg=cfg["name"])
+    for make in (jax_losses.make_criterion, losses.make_criterion):
+        with pytest.raises(ValueError, match="Invalid loss name. Please "
+                                             "select CrossEntropy or "
+                                             "BCEWithLogits"):
+            make({"name": "Dice"})
+
+
 @pytest.mark.parametrize("ignored_share", [0.2, 1.0])
 def test_three_head_loss_gradient_matches_jax(ignored_share):
     """The gradient the train step backpropagates, per head: rtol 1e-5;

@@ -35,6 +35,52 @@ def test_poly_schedule_matches_jax(lr_decay_iter, warmup):
     assert got[0] == pytest.approx(0.01 / max(warmup, 1))
 
 
+@pytest.mark.parametrize("power", [0.9, 0.05])
+@pytest.mark.parametrize("warmup", [0, 5])
+def test_poly_epoch_schedule_matches_jax(power, warmup):
+    """The v1 discriminator's per-epoch decay over 4 epochs of 6 steps:
+    rtol 1e-7 (the JAX schedule computes in float32)."""
+    ours = schedules.with_warmup(
+        schedules.poly_epoch_schedule(1e-4, 4, power, 6), warmup)
+    theirs = jax_schedules.with_warmup(
+        jax_schedules.poly_epoch_schedule(1e-4, 4, power, 6), warmup)
+    steps = np.arange(0, 24)
+    want = [float(theirs(jnp.asarray(s))) for s in steps]
+    got = [ours(int(s)) for s in steps]
+    np.testing.assert_allclose(got, want, rtol=1e-7)
+    assert got[5] == pytest.approx(got[0] * max(warmup, 1))
+    assert got[6] < got[5]  # epoch 1 starts at step 6
+
+
+@pytest.mark.parametrize("lambda_", [0.1, 0.25])
+def test_lambda_adv_schedule_matches_jax(lambda_):
+    """v2's ``max(lambda, 10 lambda - 0.001 epoch)`` over 1200 steps of 100
+    per epoch: rtol 1e-7."""
+    ours = schedules.lambda_adv_schedule(lambda_, 100)
+    theirs = jax_schedules.lambda_adv_schedule(lambda_, 100)
+    steps = np.arange(0, 1200, 7)
+    want = [float(theirs(jnp.asarray(s))) for s in steps]
+    got = [ours(int(s)) for s in steps]
+    np.testing.assert_allclose(got, want, rtol=1e-7)
+    assert got[0] == pytest.approx(10 * lambda_)
+
+
+def test_lambda_adv_schedule_at_its_floor():
+    """Where ``10 lambda - 0.001 epoch`` falls to lambda (epoch 18 for
+    lambda 0.002) the JAX schedule loses digits to cancellation: it
+    computes in float32, and measured up to 4.6e-7 relative from the exact
+    value here.  So the port is held to the exact float64 formula, and to
+    JAX at rtol 1e-6."""
+    ours = schedules.lambda_adv_schedule(0.002, 1)
+    theirs = jax_schedules.lambda_adv_schedule(0.002, 1)
+    steps = range(0, 30)
+    got = [ours(s) for s in steps]
+    assert got == [max(0.002, 0.02 - 0.001 * s) for s in steps]
+    np.testing.assert_allclose(got, [float(theirs(jnp.asarray(s)))
+                                     for s in steps], rtol=1e-6)
+    assert got[18] == got[29] == 0.002
+
+
 def _toy(seed):
     """A param tree with a backbone and a head, and 3 steps of grads."""
     rng = np.random.default_rng(seed)

@@ -12,14 +12,16 @@ import pytest
 import torch
 
 from rtsds_tpu_torch import cli
+from rtsds_tpu_torch.bench.da_bench import da_step_benchmark
 from rtsds_tpu_torch.config import load_config
 from rtsds_tpu_torch.eval.validate import validate
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.ops.cuda import hist as cuda_hist
 from rtsds_tpu_torch.ops.cuda import remap as cuda_remap
 from rtsds_tpu_torch.serve import Predictor
-from rtsds_tpu_torch.train.factory import build_supervised
-from rtsds_tpu_torch.train.loop import supervised_fit
+from rtsds_tpu_torch.train.adversarial import make_adversarial_step
+from rtsds_tpu_torch.train.factory import build_adversarial, build_supervised
+from rtsds_tpu_torch.train.loop import adversarial_fit, supervised_fit
 from rtsds_tpu_torch.train.supervised import make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,6 +81,25 @@ def test_trainer_and_cli_refuse_to_fall_back_to_the_cpu(monkeypatch,
     path.write_text("device: tpu\n")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--config", str(path), "--synthetic"])
+
+
+def test_adversarial_trainer_and_bench_refuse_to_fall_back_to_the_cpu(
+        monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = load_config(overrides={
+        "training": {"domain_adaptation": {"epochs": 1, "iterations": 1}}})
+    gen, dis = build_adversarial(config, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        adversarial_fit(gen, dis, make_adversarial_step(0.1, 1, 1),
+                        iter([]), iter([]), lambda e: [], iterations=1,
+                        epochs=1, num_classes=19)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        da_step_benchmark(batch_size=2, src_hw=(32, 64), tgt_hw=(32, 64))
+    path = tmp_path / "c.yaml"
+    path.write_text("device: cuda\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--config", str(path), "--synthetic",
+                  "--domain_adaptation"])
 
 
 def test_hist_wrapper_has_no_fallback():
