@@ -70,6 +70,7 @@ import torch
 import torch.nn.functional as F
 
 from rtsds_tpu_torch.bench.da_bench import da_step_benchmark
+from rtsds_tpu_torch.bench.train_bench import supervised_step_benchmark
 from rtsds_tpu_torch.callbacks.base import Callback
 from rtsds_tpu_torch.callbacks.checkpoint import ModelCheckpoint
 from rtsds_tpu_torch.config import load_config
@@ -77,8 +78,12 @@ from rtsds_tpu_torch.data.pipeline import (
     DataLoader, batch_generator, device_batches)
 from rtsds_tpu_torch.data.synthetic import (
     ColorCodedLabels, SyntheticSegDataset)
+from rtsds_tpu_torch.eval.ensemble import make_ensemble_eval_step
+from rtsds_tpu_torch.eval.sliding import make_sliding_eval_step
 from rtsds_tpu_torch.eval.validate import make_eval_step, validate
 from rtsds_tpu_torch.models.bisenet import BiSeNet
+from rtsds_tpu_torch.models.deeplabv2 import STAGES as DEEPLAB_STAGES
+from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
 from rtsds_tpu_torch.models.pretrained import (
     load_flax_variables, torch_scope)
 from rtsds_tpu_torch.ops import preprocess
@@ -92,7 +97,7 @@ from rtsds_tpu_torch.ops.remap import rgb_to_train_ids
 from rtsds_tpu_torch.serve import Predictor
 from rtsds_tpu_torch.train.adversarial import make_adversarial_step
 from rtsds_tpu_torch.train.factory import (
-    build_adversarial, build_supervised, make_bisenet, make_discriminator)
+    build_adversarial, build_supervised, make_discriminator, make_segmentor)
 from rtsds_tpu_torch.train.loop import (
     DA_LOSS_KEYS, adversarial_fit, supervised_fit)
 from rtsds_tpu_torch.train.optim import make_optimizer
@@ -122,6 +127,21 @@ DA_ITERATIONS = 4      # per epoch
 DA_EPOCHS = 2
 DA_BENCH_STEPS = 5     # per timed repeat
 DA_BENCH_REPEATS = 3
+# DeepLabV2-R101: served and validated at the JAX package's DeepLab
+# serving shape, the sliding protocol at SIZE with this window, the
+# ensemble at these scales with flip; trained on the GTA5 shape above
+DEEPLAB_SIZE = (512, 1024)
+DEEPLAB_SCALES = (0.75, 1.0, 1.25)
+DEEPLAB_VAL_BATCHES = 2
+DEEPLAB_TRAIN_STEPS = 3   # one epoch
+DEEPLAB_DA_ITERATIONS = 2  # one epoch
+DEEPLAB_BENCH_STEPS = 3   # per timed repeat
+# least share of pixels whose bf16 DeepLab mask equals the f32 mask.  The
+# first card run read 0.4563 (PERF.md): bf16 rounding through 101 layers
+# of random weights flips the argmax where the top two logits are close,
+# far more often than in BiSeNet-R18 (0.8947).  A broken bf16 path agrees
+# on about one pixel in CLASSES; the limit sits between the two
+MIN_DEEPLAB_BF16_AGREEMENT = 0.35
 # H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 # each kernel timing: this many launches, each after an L2 flush that
@@ -224,81 +244,124 @@ def host_us(fn, calls: int = 200) -> float:
     return elapsed / calls * 1e6
 
 
-def random_flax_bisenet(seed: int, num_classes: int = CLASSES,
-                        train: bool = False) -> dict:
-    """A BiSeNet-R18 variable tree in the JAX package's Flax layout, made
-    with numpy from ``seed``: He-scaled kernels and BN statistics near the
-    identity.  ``train=False`` leaves out the two train-only heads, as a
-    Flax init for eval does."""
-    rng = np.random.default_rng(seed)
-    params: dict = {}
-    stats: dict = {}
+class _FlaxTree:
+    """A Flax variable tree made with numpy from ``seed``: He-scaled
+    kernels and BN statistics near the identity."""
 
-    def node(tree, path):
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.params: dict = {}
+        self.stats: dict = {}
+
+    @staticmethod
+    def _node(tree: dict, path: tuple) -> dict:
         for p in path:
             tree = tree.setdefault(p, {})
         return tree
 
-    def conv(path, k, cin, cout, bias=False):
-        leaf = node(params, path)
-        leaf["kernel"] = (rng.standard_normal((k, k, cin, cout))
-                          * np.sqrt(2.0 / (k * k * cin))).astype(np.float32)
+    def conv(self, path: tuple, k: int, cin: int, cout: int,
+             bias: bool = False, fan_in: int | None = None) -> None:
+        fan_in = fan_in or k * k * cin
+        leaf = self._node(self.params, path)
+        leaf["kernel"] = (self.rng.standard_normal((k, k, cin, cout))
+                          * np.sqrt(2.0 / fan_in)).astype(np.float32)
         if bias:
-            leaf["bias"] = (0.01 * rng.standard_normal(cout)).astype(
+            leaf["bias"] = (0.01 * self.rng.standard_normal(cout)).astype(
                 np.float32)
 
-    def bn(path, c):
-        node(params, path).update(
+    def bn(self, path: tuple, c: int) -> None:
+        rng = self.rng
+        self._node(self.params, path).update(
             scale=rng.uniform(0.8, 1.2, c).astype(np.float32),
             bias=(0.05 * rng.standard_normal(c)).astype(np.float32))
-        node(stats, path).update(
+        self._node(self.stats, path).update(
             mean=(0.05 * rng.standard_normal(c)).astype(np.float32),
             var=rng.uniform(0.8, 1.2, c).astype(np.float32))
 
+    def variables(self) -> dict:
+        return {"params": self.params, "batch_stats": self.stats}
+
+
+def random_flax_bisenet(seed: int, num_classes: int = CLASSES,
+                        train: bool = False) -> dict:
+    """A BiSeNet-R18 variable tree in the JAX package's Flax layout
+    (:class:`_FlaxTree`).  ``train=False`` leaves out the two train-only
+    heads, as a Flax init for eval does."""
+    t = _FlaxTree(seed)
+
     def convblock(path, cin, cout):
-        conv((*path, "conv1"), 3, cin, cout)
-        bn((*path, "bn"), cout)
+        t.conv((*path, "conv1"), 3, cin, cout)
+        t.bn((*path, "bn"), cout)
 
     for i, (cin, cout) in enumerate(((3, 64), (64, 128), (128, 256)), 1):
         convblock(("spatial_path", f"convblock{i}"), cin, cout)
 
-    conv(("context_path", "conv1"), 7, 3, 64)
-    bn(("context_path", "bn1"), 64)
+    t.conv(("context_path", "conv1"), 7, 3, 64)
+    t.bn(("context_path", "bn1"), 64)
     cin = 64
     for stage, width in enumerate((64, 128, 256, 512), 1):
         for b in range(2):
             scope = ("context_path", f"layer{stage}_{b}")
             stride = 2 if stage > 1 and b == 0 else 1
-            conv((*scope, "conv1"), 3, cin, width)
-            bn((*scope, "bn1"), width)
-            conv((*scope, "conv2"), 3, width, width)
-            bn((*scope, "bn2"), width)
+            t.conv((*scope, "conv1"), 3, cin, width)
+            t.bn((*scope, "bn1"), width)
+            t.conv((*scope, "conv2"), 3, width, width)
+            t.bn((*scope, "bn2"), width)
             if b == 0 and (stride != 1 or cin != width):
-                conv((*scope, "downsample_conv"), 1, cin, width)
-                bn((*scope, "downsample_bn"), width)
+                t.conv((*scope, "downsample_conv"), 1, cin, width)
+                t.bn((*scope, "downsample_bn"), width)
             cin = width
 
     for name, c in (("arm1", 256), ("arm2", 512)):
-        conv((name, "conv"), 1, c, c, bias=True)
-        bn((name, "bn"), c)
+        t.conv((name, "conv"), 1, c, c, bias=True)
+        t.bn((name, "bn"), c)
     if train:
-        conv(("supervision1",), 1, 256, num_classes, bias=True)
-        conv(("supervision2",), 1, 512, num_classes, bias=True)
+        t.conv(("supervision1",), 1, 256, num_classes, bias=True)
+        t.conv(("supervision2",), 1, 512, num_classes, bias=True)
     convblock(("ffm", "convblock"), 256 + 256 + 512, num_classes)
-    conv(("ffm", "conv1"), 1, num_classes, num_classes, bias=True)
-    conv(("ffm", "conv2"), 1, num_classes, num_classes, bias=True)
-    conv(("conv",), 1, num_classes, num_classes, bias=True)
-    return {"params": params, "batch_stats": stats}
+    t.conv(("ffm", "conv1"), 1, num_classes, num_classes, bias=True)
+    t.conv(("ffm", "conv2"), 1, num_classes, num_classes, bias=True)
+    t.conv(("conv",), 1, num_classes, num_classes, bias=True)
+    return t.variables()
+
+
+def random_flax_deeplab(seed: int, num_classes: int = CLASSES) -> dict:
+    """A DeepLabV2-R101 variable tree in the JAX package's Flax layout
+    (:class:`_FlaxTree`); the classifier's kernels are He-scaled over its
+    four summed branches.  Train and eval inits hold the same tree."""
+    t = _FlaxTree(seed)
+    t.conv(("conv1",), 7, 3, 64)
+    t.bn(("bn1",), 64)
+    cin = 64
+    for stage, ((width, _, _), depth) in enumerate(
+            zip(DEEPLAB_STAGES, (3, 4, 23, 3)), 1):
+        for b in range(depth):
+            scope = (f"layer{stage}_{b}",)
+            t.conv((*scope, "conv1"), 1, cin, width)
+            t.bn((*scope, "bn1"), width)
+            t.conv((*scope, "conv2"), 3, width, width)
+            t.bn((*scope, "bn2"), width)
+            t.conv((*scope, "conv3"), 1, width, 4 * width)
+            t.bn((*scope, "bn3"), 4 * width)
+            if b == 0:  # every stage's first block projects its skip
+                t.conv((*scope, "downsample_conv"), 1, cin, 4 * width)
+                t.bn((*scope, "downsample_bn"), 4 * width)
+            cin = 4 * width
+    for i in range(4):
+        t.conv(("layer6", f"conv2d_list_{i}"), 3, cin, num_classes,
+               bias=True, fan_in=4 * 9 * cin)
+    return t.variables()
 
 
 def calibrate_batch_stats(tree: dict, frames: np.ndarray,
-                          device: str = "cpu") -> dict:
+                          device: str = "cpu", model_cls=BiSeNet) -> dict:
     """Replace the tree's BN statistics, in place, by those of ``frames``
-    (one f32 train-mode forward, cumulative averages), as training would
-    have set them.  Random statistics let the activations grow to ~1e9 and
-    the argmax collapse onto two classes; calibrated ones keep the logits
-    near unit scale and the predictions spread over classes."""
-    model = load_flax_variables(BiSeNet(), tree).to(device)
+    (one f32 train-mode forward of a ``model_cls``, cumulative averages),
+    as training would have set them.  Random statistics let the
+    activations grow to ~1e9 and the argmax collapse onto two classes;
+    calibrated ones keep the logits near unit scale and the predictions
+    spread over classes."""
+    model = load_flax_variables(model_cls(), tree).to(device)
     for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.reset_running_stats()
@@ -561,22 +624,26 @@ def phase_serving(tree: dict, frames: np.ndarray) -> Predictor:
     return predictor
 
 
-def phase_validation(predictor: Predictor):
-    """Returns the last batch's (labels, preds) on the device."""
-    ds = SyntheticSegDataset(VAL_BATCHES * BATCH, SIZE, CLASSES,
-                             seed=SEED + 1, fixed_tints=True)
+def _synthetic_batches(n_batches: int, size: tuple[int, int],
+                       seed: int) -> list:
+    """``n_batches`` normalized (images, labels) batches of ``BATCH``
+    synthetic frames at ``size``, on the card."""
+    ds = SyntheticSegDataset(n_batches * BATCH, size, CLASSES, seed=seed,
+                             fixed_tints=True)
     batches = []
-    for b in range(VAL_BATCHES):
+    for b in range(n_batches):
         items = [ds[b * BATCH + i] for i in range(BATCH)]
         images = torch.from_numpy(np.stack([im for im, _ in items])).cuda()
         labels = torch.from_numpy(np.stack([lb for _, lb in items])).cuda()
         batches.append((normalize(images), labels))
+    return batches
 
-    step = make_eval_step(predictor.model, CLASSES, return_preds=True)
-    step_ms = []
-    last = {}
 
-    def checked_step(images, labels, hist):
+def checked_eval_step(step, step_ms: list, last: dict | None = None):
+    """``step`` timed with CUDA events into ``step_ms``, each histogram it
+    adds held against the plain ``fast_hist`` of its predictions; the
+    last batch's (labels, preds) kept in ``last``."""
+    def run(images, labels, hist):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -587,12 +654,23 @@ def phase_validation(predictor: Predictor):
         if not torch.equal(new_hist - hist, fast_hist(labels, preds,
                                                       CLASSES)):
             raise AssertionError("eval step histogram != plain fast_hist")
-        last["labels"], last["preds"] = labels, preds
+        if last is not None:
+            last["labels"], last["preds"] = labels, preds
         return new_hist, preds
+    return run
 
+
+def phase_validation(predictor: Predictor):
+    """Returns the last batch's (labels, preds) on the device."""
+    batches = _synthetic_batches(VAL_BATCHES, SIZE, seed=SEED + 1)
+    step = make_eval_step(predictor.model, CLASSES, return_preds=True)
+    step_ms = []
+    last = {}
     miou, per_class = validate(predictor.model, iter(batches), CLASSES,
                                class_names=CLASS_NAMES,
-                               eval_step=checked_step, device="cuda")
+                               eval_step=checked_eval_step(step, step_ms,
+                                                           last),
+                               device="cuda")
     if not 0.0 <= miou <= 1.0 or len(per_class) != CLASSES:
         raise AssertionError(f"mIoU {miou}, {len(per_class)} classes")
     emit({"phase": "validation", "batches": VAL_BATCHES, "batch": BATCH,
@@ -621,6 +699,63 @@ def _checked_remap(counter: dict):
         counter["checked"] += 1
         return got
     return remap
+
+
+def on_main_path(run) -> tuple:
+    """``run()`` as a main path: K1's and K2's launch counts set to 0 just
+    before it and read just after, and every K2 output that
+    ``make_transform`` takes held against the plain remap.  Returns
+    ``(run's result, launches by kernel, K2 outputs checked)``."""
+    checked = {"checked": 0}
+    plain_remap = preprocess.rgb_to_train_ids_cuda
+    fast_hist_cuda.launches = 0
+    rgb_to_train_ids_cuda.launches = 0
+    preprocess.rgb_to_train_ids_cuda = _checked_remap(checked)
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        preprocess.rgb_to_train_ids_cuda = plain_remap
+    launches = {"fast_hist_cuda": fast_hist_cuda.launches,
+                "rgb_to_train_ids_cuda": rgb_to_train_ids_cuda.launches}
+    return out, launches, checked["checked"]
+
+
+def _gta5_stream(n: int, seed: int, infinite: bool = False):
+    """A loader of ``n`` colour-coded GTA5-sized synthetic frames and the
+    source transform (blur + flip, K2) of the default config."""
+    gta5 = ColorCodedLabels(
+        SyntheticSegDataset(n, TRAIN_SIZE, CLASSES, seed=seed,
+                            fixed_tints=True),
+        class_colors_for_remap(), unmatched=UNMATCHED, seed=SEED)
+    loader = DataLoader(gta5, TRAIN_BATCH, shuffle=True, num_workers=4,
+                        seed=SEED, infinite=infinite)
+    transform = make_transform(
+        TRAIN_SIZE, CLASSES, antialias=False,
+        augment_cfg=AugmentConfig.from_config(load_config()),
+        decode_label_colors=True)
+    return loader, transform
+
+
+def _target_stream(n: int, seed: int):
+    """An endless loader of ``n`` Cityscapes-sized synthetic frames and its
+    transform."""
+    target = SyntheticSegDataset(n, DA_TGT_SIZE, CLASSES, seed=seed,
+                                 fixed_tints=True)
+    loader = DataLoader(target, TRAIN_BATCH, num_workers=4, seed=SEED + 1,
+                        infinite=True)
+    return loader, make_transform(DA_TGT_SIZE, CLASSES, antialias=True)
+
+
+def _val_stream():
+    """``make_val_batches`` of the trainers: TRAIN_VAL_BATCHES batches of
+    Cityscapes-sized synthetic frames on the card."""
+    val = SyntheticSegDataset(TRAIN_VAL_BATCHES * TRAIN_BATCH, TRAIN_VAL_SIZE,
+                              CLASSES, seed=SEED + 5, fixed_tints=True)
+    loader = DataLoader(val, TRAIN_BATCH, shuffle=False, num_workers=4,
+                        drop_last=False)
+    transform = make_transform(TRAIN_VAL_SIZE, CLASSES, antialias=True)
+    return lambda epoch: device_batches(loader, transform, "cuda")
 
 
 def train_config():
@@ -657,30 +792,39 @@ def relu_routing(masks: list, replay: bool = False):
         F.relu = relu
 
 
-def step_card_vs_cpu(dtype: torch.dtype, batch: int) -> dict:
-    """One SGD step of BiSeNet-R18 at 64x128 on the card and on the CPU,
-    same weights and batch, in ``dtype``, TF32 off; fails unless they
-    agree.  The CPU step takes the card's ReLU routing: an input within
-    rounding of zero may round to either side, and one such flip moves
-    some tensors' updates by tens of times the limit (PERF.md).  Returns
+def step_card_vs_cpu(dtype: torch.dtype, batch: int,
+                     model_name: str = "bisenet",
+                     size: tuple[int, int] = (64, 128)) -> dict:
+    """One SGD step of ``model_name`` at full depth (BiSeNet-R18, or
+    DeepLabV2-R101 with its BN affines frozen) at ``size`` on the card and
+    on the CPU, same weights and batch, in ``dtype``, TF32 off; fails
+    unless they agree, and unless the frozen affines stay exactly still.
+    The CPU step takes the card's ReLU routing: an input within rounding of
+    zero may round to either side, and one such flip moves some tensors'
+    updates by tens of times the limit (PERF.md).  Returns
     the loss's relative difference, the largest difference of the BN
     running statistics over ``1e-5 + 1e-4 * |cpu|``, per parameter tensor
     the largest difference of the two updates over ``1e-3 * largest update
     + 1e-6``, and the count of ReLU inputs whose sign on the CPU differed
     from the card's."""
-    ds = SyntheticSegDataset(batch, (64, 128), CLASSES, seed=SEED + 3,
+    ds = SyntheticSegDataset(batch, size, CLASSES, seed=SEED + 3,
                              fixed_tints=True)
     images = normalize(torch.from_numpy(np.stack([ds[i][0]
                                                   for i in range(batch)])))
     images = images.to(dtype)
     labels = torch.from_numpy(np.stack([ds[i][1] for i in range(batch)]))
     labels[:, :3] = 19  # a band of ignored pixels
-    cfg = load_config().model["bisenet"]
+    config = load_config()
     states = {}
+    frozen_names = []
     for dev in ("cpu", "cuda"):
-        model = make_bisenet(cfg, seed=SEED).to(dev, dtype)
-        opt = make_optimizer("SGD", model.parameters(), 0.01, momentum=0.9)
+        model, frozen = make_segmentor(config, model_name, seed=SEED)
+        model.to(dev, dtype)
+        opt = make_optimizer("SGD", model.parameters(), 0.01, momentum=0.9,
+                             frozen=frozen)
         states[dev] = TrainState(model, opt)
+        names = {id(p): k for k, p in model.named_parameters()}
+        frozen_names = [names[id(p)] for p in frozen]
     before = {k: v.detach().clone() for k, v in
               states["cpu"].model.named_parameters()}
     step = make_train_step(19)
@@ -709,7 +853,11 @@ def step_card_vs_cpu(dtype: torch.dtype, batch: int) -> dict:
         limit = 1e-3 * float(want.abs().max()) + 1e-6
         ratios[k] = float((got - want).abs().max()) / limit
     worst = sorted(ratios, key=ratios.get, reverse=True)
-    result = {"dtype": str(dtype).replace("torch.", ""), "batch": batch,
+    frozen_moved = [k for k in frozen_names
+                    if not torch.equal(gpu_params[k].detach().cpu(),
+                                       before[k])]
+    result = {"model": model_name, "size": list(size),
+              "dtype": str(dtype).replace("torch.", ""), "batch": batch,
               "loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"],
               "loss_rel_diff": abs(losses["cuda"] - losses["cpu"])
               / abs(losses["cpu"]),
@@ -717,9 +865,11 @@ def step_card_vs_cpu(dtype: torch.dtype, batch: int) -> dict:
               "tensors_over_limit": sum(r > 1.0 for r in ratios.values()),
               "worst_update_err_over_limit": {k: ratios[k]
                                               for k in worst[:3]},
-              "relu_sign_flips": seen["flips"]}
+              "relu_sign_flips": seen["flips"],
+              "frozen_bn_tensors": len(frozen_names),
+              "frozen_bn_moved_on_card": len(frozen_moved)}
     if (result["loss_rel_diff"] > 1e-4 or stats_err > 1.0
-            or result["tensors_over_limit"]):
+            or result["tensors_over_limit"] or frozen_moved):
         raise AssertionError(f"the train step on the card differs from the "
                              f"CPU's: {result}")
     return result
@@ -819,52 +969,29 @@ def phase_training() -> dict:
     dev = torch.device("cuda")
     tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_")
     config = train_config()
-    gta5 = ColorCodedLabels(
-        SyntheticSegDataset(TRAIN_STEPS * TRAIN_BATCH, TRAIN_SIZE, CLASSES,
-                            seed=SEED + 4, fixed_tints=True),
-        class_colors_for_remap(), unmatched=UNMATCHED, seed=SEED)
-    val = SyntheticSegDataset(TRAIN_VAL_BATCHES * TRAIN_BATCH, TRAIN_VAL_SIZE,
-                              CLASSES, seed=SEED + 5, fixed_tints=True)
-    loader = DataLoader(gta5, TRAIN_BATCH, shuffle=True, num_workers=4,
-                        seed=SEED)
-    val_loader = DataLoader(val, TRAIN_BATCH, shuffle=False, num_workers=4,
-                            drop_last=False)
-    transform = make_transform(TRAIN_SIZE, CLASSES, antialias=False,
-                               augment_cfg=AugmentConfig.from_config(config),
-                               decode_label_colors=True)
-    val_transform = make_transform(TRAIN_VAL_SIZE, CLASSES, antialias=True)
+    loader, transform = _gta5_stream(TRAIN_STEPS * TRAIN_BATCH, SEED + 4)
+    val_batches = _val_stream()
     state = build_supervised(config, "bisenet", len(loader), dev, seed=SEED)
     recorder = _LossRecorder()
     checkpoint = ModelCheckpoint(save_dir=tmp.name, save_name="smoke",
                                  save_best=False)
-    checked = {"checked": 0}
-    plain_remap = preprocess.rgb_to_train_ids_cuda
 
-    fast_hist_cuda.launches = 0
-    rgb_to_train_ids_cuda.launches = 0
-    preprocess.rgb_to_train_ids_cuda = _checked_remap(checked)
     t0 = time.perf_counter()
-    try:
-        _, history = supervised_fit(
+    (_, history), launches, checked = on_main_path(
+        lambda: supervised_fit(
             state, make_train_step(19),
             lambda epoch: device_batches(loader, transform, dev, seed=SEED,
                                          epoch=epoch),
-            lambda epoch: device_batches(val_loader, val_transform, dev),
-            epochs=TRAIN_EPOCHS, num_classes=CLASSES,
+            val_batches, epochs=TRAIN_EPOCHS, num_classes=CLASSES,
             class_names=CLASS_NAMES, callbacks=[recorder],
-            checkpoint=checkpoint, device=dev)
-        torch.cuda.synchronize()
-    finally:
-        preprocess.rgb_to_train_ids_cuda = plain_remap
+            checkpoint=checkpoint, device=dev))
     fit_s = time.perf_counter() - t0
-    launches = {"fast_hist_cuda": fast_hist_cuda.launches,
-                "rgb_to_train_ids_cuda": rgb_to_train_ids_cuda.launches}
 
     if len(recorder.losses) != TRAIN_EPOCHS * TRAIN_STEPS or not all(
             math.isfinite(x) for x in recorder.losses):
         raise AssertionError(f"train losses {recorder.losses}")
-    if checked["checked"] != TRAIN_EPOCHS * TRAIN_STEPS:
-        raise AssertionError(f"{checked['checked']} K2 calls checked")
+    if checked != TRAIN_EPOCHS * TRAIN_STEPS:
+        raise AssertionError(f"{checked} K2 calls checked")
     if len(history) != TRAIN_EPOCHS or not all(
             0.0 <= h["validation_mIoU"] <= 1.0 for h in history):
         raise AssertionError(f"history {history}")
@@ -875,8 +1002,7 @@ def phase_training() -> dict:
     rgb_dev = torch.from_numpy(host_rgb).to(dev)
     images, labels = transform(images_dev, rgb_dev,
                                batch_generator(SEED, 0, 0))
-    val_images, val_labels = next(iter(device_batches(
-        val_loader, val_transform, dev)))
+    val_images, val_labels = next(iter(val_batches(0)))
 
     # the saved checkpoint restored into a freshly initialised model
     fresh = build_supervised(config, "bisenet", len(loader), dev,
@@ -916,7 +1042,7 @@ def phase_training() -> dict:
           "dtype": "bfloat16", "epochs": TRAIN_EPOCHS,
           "steps_per_epoch": TRAIN_STEPS, "losses": recorder.losses,
           "history": history, "fit_s": fit_s,
-          "k2_outputs_checked": checked["checked"],
+          "k2_outputs_checked": checked,
           "launches": launches, "restore_max_abs_err": restore_err,
           "step_card_vs_cpu": step_checks, "train_step_p50_ms": step_ms,
           "samples_per_s": TRAIN_BATCH * 1000.0 / step_ms,
@@ -937,10 +1063,13 @@ class _DALossRecorder(Callback):
         self.losses.append(dict(logs))
 
 
-def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0) -> dict:
-    """One float64 SGD step of the adversarial trainer (BiSeNet-R18 and the
-    Tiny discriminator, b2, source 64x96, target 64x128) on the card and
-    on the CPU, same weights and batches; fails unless every loss agrees
+def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0,
+                        generator: str = "bisenet") -> dict:
+    """One float64 SGD step of the adversarial trainer (a BiSeNet-R18 or
+    DeepLabV2-R101 ``generator``, the latter with its BN affines frozen,
+    and the Tiny discriminator, b2, source 64x96, target 64x128) on the
+    card and on the CPU, same weights and batches; fails unless every loss
+    agrees
     to 1e-4 relative, G's BN running statistics to rtol 1e-4 / atol 1e-5,
     and each parameter tensor's update, of G and of D, to 1e-3 of its
     largest update + 1e-6.  Returns the worst of each, over its limit."""
@@ -958,14 +1087,14 @@ def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0) -> dict:
     config = load_config()
     states = {}
     for dev in ("cpu", "cuda"):
-        gen = make_bisenet(config.model["bisenet"], seed=SEED).to(
-            dev, torch.float64)
+        gen, frozen = make_segmentor(config, generator, seed=SEED)
+        gen.to(dev, torch.float64)
         dis = make_discriminator(
             config.model["adversarial_model"]["discriminator"],
             seed=SEED + 1).to(dev, torch.float64)
         states[dev] = (
             TrainState(gen, make_optimizer("SGD", gen.parameters(), 0.01,
-                                           momentum=0.0)),
+                                           momentum=0.0, frozen=frozen)),
             TrainState(dis, make_optimizer("SGD", dis.parameters(), 0.02,
                                            momentum=0.0)))
     before = [{k: v.detach().clone() for k, v in s.model.named_parameters()}
@@ -992,7 +1121,8 @@ def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0) -> dict:
             limit = 1e-3 * float(want.abs().max()) + 1e-6
             ratios[f"{net}:{k}"] = float((got - want).abs().max()) / limit
     worst = sorted(ratios, key=ratios.get, reverse=True)
-    result = {"variant": variant, "grl_alpha": grl_alpha,
+    result = {"generator": generator, "variant": variant,
+              "grl_alpha": grl_alpha,
               "loss_gen_source_cpu": float(metrics["cpu"]["loss_gen_source"]),
               "loss_rel_diff": loss_err, "bn_stats_err_over_limit": stats_err,
               "tensors_over_limit": sum(r > 1.0 for r in ratios.values()),
@@ -1002,6 +1132,15 @@ def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0) -> dict:
         raise AssertionError(f"the DA step on the card differs from the "
                              f"CPU's: {result}")
     return result
+
+
+def check_da_losses(losses: list, steps: int) -> None:
+    """``steps`` rows of v1's four losses, every one finite."""
+    if len(losses) != steps or not all(
+            sorted(logs) == sorted(DA_LOSS_KEYS[:4])
+            and all(math.isfinite(v) for v in logs.values())
+            for logs in losses):
+        raise AssertionError(f"DA losses {losses}")
 
 
 def da_config():
@@ -1022,73 +1161,40 @@ def phase_da_training() -> dict:
     config = da_config()
     tcfg = config.training["domain_adaptation"]
     n = DA_ITERATIONS * TRAIN_BATCH
-    source = ColorCodedLabels(
-        SyntheticSegDataset(n, TRAIN_SIZE, CLASSES, seed=SEED + 6,
-                            fixed_tints=True),
-        class_colors_for_remap(), unmatched=UNMATCHED, seed=SEED)
-    target = SyntheticSegDataset(n, DA_TGT_SIZE, CLASSES, seed=SEED + 7,
-                                 fixed_tints=True)
-    val = SyntheticSegDataset(TRAIN_VAL_BATCHES * TRAIN_BATCH, TRAIN_VAL_SIZE,
-                              CLASSES, seed=SEED + 5, fixed_tints=True)
-    src_loader = DataLoader(source, TRAIN_BATCH, num_workers=4, seed=SEED,
-                            infinite=True)
-    tgt_loader = DataLoader(target, TRAIN_BATCH, num_workers=4,
-                            seed=SEED + 1, infinite=True)
-    val_loader = DataLoader(val, TRAIN_BATCH, shuffle=False, num_workers=4,
-                            drop_last=False)
-    src_transform = make_transform(
-        TRAIN_SIZE, CLASSES, antialias=False,
-        augment_cfg=AugmentConfig.from_config(config),
-        decode_label_colors=True)
-    tgt_transform = make_transform(DA_TGT_SIZE, CLASSES, antialias=True)
-    val_transform = make_transform(TRAIN_VAL_SIZE, CLASSES, antialias=True)
+    src_loader, src_transform = _gta5_stream(n, SEED + 6, infinite=True)
+    tgt_loader, tgt_transform = _target_stream(n, SEED + 7)
+    val_batches = _val_stream()
     gen, dis = build_adversarial(config, dev, seed=SEED)
     step = make_adversarial_step(float(tcfg["lambda"]), DA_ITERATIONS,
                                  DA_EPOCHS, 19, "v1")
     recorder = _DALossRecorder()
     checkpoint = ModelCheckpoint(save_dir=tmp.name, save_name="smoke_da",
                                  save_best=False)
-    checked = {"checked": 0}
-    plain_remap = preprocess.rgb_to_train_ids_cuda
     source_iter = device_batches(src_loader, src_transform, dev, seed=SEED)
     target_iter = device_batches(tgt_loader, tgt_transform, dev)
 
     with contextlib.closing(source_iter), contextlib.closing(target_iter):
-        fast_hist_cuda.launches = 0
-        rgb_to_train_ids_cuda.launches = 0
-        preprocess.rgb_to_train_ids_cuda = _checked_remap(checked)
         t0 = time.perf_counter()
-        try:
-            _, _, history = adversarial_fit(
-                gen, dis, step, source_iter, target_iter,
-                lambda epoch: device_batches(val_loader, val_transform, dev),
+        (_, _, history), launches, checked = on_main_path(
+            lambda: adversarial_fit(
+                gen, dis, step, source_iter, target_iter, val_batches,
                 iterations=DA_ITERATIONS, epochs=DA_EPOCHS,
                 num_classes=CLASSES, class_names=CLASS_NAMES,
-                callbacks=[recorder], checkpoint=checkpoint, device=dev)
-            torch.cuda.synchronize()
-        finally:
-            preprocess.rgb_to_train_ids_cuda = plain_remap
+                callbacks=[recorder], checkpoint=checkpoint, device=dev))
         fit_s = time.perf_counter() - t0
-        launches = {"fast_hist_cuda": fast_hist_cuda.launches,
-                    "rgb_to_train_ids_cuda": rgb_to_train_ids_cuda.launches}
         # the next batch of each stream, kept for the profile
         batch = (*next(source_iter), next(target_iter)[0])
 
     steps = DA_EPOCHS * DA_ITERATIONS
-    if len(recorder.losses) != steps or not all(
-            sorted(logs) == sorted(DA_LOSS_KEYS[:4])
-            and all(math.isfinite(v) for v in logs.values())
-            for logs in recorder.losses):
-        raise AssertionError(f"DA losses {recorder.losses}")
-    if checked["checked"] != steps:
-        raise AssertionError(f"{checked['checked']} K2 calls checked")
+    check_da_losses(recorder.losses, steps)
+    if checked != steps:
+        raise AssertionError(f"{checked} K2 calls checked")
     if len(history) != DA_EPOCHS or not all(
             0.0 <= h["validation_mIoU"] <= 1.0 for h in history):
         raise AssertionError(f"history {history}")
 
     # the saved checkpoint restored into freshly initialised states
-    val_images, _ = next(iter(device_batches(val_loader, val_transform,
-                                             dev)))
+    val_images, _ = next(iter(val_batches(0)))
     fresh_gen, fresh_dis = build_adversarial(config, dev, seed=SEED + 9)
     if not checkpoint.manager.restore({"generator": fresh_gen,
                                        "discriminator": fresh_dis}):
@@ -1130,7 +1236,7 @@ def phase_da_training() -> dict:
           "dtype": "bfloat16", "variant": "v1", "epochs": DA_EPOCHS,
           "iterations": DA_ITERATIONS, "losses": recorder.losses,
           "history": history, "fit_s": fit_s,
-          "k2_outputs_checked": checked["checked"], "launches": launches,
+          "k2_outputs_checked": checked, "launches": launches,
           "restore_max_abs_err": restore_err,
           "step_card_vs_cpu_float64": step_checks,
           "v1_ms_per_step": bench["v1"]["ms_per_step"],
@@ -1145,6 +1251,318 @@ def phase_da_training() -> dict:
                                  f"{b['last_loss_gen_source']}")
     return {"launches": launches,
             "profile_run": lambda: step(gen, dis, *batch)}
+
+
+def _masks_ok(masks: np.ndarray, shape: tuple, what: str) -> None:
+    if masks.shape != shape or masks.dtype != np.int32:
+        raise AssertionError(f"{what}: masks {masks.shape} {masks.dtype}")
+    if masks.min() < 0 or masks.max() >= CLASSES:
+        raise AssertionError(f"{what}: mask ids outside [0, {CLASSES})")
+
+
+def phase_deeplab_serving(tree: dict, frames: np.ndarray,
+                          big_frames: np.ndarray) -> dict:
+    """DeepLabV2-R101 served at DEEPLAB_SIZE b8 bf16 (``frames``), held
+    against an f32 run and its CUDA f32 logits against the CPU's; the
+    sliding protocol at SIZE (``big_frames``) with a DEEPLAB_SIZE window
+    and the ensemble at DEEPLAB_SIZE, each timed, and each held to the
+    plain masks where the two must agree: a window covering the whole
+    frame, and scale 1 without flip."""
+    common = {"model_name": "deeplab", "variables": tree,
+              "batch_size": BATCH, "device": "cuda"}
+    plain = Predictor(image_size=DEEPLAB_SIZE, **common).warmup()
+    on_device = plain._predict(frames[:BATCH])
+    if not (on_device.is_cuda and on_device.dtype == torch.uint8
+            and tuple(on_device.shape) == (BATCH, *DEEPLAB_SIZE)):
+        raise AssertionError(f"device masks: {on_device.device} "
+                             f"{on_device.dtype} {tuple(on_device.shape)}")
+    masks = plain.predict(frames)
+    _masks_ok(masks, (len(frames), *DEEPLAB_SIZE), "deeplab plain")
+    batch = frames[:BATCH]
+    p50 = cuda_ms(lambda: plain.predict(batch), reps=10)
+    x = normalize(torch.from_numpy(batch).cuda()).permute(0, 3, 1, 2)
+    x = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        forward_ms = cuda_ms(lambda: plain.model(x).argmax(dim=1), reps=10)
+    del x, on_device
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32 = Predictor(image_size=DEEPLAB_SIZE, dtype=torch.float32,
+                        **common)
+        masks32 = f32.predict(frames)
+        x = normalize(torch.from_numpy(frames[:1, :128, :256].copy()))
+        x = x.permute(0, 3, 1, 2).contiguous()
+        cpu_model = load_flax_variables(DeepLabV2(output_f32=False), tree)
+        with torch.inference_mode():
+            want = cpu_model.eval()(x)
+            got = f32.model(x.cuda()).cpu()
+        cpu_err = float((got - want).abs().max())
+        cpu_scale = float(want.abs().max())
+        del f32, cpu_model
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    torch.cuda.empty_cache()
+    agreement = float((masks == masks32).mean())
+
+    protocols = {}
+    for name, size, kwargs, fr in (
+            ("sliding", SIZE, {"window": DEEPLAB_SIZE}, big_frames),
+            ("ensemble", DEEPLAB_SIZE, {"scales": DEEPLAB_SCALES}, batch)):
+        pred = Predictor(image_size=size, protocol=name,
+                         protocol_kwargs=kwargs, **common).warmup()
+        _masks_ok(pred.predict(fr), (len(fr), *size), f"deeplab {name}")
+        ms = cuda_ms(lambda: pred.predict(fr), reps=5, warmup=1)
+        protocols[name] = {"image_size": list(size), **kwargs,
+                           "frames": len(fr), "p50_ms_per_batch": ms,
+                           "fps": len(fr) * 1000.0 / ms}
+        del pred
+        torch.cuda.empty_cache()
+    # where a protocol must give the plain forward's masks
+    for name, kwargs in (("sliding", {"window": DEEPLAB_SIZE}),
+                         ("ensemble", {"scales": (1.0,), "flip": False})):
+        pred = Predictor(image_size=DEEPLAB_SIZE, protocol=name,
+                         protocol_kwargs=kwargs, **common)
+        same = float((pred.predict(batch) == masks[:BATCH]).mean())
+        protocols[name]["plain_case"] = kwargs
+        protocols[name]["plain_case_pixel_agreement"] = same
+        del pred
+    torch.cuda.empty_cache()
+    emit({"phase": "deeplab_serving", "model": "deeplabv2-resnet101",
+          "image_size": list(DEEPLAB_SIZE), "batch": BATCH,
+          "dtype": "bfloat16", "frames": len(frames),
+          "p50_ms_per_batch": p50, "fps": BATCH * 1000.0 / p50,
+          "forward_argmax_ms": forward_ms,
+          "bf16_vs_f32_pixel_agreement": agreement,
+          "min_bf16_agreement": MIN_DEEPLAB_BF16_AGREEMENT,
+          "f32_cuda_vs_cpu_max_abs_err": cpu_err,
+          "f32_cpu_logit_max_abs": cpu_scale, "protocols": protocols})
+    if agreement < MIN_DEEPLAB_BF16_AGREEMENT:
+        raise AssertionError(f"DeepLab bf16 masks agree with f32 on "
+                             f"{agreement:.4%} of pixels, below "
+                             f"{MIN_DEEPLAB_BF16_AGREEMENT:.0%}")
+    if not cpu_err <= 1e-3 * max(1.0, cpu_scale):
+        raise AssertionError(f"DeepLab f32 CUDA logits differ from the "
+                             f"CPU's by {cpu_err}")
+    for name, r in protocols.items():
+        if r["plain_case_pixel_agreement"] != 1.0:
+            raise AssertionError(f"the {name} protocol's masks differ from "
+                                 f"the plain forward's: {r}")
+    return {"p50_ms": p50, "protocols": protocols}
+
+
+def phase_deeplab_validation(tree: dict) -> dict:
+    """``validate`` of DeepLabV2-R101 (f32 weights, bf16 autocast, as the
+    trainer validates) under the plain, sliding and ensemble eval steps,
+    each a main path of its own; each step's histogram held against the
+    plain ``fast_hist``.  Returns K1's launches on each."""
+    model = load_flax_variables(DeepLabV2(), tree).cuda().eval()
+    bf16 = {"compute_dtype": torch.bfloat16, "return_preds": True}
+    steps = {
+        "plain": (DEEPLAB_SIZE,
+                  make_eval_step(model, CLASSES, **bf16)),
+        "sliding": (SIZE, make_sliding_eval_step(
+            model, SIZE, CLASSES, window=DEEPLAB_SIZE, **bf16)),
+        "ensemble": (DEEPLAB_SIZE, make_ensemble_eval_step(
+            model, DEEPLAB_SIZE, CLASSES, scales=DEEPLAB_SCALES, **bf16))}
+    report = {}
+    for name, (size, step) in steps.items():
+        batches = _synthetic_batches(DEEPLAB_VAL_BATCHES, size,
+                                     seed=SEED + 11)
+        step_ms = []
+        checked_step = checked_eval_step(step, step_ms)
+        (miou, per_class), launches, _ = on_main_path(
+            lambda: validate(model, iter(batches), CLASSES,
+                             class_names=CLASS_NAMES,
+                             eval_step=checked_step, device="cuda"))
+        if not 0.0 <= miou <= 1.0 or len(per_class) != CLASSES:
+            raise AssertionError(f"{name}: mIoU {miou}")
+        if launches["fast_hist_cuda"] < 1:
+            raise AssertionError(f"DeepLab {name} validation never launched "
+                                 f"K1")
+        report[name] = {"image_size": list(size), "miou": miou,
+                        "eval_step_ms": step_ms,
+                        "fast_hist_cuda_launches": launches["fast_hist_cuda"]}
+        del batches
+        torch.cuda.empty_cache()
+    emit({"phase": "deeplab_validation", "model": "deeplabv2-resnet101",
+          "batches": DEEPLAB_VAL_BATCHES, "batch": BATCH,
+          "dtype": "bfloat16 autocast", "protocols": report})
+    return {name: r["fast_hist_cuda_launches"] for name, r in report.items()}
+
+
+def deeplab_config():
+    """The default config in bf16 for one epoch of DeepLabV2-R101 training
+    (Adam, poly LR, blur + flip, BN affines frozen) and of DA v1 with a
+    DeepLabV2-R101 generator and the Tiny discriminator."""
+    return load_config(overrides={
+        "precision": {"compute_dtype": "bfloat16"},
+        "training": {"segmentation": {"epochs": 1, "do_validation": 1},
+                     "domain_adaptation": {
+                         "epochs": 1, "iterations": DEEPLAB_DA_ITERATIONS,
+                         "do_validation": 1}},
+        "model": {"adversarial_model": {"generator": {"name": "deeplab"}}}})
+
+
+def _frozen_still(state, before: list) -> None:
+    if not all(torch.equal(p, b) for p, b in zip(state.optimizer.frozen,
+                                                  before)):
+        raise AssertionError("a frozen BN affine parameter moved")
+
+
+def phase_deeplab_training() -> dict:
+    """DeepLabV2-R101 supervised training through the port's entry points
+    (one epoch of DEEPLAB_TRAIN_STEPS steps at 720x1280 b8 bf16 on
+    colour-coded labels, K2 in the transform, K1 in the validation at
+    512x1024); every K2 output checked, the frozen BN affines unmoved, the
+    checkpoint restored, one float64 step on the card held against the
+    CPU's at full depth, and the step timed through ``train_bench`` with
+    remat off and on and with ``bn_eval``."""
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_dl_")
+    config = deeplab_config()
+    loader, transform = _gta5_stream(DEEPLAB_TRAIN_STEPS * TRAIN_BATCH,
+                                     SEED + 12)
+    state = build_supervised(config, "deeplab", len(loader), dev, seed=SEED)
+    frozen_before = [p.detach().clone() for p in state.optimizer.frozen]
+    recorder = _LossRecorder()
+    checkpoint = ModelCheckpoint(save_dir=tmp.name, save_name="smoke_dl",
+                                 save_best=False)
+    val_batches = _val_stream()
+    t0 = time.perf_counter()
+    (_, history), launches, checked = on_main_path(
+        lambda: supervised_fit(
+            state, make_train_step(19),
+            lambda epoch: device_batches(loader, transform, dev, seed=SEED,
+                                         epoch=epoch),
+            val_batches, epochs=1, num_classes=CLASSES,
+            class_names=CLASS_NAMES, callbacks=[recorder],
+            checkpoint=checkpoint, device=dev))
+    fit_s = time.perf_counter() - t0
+    if len(recorder.losses) != DEEPLAB_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in recorder.losses):
+        raise AssertionError(f"DeepLab train losses {recorder.losses}")
+    if checked != DEEPLAB_TRAIN_STEPS:
+        raise AssertionError(f"{checked} K2 calls checked")
+    if len(history) != 1 or not 0.0 <= history[0]["validation_mIoU"] <= 1.0:
+        raise AssertionError(f"history {history}")
+    _frozen_still(state, frozen_before)
+
+    host_images, host_rgb = next(iter(loader))
+    images, labels = transform(torch.from_numpy(host_images).to(dev),
+                               torch.from_numpy(host_rgb).to(dev),
+                               batch_generator(SEED, 0, 0))
+    val_images, _ = next(iter(val_batches(0)))
+    fresh = build_supervised(config, "deeplab", len(loader), dev,
+                             seed=SEED + 9)
+    if not checkpoint.manager.restore({"model": fresh}):
+        raise AssertionError("DeepLab checkpoint restore failed")
+    with torch.inference_mode(), state.autocast():
+        want = state.model.eval()(val_images.permute(0, 3, 1, 2))
+        got = fresh.model.eval()(val_images.permute(0, 3, 1, 2))
+    restore_err = float((got - want).abs().max())
+    if fresh.step != state.step or restore_err > 1e-5 * max(
+            1.0, float(want.abs().max())):
+        raise AssertionError(f"restored DeepLab: step {fresh.step}, logits "
+                             f"differ by {restore_err}")
+    del want, got, fresh, val_images
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    step_check = step_card_vs_cpu(torch.float64, 2, "deeplab", (64, 96))
+    split = train_step_split(state, images, labels, reps=4)
+    torch.cuda.empty_cache()
+    bench = {}
+    for name, kwargs in (("plain", {}), ("remat", {"remat": True}),
+                         ("bn_eval", {"bn_eval": True})):
+        bench[name] = supervised_step_benchmark(
+            "deeplab", batch_size=TRAIN_BATCH, image_size=TRAIN_SIZE,
+            steps=DEEPLAB_BENCH_STEPS, repeats=3, seed=SEED, **kwargs)
+        torch.cuda.empty_cache()
+        if not math.isfinite(bench[name]["last_train_loss"]):
+            raise AssertionError(f"DeepLab bench {name}: {bench[name]}")
+    emit({"phase": "deeplab_training", "model": "deeplabv2-resnet101",
+          "image_size": list(TRAIN_SIZE), "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "steps": DEEPLAB_TRAIN_STEPS,
+          "losses": recorder.losses, "history": history, "fit_s": fit_s,
+          "k2_outputs_checked": checked, "launches": launches,
+          "frozen_bn_tensors": len(frozen_before),
+          "restore_max_abs_err": restore_err,
+          "step_card_vs_cpu_float64": step_check,
+          "train_step_split_ms": split,
+          **{f"{k}_ms_per_step": b["ms_per_step"] for k, b in bench.items()},
+          **{f"{k}_samples_per_s": b["samples_per_sec"]
+             for k, b in bench.items()},
+          **{f"{k}_max_memory_gb": b["max_memory_gb"]
+             for k, b in bench.items()},
+          "bench": bench})
+    return {"launches": launches, "state": state, "batch": (images, labels)}
+
+
+def phase_deeplab_da() -> dict:
+    """DA v1 with a DeepLabV2-R101 generator and the Tiny discriminator
+    through the port's entry points (source 720x1280 colour-coded with K2
+    in its transform, target 512x1024, b8 bf16, one epoch of
+    DEEPLAB_DA_ITERATIONS steps, K1 in the validation); every loss finite,
+    every K2 output checked, the frozen BN affines unmoved; the step timed
+    with its peak memory (``da_bench``); one float64 v1 step on the card
+    held against the CPU's."""
+    dev = torch.device("cuda")
+    config = deeplab_config()
+    n = DEEPLAB_DA_ITERATIONS * TRAIN_BATCH
+    src_loader, src_transform = _gta5_stream(n, SEED + 13, infinite=True)
+    tgt_loader, tgt_transform = _target_stream(n, SEED + 14)
+    gen, dis = build_adversarial(config, dev, seed=SEED)
+    frozen_before = [p.detach().clone() for p in gen.optimizer.frozen]
+    tcfg = config.training["domain_adaptation"]
+    step = make_adversarial_step(float(tcfg["lambda"]),
+                                 DEEPLAB_DA_ITERATIONS, 1, 19, "v1")
+    recorder = _DALossRecorder()
+    source_iter = device_batches(src_loader, src_transform, dev, seed=SEED)
+    target_iter = device_batches(tgt_loader, tgt_transform, dev)
+    with contextlib.closing(source_iter), contextlib.closing(target_iter):
+        t0 = time.perf_counter()
+        (_, _, history), launches, checked = on_main_path(
+            lambda: adversarial_fit(
+                gen, dis, step, source_iter, target_iter, _val_stream(),
+                iterations=DEEPLAB_DA_ITERATIONS, epochs=1,
+                num_classes=CLASSES, class_names=CLASS_NAMES,
+                callbacks=[recorder], device=dev))
+        fit_s = time.perf_counter() - t0
+    check_da_losses(recorder.losses, DEEPLAB_DA_ITERATIONS)
+    if checked != DEEPLAB_DA_ITERATIONS:
+        raise AssertionError(f"{checked} K2 calls checked")
+    if len(history) != 1 or not 0.0 <= history[0]["validation_mIoU"] <= 1.0:
+        raise AssertionError(f"history {history}")
+    _frozen_still(gen, frozen_before)
+    del gen, dis
+    torch.cuda.empty_cache()
+
+    bench = da_step_benchmark(
+        batch_size=TRAIN_BATCH, src_hw=TRAIN_SIZE, tgt_hw=DA_TGT_SIZE,
+        steps=DEEPLAB_BENCH_STEPS, repeats=3, dtype=torch.bfloat16,
+        variant="v1", seed=SEED, generator="deeplab")
+    torch.cuda.empty_cache()
+    if not math.isfinite(bench["last_loss_gen_source"]):
+        raise AssertionError(f"DeepLab DA bench: {bench}")
+    step_check = da_step_card_vs_cpu("v1", generator="deeplab")
+    emit({"phase": "deeplab_da", "generator": "deeplabv2-resnet101",
+          "discriminator": "tiny", "source_size": list(TRAIN_SIZE),
+          "target_size": list(DA_TGT_SIZE), "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "variant": "v1", "epochs": 1,
+          "iterations": DEEPLAB_DA_ITERATIONS, "losses": recorder.losses,
+          "history": history, "fit_s": fit_s, "k2_outputs_checked": checked,
+          "launches": launches, "frozen_bn_tensors": len(frozen_before),
+          "v1_ms_per_step": bench["ms_per_step"],
+          "v1_steps_per_sec": bench["steps_per_sec"],
+          "v1_split_ms": bench["split_ms"],
+          "max_memory_gb": bench["max_memory_gb"],
+          "step_card_vs_cpu_float64": step_check, "bench": bench})
+    return {"launches": launches}
 
 
 def timed_entry(kernel, plain, library, nbytes: int) -> dict:
@@ -1303,13 +1721,46 @@ def main() -> int:
         if n < 1:
             raise AssertionError(f"the DA path never launched {name}")
 
+    # main paths 4-8: DeepLabV2-R101 serving (no hand-written kernel on
+    # it), validation under each protocol, training, DA (counts reset
+    # inside each, just before)
+    dl_ds = SyntheticSegDataset(SERVE_FRAMES + 2, DEEPLAB_SIZE, CLASSES,
+                                seed=SEED + 10, fixed_tints=True)
+    dl_frames = np.stack([dl_ds[i][0] for i in range(SERVE_FRAMES)])
+    dl_tree = calibrate_batch_stats(
+        random_flax_deeplab(SEED),
+        np.stack([dl_ds[SERVE_FRAMES + i][0] for i in range(2)]), "cuda",
+        DeepLabV2)
+    phase_deeplab_serving(dl_tree, dl_frames, frames[:BATCH])
+    del dl_frames
+    dl_val = phase_deeplab_validation(dl_tree)
+    dl_train = phase_deeplab_training()
+    dl_da = phase_deeplab_da()
+    torch.cuda.empty_cache()
+
+    hist_paths = {"bisenet_serving_validation": serve_launches,
+                  "bisenet_training": train_launches["fast_hist_cuda"],
+                  "bisenet_da": da_launches["fast_hist_cuda"],
+                  **{f"deeplab_validation_{k}": n for k, n in dl_val.items()},
+                  "deeplab_training": dl_train["launches"]["fast_hist_cuda"],
+                  "deeplab_da": dl_da["launches"]["fast_hist_cuda"]}
+    remap_paths = {
+        "bisenet_training": train_launches["rgb_to_train_ids_cuda"],
+        "bisenet_da": da_launches["rgb_to_train_ids_cuda"],
+        "deeplab_training": dl_train["launches"]["rgb_to_train_ids_cuda"],
+        "deeplab_da": dl_da["launches"]["rgb_to_train_ids_cuda"]}
+    for kernel, paths in (("K1", hist_paths), ("K2", remap_paths)):
+        missed = [p for p, n in paths.items() if n < 1]
+        if missed:
+            raise AssertionError(f"{kernel} never launched on {missed}")
+
     preds = preds.to(torch.int32)
     kernels = [
-        kernel_timing(labels, preds,
-                      serve_launches + train_launches["fast_hist_cuda"]
-                      + da_launches["fast_hist_cuda"], hist_err),
-        remap_timing(trained["rgb"], train_launches["rgb_to_train_ids_cuda"]
-                     + da_launches["rgb_to_train_ids_cuda"], remap_err)]
+        {**kernel_timing(labels, preds, sum(hist_paths.values()), hist_err),
+         "launches_by_path": hist_paths},
+        {**remap_timing(trained["rgb"], sum(remap_paths.values()),
+                        remap_err),
+         "launches_by_path": remap_paths}]
     # last: the profiler's tracing may slow what runs after it
     traced = profile_kernels({
         "hist_kernel": lambda: fast_hist_cuda(labels, preds, CLASSES),
@@ -1325,7 +1776,11 @@ def main() -> int:
           **profile_steps(lambda: step(trained["state"], *trained["batch"])),
           "da_v1": {"source_size": list(TRAIN_SIZE),
                     "target_size": list(DA_TGT_SIZE),
-                    **profile_steps(da["profile_run"], steps=3)}})
+                    **profile_steps(da["profile_run"], steps=3)},
+          "deeplab_supervised": {
+              "model": "deeplabv2-resnet101",
+              **profile_steps(lambda: step(dl_train["state"],
+                                           *dl_train["batch"]), steps=3)}})
     emit({"kernels": kernels})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],

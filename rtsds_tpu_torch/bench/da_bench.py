@@ -2,15 +2,17 @@
 
 One step is the whole iteration: the generator's source and target
 forwards, the discriminator's forwards, both backward passes and both
-optimizer updates (v2: two more generator forwards).  BiSeNet-R18 and the
-Tiny discriminator, both with Adam, on random inputs made on the card from
-a seed.  Steps run back to back through the two train states, which each
-step updates in place; after warmup, CUDA events bracket each repeat of
+optimizer updates (v2: two more generator forwards).  A BiSeNet-R18 or
+DeepLabV2-R101 generator (its batch-norm affines frozen, as its trainer
+keeps them) and the Tiny discriminator, both with Adam, on random inputs
+made on the card from a seed.  Steps run back to back through the two
+train states, which each step updates in place; after warmup, CUDA events bracket each repeat of
 ``steps`` steps, and the last step's loss is read.  Under v1 the bench
 also times the generator phase and the discriminator phase apart, with an
 event between them.
 
-    python -m rtsds_tpu_torch.bench.da_bench [--variant v1|v2] [--grl-alpha A]
+    python -m rtsds_tpu_torch.bench.da_bench [--variant v1|v2] [--grl-alpha A] \
+        [--generator bisenet|deeplab]
 
 prints one JSON line for batch 8, a 720x1280 source and a 512x1024 target
 in bf16.  Without a GPU it raises.
@@ -26,6 +28,7 @@ import torch
 
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.models.bisenet import BiSeNet
+from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2, frozen_bn_parameters
 from rtsds_tpu_torch.models.discriminator import TinyDomainDiscriminator
 from rtsds_tpu_torch.train.adversarial import (
     make_adversarial_step, v1_discriminator_update, v1_generator_update)
@@ -48,7 +51,7 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
                       tgt_hw=(512, 1024), steps: int = 5, repeats: int = 3,
                       dtype: torch.dtype = torch.bfloat16,
                       variant: str = "v1", grl_alpha: float = 0.0,
-                      seed: int = 0) -> dict:
+                      seed: int = 0, generator: str = "bisenet") -> dict:
     """``ms_per_step`` is the median over ``repeats`` of the mean step time
     of ``steps`` chained steps; ``split_ms`` (v1 without reversal) the
     median generator and discriminator phase times over the same number of
@@ -58,15 +61,23 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
     torch.cuda.reset_peak_memory_stats()
     at_start = torch.cuda.memory_allocated()
     compute = None if dtype == torch.float32 else dtype
+    gen_name = generator
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        generator = BiSeNet(num_classes=19, context_path="resnet18")
+        if gen_name == "deeplab":
+            generator = DeepLabV2(num_classes=19)
+            frozen = frozen_bn_parameters(generator)
+        elif gen_name == "bisenet":
+            generator = BiSeNet(num_classes=19, context_path="resnet18")
+            frozen = []
+        else:
+            raise ValueError(f"unknown generator {gen_name!r}")
         discriminator = TinyDomainDiscriminator(num_classes=19)
     generator.to(device)
     discriminator.to(device)
     gen = TrainState(generator, make_optimizer(
-        "Adam", generator.parameters(), poly_lr_schedule(1e-4, 5000, 0.9)),
-        compute)
+        "Adam", generator.parameters(), poly_lr_schedule(1e-4, 5000, 0.9),
+        frozen=frozen), compute)
     dis = TrainState(discriminator, make_optimizer(
         "Adam", discriminator.parameters(), 1e-4, weight_decay=1e-4),
         compute)
@@ -114,7 +125,8 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
             "steps_per_sec": 1000.0 / ms, "split_ms": split,
             "batch_size": batch_size, "src_hw": list(src_hw),
             "tgt_hw": list(tgt_hw), "dtype": str(dtype).replace("torch.", ""),
-            "variant": variant, "grl_alpha": grl_alpha, "steps": steps,
+            "generator": gen_name, "variant": variant,
+            "grl_alpha": grl_alpha, "steps": steps,
             "repeats": repeats, "last_loss_gen_source": last_loss,
             "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "memory_at_start_gb": at_start / 1e9,
@@ -126,9 +138,12 @@ def main(argv=None):
     parser.add_argument("--variant", choices=["v1", "v2"], default="v1")
     parser.add_argument("--grl-alpha", type=float, default=0.0,
                         help="> 0: the gradient-reversal step (v1 only)")
+    parser.add_argument("--generator", choices=["bisenet", "deeplab"],
+                        default="bisenet")
     args = parser.parse_args(argv)
     print(json.dumps(da_step_benchmark(variant=args.variant,
-                                       grl_alpha=args.grl_alpha)))
+                                       grl_alpha=args.grl_alpha,
+                                       generator=args.generator)))
 
 
 if __name__ == "__main__":

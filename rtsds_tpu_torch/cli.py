@@ -4,14 +4,18 @@
     python -m rtsds_tpu_torch.cli --config <yaml> --domain_adaptation \
         [--augmented]
 
-The first trains BiSeNet on GTA5 (or Cityscapes) and validates on
-Cityscapes every ``training.segmentation.do_validation`` epochs, saving the
-best model (``callbacks.model_checkpoint``).  The second runs adversarial
+The first trains BiSeNet (or DeepLabV2, ``--model deeplab``) on GTA5 (or
+Cityscapes) and validates on Cityscapes every
+``training.segmentation.do_validation`` epochs, saving the best model
+(``callbacks.model_checkpoint``).  The second runs adversarial
 GTA5 -> Cityscapes domain adaptation (``training.domain_adaptation``:
 ``variant`` v1 or v2, ``model.adversarial_model.discriminator.grl`` for
 the gradient-reversal step): ``iterations`` generator/discriminator steps
-per epoch on endless source and target streams, the generator validated on
-Cityscapes, checkpoints of both networks under ``<save_name>_da``.
+per epoch on endless source and target streams, the generator
+(``model.adversarial_model.generator.name``: bisenet or deeplab) validated
+on Cityscapes, checkpoints of both networks under ``<save_name>_da``.
+Validation takes the ``validation.ensemble`` or ``validation.sliding``
+protocol when one is enabled.
 ``--resume`` continues from the latest checkpoint; ``--validate_only``
 restores the best (else the latest) one and reports its mIoU;
 ``--synthetic`` runs on generated data.  Raw GTA5 labels
@@ -45,7 +49,7 @@ def argument_parser(argv=None):
     parser.add_argument("--augmented", action="store_true",
                         help="Apply augmentation (GTA5 dataset only).")
     parser.add_argument("--model", type=str, default="bisenet",
-                        help="Segmentation model: bisenet.")
+                        help="Segmentation model: bisenet or deeplab.")
     parser.add_argument("--seed", type=int, default=42,
                         help="Seed of the init, shuffles and augmentation.")
     parser.add_argument("--synthetic", action="store_true",
@@ -74,15 +78,13 @@ def _enabled(node) -> bool:
 
 
 def _check_supervised(args, config) -> None:
-    if args.model == "deeplab":
-        raise _not_ported("DeepLabV2 training (--model deeplab)")
-    if args.model != "bisenet":
+    if args.model not in ("bisenet", "deeplab"):
         raise SystemExit(
             "Invalid model name. Please select deeplab or bisenet")
-    criterion = config.model["bisenet"]["criterion"].get("name")
+    criterion = config.model[args.model]["criterion"].get("name")
     if criterion != "CrossEntropy":
-        raise SystemExit(f"model.bisenet.criterion.name {criterion!r}: the "
-                         f"supervised step trains with CrossEntropy")
+        raise SystemExit(f"model.{args.model}.criterion.name {criterion!r}: "
+                         f"the supervised step trains with CrossEntropy")
     tcfg = config.training["segmentation"]
     if int(tcfg.get("accumulate_steps", 1)) > 1:
         raise _not_ported("training.segmentation.accumulate_steps > 1")
@@ -106,9 +108,6 @@ def _check_domain_adaptation(config) -> None:
     for key in ("self_training", "ema", "entropy_min", "fda"):
         if _enabled(tcfg.get(key)):
             raise _not_ported(f"training.domain_adaptation.{key}")
-    if adv["generator"]["name"] == "deeplab":
-        raise _not_ported("a DeepLabV2 generator "
-                          "(model.adversarial_model.generator.name)")
     for net, want in (("generator", "CrossEntropy"),
                       ("discriminator", "BCEWithLogits")):
         name = adv[net]["criterion"].get("name")
@@ -129,9 +128,9 @@ def check_ported(args, config) -> None:
     else:
         _check_supervised(args, config)
     vcfg = config.get("validation") or {}
-    for key in ("ensemble", "sliding"):
-        if _enabled(vcfg.get(key)):
-            raise _not_ported(f"the validation.{key} protocol")
+    if _enabled(vcfg.get("ensemble")) and _enabled(vcfg.get("sliding")):
+        raise SystemExit("validation.ensemble and validation.sliding are "
+                         "mutually exclusive; enable at most one")
     mesh = dict(config.get("mesh") or {})
     if any(int(mesh.get(axis, 1) or 1) > 1
            for axis in ("data", "spatial", "model", "pipe")):
@@ -218,6 +217,35 @@ def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
     }
 
 
+def build_eval_step(config, state, image_size: tuple[int, int],
+                    num_classes: int):
+    """The validation step of ``state``'s model at ``image_size``: the
+    ``validation.ensemble`` or ``validation.sliding`` protocol when one is
+    enabled, else the plain forward."""
+    from rtsds_tpu_torch.config import parse_float_list
+    from rtsds_tpu_torch.eval.ensemble import make_ensemble_eval_step
+    from rtsds_tpu_torch.eval.sliding import make_sliding_eval_step
+    from rtsds_tpu_torch.eval.validate import make_eval_step
+
+    vcfg = config.get("validation") or {}
+    ens, sld = vcfg.get("ensemble"), vcfg.get("sliding")
+    kwargs = {"compute_dtype": state.compute_dtype}
+    if _enabled(ens):
+        return make_ensemble_eval_step(
+            state.model, image_size, num_classes,
+            scales=parse_float_list(ens.get("scales", "0.75, 1.0, 1.25")),
+            flip=bool(ens.get("flip", True)), **kwargs)
+    if _enabled(sld):
+        stride = sld.get("stride") or None
+        chunk = int(sld.get("window_chunk", 0) or 0)
+        return make_sliding_eval_step(
+            state.model, image_size, num_classes,
+            window=tuple(parse_int_list(sld.get("window", "512, 1024"))),
+            stride=tuple(parse_int_list(stride)) if stride else None,
+            window_chunk=chunk if chunk > 0 else None, **kwargs)
+    return make_eval_step(state.model, num_classes, **kwargs)
+
+
 def build_callbacks(config, mode_suffix: str = ""):
     """(callbacks, checkpoint) from ``config.callbacks``; a section set to
     null is off.  Checkpoints go to ``<save_name><mode_suffix>``, so
@@ -246,10 +274,11 @@ def build_callbacks(config, mode_suffix: str = ""):
 
 
 def run_validation_only(states: dict, which: str, checkpoint, val_batches,
-                        num_classes: int, class_names, device) -> float:
+                        num_classes: int, class_names, device,
+                        eval_step) -> float:
     """Restore the best (else latest) checkpoint into ``states`` and
-    validate ``states[which]`` once."""
-    from rtsds_tpu_torch.eval.validate import make_eval_step, validate
+    validate ``states[which]`` once with ``eval_step``."""
+    from rtsds_tpu_torch.eval.validate import validate
 
     if checkpoint is None:
         raise SystemExit("--validate_only needs a callbacks.model_checkpoint "
@@ -266,8 +295,6 @@ def run_validation_only(states: dict, which: str, checkpoint, val_batches,
                          f"{checkpoint.save_dir} does not match this run's "
                          f"model")
     state = states[which]
-    eval_step = make_eval_step(state.model, num_classes,
-                               compute_dtype=state.compute_dtype)
     miou, _ = validate(state.model, val_batches(0), num_classes,
                        class_names=class_names, detailed_report=True,
                        eval_step=eval_step, device=device)
@@ -290,6 +317,8 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     iterations = int(tcfg["iterations"])
     gen_state, dis_state = build_adversarial(config, device, seed=args.seed)
     states = {"generator": gen_state, "discriminator": dis_state}
+    eval_step = build_eval_step(config, gen_state, data["cs_size"],
+                                num_classes)
 
     def val_batches(_epoch):
         return device_batches(data["cs_val"], data["cs_transform"], device)
@@ -297,7 +326,19 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     if args.validate_only:
         return run_validation_only(states, "generator", checkpoint,
                                    val_batches, num_classes, class_names,
-                                   device)
+                                   device, eval_step)
+
+    adv = config.model["adversarial_model"]
+    grl_cfg = adv["discriminator"].get("grl")
+    # the generator's own model section, bisenet or deeplab
+    gen_cfg = config.model[adv["generator"]["name"]]
+    da_step = make_adversarial_step(
+        lambda_=float(tcfg["lambda"]), iterations=iterations,
+        epochs=int(tcfg["epochs"]),
+        ignore_index=gen_cfg["criterion"].get("ignore_index"),
+        variant=str(tcfg.get("variant", "v1")),
+        grl_alpha=(float(grl_cfg.get("alpha", 0.1)) if _enabled(grl_cfg)
+                   else 0.0))
 
     start_epoch = 0
     if args.resume and checkpoint is not None:
@@ -315,15 +356,6 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
         seed=args.seed if args.augmented else None, start_index=consumed)
     target_iter = device_batches(data["cs_train"], data["cs_transform"],
                                  device)
-
-    grl_cfg = config.model["adversarial_model"]["discriminator"].get("grl")
-    da_step = make_adversarial_step(
-        lambda_=float(tcfg["lambda"]), iterations=iterations,
-        epochs=int(tcfg["epochs"]),
-        ignore_index=config.model["bisenet"]["criterion"].get("ignore_index"),
-        variant=str(tcfg.get("variant", "v1")),
-        grl_alpha=(float(grl_cfg.get("alpha", 0.1)) if _enabled(grl_cfg)
-                   else 0.0))
     try:
         _, _, history = adversarial_fit(
             gen_state, dis_state, da_step, source_iter, target_iter,
@@ -331,7 +363,7 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
             num_classes=num_classes, class_names=class_names,
             callbacks=callbacks, do_validation=int(tcfg["do_validation"]),
             checkpoint=checkpoint, when_print=int(tcfg.get("when_print", -1)),
-            start_epoch=start_epoch, device=device)
+            start_epoch=start_epoch, device=device, eval_step=eval_step)
     finally:
         # stops the loaders' prefetch threads
         source_iter.close()
@@ -376,8 +408,9 @@ def main(argv=None):
     num_classes = int(tcfg["num_classes"])
     state = build_supervised(config, args.model, len(train_loader), device,
                              seed=args.seed)
-    ignore_index = config.model["bisenet"]["criterion"].get("ignore_index")
+    ignore_index = config.model[args.model]["criterion"].get("ignore_index")
     train_step = make_train_step(ignore_index=ignore_index)
+    eval_step = build_eval_step(config, state, data["cs_size"], num_classes)
 
     def train_batches(epoch):
         return device_batches(train_loader, train_transform, device,
@@ -390,7 +423,7 @@ def main(argv=None):
     if args.validate_only:
         return run_validation_only({"model": state}, "model", checkpoint,
                                    val_batches, num_classes, class_names,
-                                   device)
+                                   device, eval_step)
 
     start_epoch = 0
     if args.resume and checkpoint is not None:
@@ -403,7 +436,7 @@ def main(argv=None):
         epochs=int(tcfg["epochs"]), num_classes=num_classes,
         class_names=class_names, callbacks=callbacks,
         do_validation=int(tcfg["do_validation"]), checkpoint=checkpoint,
-        start_epoch=start_epoch, device=device)
+        start_epoch=start_epoch, device=device, eval_step=eval_step)
     return history
 
 

@@ -20,9 +20,21 @@ from rtsds_tpu_torch.ops.cuda.hist import fast_hist_cuda
 from rtsds_tpu_torch.utils.metrics import per_class_iou
 
 
+def plain_predict(model: nn.Module) -> Callable:
+    """``predict(x) -> preds``: the argmax of ``model``'s logits of (N, C,
+    H, W) images, (N, H, W) class ids."""
+    def predict(x):
+        outputs = model(x)
+        if isinstance(outputs, (tuple, list)):
+            outputs = outputs[0]
+        return outputs.argmax(dim=1)
+    return predict
+
+
 def make_eval_step(model: nn.Module, num_classes: int,
                    return_preds: bool = False,
-                   compute_dtype: torch.dtype | None = None) -> Callable:
+                   compute_dtype: torch.dtype | None = None,
+                   predict: Callable | None = None) -> Callable:
     """Returns ``eval_step(images, labels, hist) -> hist`` (or
     ``(hist, preds)`` with ``return_preds``, for image-plot callbacks).
 
@@ -31,19 +43,21 @@ def make_eval_step(model: nn.Module, num_classes: int,
     mode (:func:`validate` sees to it).  The returned ``hist`` is a new
     tensor: the one passed in is not modified.  ``compute_dtype`` (e.g.
     bf16 for a model trained in it) runs the forward under autocast.
+    ``predict`` maps (N, 3, H, W) images in the parameters' dtype to class
+    ids: :func:`plain_predict` by default, or a protocol's
+    (``eval/sliding.py``, ``eval/ensemble.py``).
     """
     dtype = next(model.parameters()).dtype
     autocast = compute_dtype not in (None, dtype)
+    if predict is None:
+        predict = plain_predict(model)
 
     @torch.inference_mode()
     def eval_step(images, labels, hist):
         with (torch.autocast(device_type=images.device.type,
                              dtype=compute_dtype) if autocast
               else contextlib.nullcontext()):
-            outputs = model(images.to(dtype).permute(0, 3, 1, 2))
-        if isinstance(outputs, (tuple, list)):
-            outputs = outputs[0]
-        preds = outputs.argmax(dim=1)
+            preds = predict(images.to(dtype).permute(0, 3, 1, 2))
         new_hist = hist + fast_hist_cuda(labels, preds, num_classes)
         if return_preds:
             return new_hist, preds

@@ -72,17 +72,23 @@ class BiSeNet(nn.Module):
     are linear and the upsample's weights sum to one, so the result is the
     same up to rounding while the conv runs on 64x fewer pixels.
     ``output_f32=False`` keeps the logits in the compute dtype, for callers
-    that only take their argmax.
+    that only take their argmax.  ``remat`` recomputes the context path's
+    residual blocks in the backward instead of keeping their activations.
     """
 
+    # the attention gates batch-normalize a pooled (N, C, 1, 1) map, whose
+    # statistics one frame cannot give
+    min_train_batch = 2
+
     def __init__(self, num_classes: int = 19, context_path: str = "resnet18",
-                 fast_head: bool = True, output_f32: bool = True):
+                 fast_head: bool = True, output_f32: bool = True,
+                 remat: bool = False):
         super().__init__()
         c16, c32 = FEATURE_CHANNELS[context_path]
         self.fast_head = fast_head
         self.output_f32 = output_f32
         self.spatial_path = SpatialPath()
-        self.context_path = build_contextpath(context_path)
+        self.context_path = build_contextpath(context_path, remat=remat)
         self.arm1 = AttentionRefinementModule(c16)
         self.arm2 = AttentionRefinementModule(c32)
         self.supervision1 = conv(c16, num_classes, 1)
@@ -92,6 +98,12 @@ class BiSeNet(nn.Module):
         for name, child in self.named_children():
             if name != "context_path":
                 kaiming_normal_relu_(child)
+
+    @staticmethod
+    def is_head(name: str) -> bool:
+        """Whether parameter ``name`` takes ``head_lr_mult``: every module
+        but the pretrained context path."""
+        return name.split(".")[0] != "context_path"
 
     def forward(self, x: torch.Tensor):
         sx = self.spatial_path(x)

@@ -5,6 +5,9 @@ numpy arrays.  Its scopes flatten torchvision's names (``layer2_1`` for
 ``layer2.1``, ``downsample_conv``/``downsample_bn`` for ``downsample.0/1``),
 its conv kernels are HWIO where torch's are OIHW, and its BN leaves are
 ``scale``/``bias`` in params and ``mean``/``var`` in batch_stats.
+
+:func:`load_deeplab_pretrained` ingests an external DeepLab checkpoint (a
+torch state dict) the way the reference does.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ def torch_scope(name: str) -> str:
         return "downsample.0"
     if name == "downsample_bn":
         return "downsample.1"
-    m = re.fullmatch(r"(layer\d+)_(\d+)", name)
+    m = re.fullmatch(r"(layer\d+|conv2d_list)_(\d+)", name)
     if m:
         return f"{m.group(1)}.{m.group(2)}"
     return name
@@ -97,3 +100,35 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
             state[k] = v
     module.load_state_dict(state, strict=True)
     return module
+
+
+def load_deeplab_pretrained(module: nn.Module, source) -> dict:
+    """Load a DeepLab checkpoint (a path to a torch state dict, or the dict)
+    into ``module`` by the reference's rule: the first dotted segment of
+    every key is dropped (``Scale.layer1.0.conv1.weight`` ->
+    ``layer1.0.conv1.weight``), then the load is not strict: keys the
+    module lacks and tensors of another shape are skipped.  BN
+    ``num_batches_tracked`` counters are neither loaded nor reported.
+    Prints and returns ``{"loaded": count, "skipped": [key, ...]}``."""
+    state = source
+    if not isinstance(source, Mapping):
+        state = torch.load(source, map_location="cpu", weights_only=True)
+    own = module.state_dict()
+    take: dict[str, torch.Tensor] = {}
+    skipped: list[str] = []
+    for key, value in state.items():
+        key = key.split(".", 1)[-1]
+        if key.endswith("num_batches_tracked"):
+            continue
+        value = torch.as_tensor(value)
+        if key not in own:
+            skipped.append(key)
+        elif tuple(value.shape) != tuple(own[key].shape):
+            skipped.append(f"{key} (shape {tuple(value.shape)} vs "
+                           f"{tuple(own[key].shape)})")
+        else:
+            take[key] = value
+    module.load_state_dict(take, strict=False)
+    print(f"pretrained: loaded {len(take)} tensors"
+          + (f", skipped {len(skipped)}" if skipped else ""))
+    return {"loaded": len(take), "skipped": skipped}

@@ -2,7 +2,8 @@
 
 ``align_corners=False`` samples at half-pixel positions, the convention of
 ``jax.image.resize(method="bilinear")``; with no antialias the two agree
-exactly when upsampling, which is the only way the models use them.
+exactly when upsampling, which is how the models use them.  The ensemble
+protocol resizes with ``antialias=True``, ``jax.image.resize``'s default.
 Labels resize by nearest neighbour, the floor of the scaled index.
 """
 
@@ -12,12 +13,20 @@ import torch
 import torch.nn.functional as F
 
 
-def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of an (N, C, H, W) tensor to spatial ``size`` (H, W)."""
+def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
+                    antialias: bool = False) -> torch.Tensor:
+    """Bilinear resize of an (N, C, H, W) tensor to spatial ``size`` (H, W).
+
+    ``antialias=True`` widens the triangle filter where the resize shrinks,
+    as ``jax.image.resize(..., antialias=True)`` does; an enlarging resize
+    takes the plain filter either way (torch's antialiased kernel would
+    differ from it by rounding).
+    """
     if x.ndim != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
+    shrinks = size[0] < x.shape[-2] or size[1] < x.shape[-1]
     return F.interpolate(x, size=tuple(size), mode="bilinear",
-                         align_corners=False)
+                         align_corners=False, antialias=antialias and shrinks)
 
 
 def upsample_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:

@@ -1,12 +1,15 @@
 """Real-time inference: uint8 frames in, trainId masks out.
 
-:class:`Predictor` keeps a BiSeNet resident on the GPU (bf16 by default)
-and serves (N, H, W, 3) uint8 frames as (N, H, W) int32 masks, or as
-colorized RGB.  Masks cross from the device as uint8, a quarter of the
-bytes of int32, and are widened on the host.
+:class:`Predictor` keeps a BiSeNet or a DeepLabV2 resident on the GPU
+(bf16 by default) and serves (N, H, W, 3) uint8 frames as (N, H, W) int32
+masks, or as colorized RGB, through a plain forward or one of the two
+accuracy-first protocols (multi-scale + flip ensemble, sliding window).
+Masks cross from the device as uint8, a quarter of the bytes of int32, and
+are widened on the host.
 
-``python -m rtsds_tpu_torch.serve img.png [--out DIR] [--colored]`` runs
-it from random init on PNG frames already at ``--size``.
+``python -m rtsds_tpu_torch.serve img.png [--model deeplab] [--protocol
+sliding] [--out DIR] [--colored]`` runs it from random init on PNG frames
+already at ``--size``.
 """
 
 from __future__ import annotations
@@ -16,8 +19,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from rtsds_tpu_torch.config import parse_float_list, parse_int_list
 from rtsds_tpu_torch.device import resolve_device
+from rtsds_tpu_torch.eval.ensemble import make_ensemble_predict
+from rtsds_tpu_torch.eval.sliding import make_sliding_predict
 from rtsds_tpu_torch.models.bisenet import BiSeNet
+from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
 from rtsds_tpu_torch.models.pretrained import load_flax_variables
 from rtsds_tpu_torch.ops.preprocess import normalize
 from rtsds_tpu_torch.utils.colors import apply_color_map
@@ -54,6 +61,22 @@ def batched_mask_predict(call: Callable, frames: np.ndarray,
     return masks[0] if single else masks
 
 
+def protocol_kwargs_from_flags(protocol: str, scales: str = "0.75, 1.0, 1.25",
+                               window: str = "512, 1024", stride: str = "",
+                               window_chunk: int = 0) -> dict:
+    """CLI flag strings -> :class:`Predictor` ``protocol_kwargs``."""
+    if protocol == "ensemble":
+        return {"scales": tuple(parse_float_list(scales))}
+    if protocol == "sliding":
+        kwargs = {"window": tuple(parse_int_list(window))}
+        if stride:
+            kwargs["stride"] = tuple(parse_int_list(stride))
+        if window_chunk > 0:
+            kwargs["window_chunk"] = window_chunk
+        return kwargs
+    return {}
+
+
 def colorize_masks(masks: np.ndarray) -> np.ndarray:
     """(..., H, W) trainId masks -> colorized (..., H, W, 3) uint8."""
     if masks.ndim == 2:
@@ -67,11 +90,11 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 class Predictor:
-    """Device-resident BiSeNet segmentation predictor.
+    """Device-resident segmentation predictor.
 
     Args:
-      model_name: ``"bisenet"``.
-      variables: a Flax variable tree of the JAX package's BiSeNet (numpy
+      model_name: ``"bisenet"`` or ``"deeplab"`` (DeepLabV2-R101).
+      variables: a Flax variable tree of the JAX package's model (numpy
         leaves), loaded through
         :func:`rtsds_tpu_torch.models.pretrained.load_flax_variables`;
         ``None`` serves a random init, the same on every run.
@@ -80,7 +103,11 @@ class Predictor:
       dtype: compute dtype of the model (bf16 by default).
       correct_preprocessing: divide by 255 before the ImageNet
         normalization (it must match how the weights were trained).
-      protocol: ``"plain"``, one forward per batch.
+      protocol: ``"plain"``, one forward per batch; ``"ensemble"``, the
+        mean probabilities over scales and flips; ``"sliding"``, over
+        overlapping windows (``eval/ensemble.py``, ``eval/sliding.py``).
+      protocol_kwargs: the protocol's options: ``scales`` and ``flip``, or
+        ``window``, ``stride`` and ``window_chunk``.
       device: ``None`` serves on the GPU and raises without one; pass
         ``"cpu"`` to serve on the CPU.
     """
@@ -91,15 +118,12 @@ class Predictor:
                  batch_size: int = 1, num_classes: int = 19,
                  backbone: str = "resnet18", dtype=torch.bfloat16,
                  correct_preprocessing: bool = False,
-                 protocol: str = "plain", quantize: str | None = None,
-                 mesh=None, device=None):
-        if model_name == "deeplab":
-            raise _not_ported("DeepLabV2 serving")
-        if model_name != "bisenet":
+                 protocol: str = "plain",
+                 protocol_kwargs: dict | None = None,
+                 quantize: str | None = None, mesh=None, device=None):
+        if model_name not in ("bisenet", "deeplab"):
             raise ValueError(model_name)
-        if protocol in ("ensemble", "sliding"):
-            raise _not_ported(f"the {protocol!r} serving protocol")
-        if protocol != "plain":
+        if protocol not in ("plain", "ensemble", "sliding"):
             raise ValueError(f"unknown serving protocol {protocol!r}")
         if quantize is not None:
             raise _not_ported("int8 serving")
@@ -119,18 +143,36 @@ class Predictor:
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            model = BiSeNet(num_classes=num_classes, context_path=backbone,
-                            output_f32=False)
+            if model_name == "deeplab":
+                model = DeepLabV2(num_classes=num_classes, output_f32=False)
+            else:
+                model = BiSeNet(num_classes=num_classes,
+                                context_path=backbone, output_f32=False)
         if variables is not None:
             load_flax_variables(model, variables)
         self.model = model.to(device=self.device, dtype=dtype).eval()
 
+        def forward(x):
+            return self.model(x.to(self.dtype))
+
+        self._protocol = None
+        if protocol == "ensemble":
+            self._protocol = make_ensemble_predict(
+                forward, self.image_size, **(protocol_kwargs or {}))
+        elif protocol == "sliding":
+            self._protocol = make_sliding_predict(
+                forward, self.image_size, **(protocol_kwargs or {}))
+
     @torch.inference_mode()
     def _predict(self, frames: np.ndarray) -> torch.Tensor:
-        """(N, H, W, 3) uint8 host frames -> (N, H, W) uint8 device masks."""
+        """(N, H, W, 3) uint8 host frames -> (N, H, W) uint8 device masks.
+        A protocol resizes and slices the float32 frames and casts each
+        forward's input to the model's dtype."""
         x = torch.from_numpy(frames).to(self.device)
-        x = normalize(x, self.correct_preprocessing)
-        logits = self.model(x.permute(0, 3, 1, 2).to(self.dtype))
+        x = normalize(x, self.correct_preprocessing).permute(0, 3, 1, 2)
+        if self._protocol is not None:
+            return self._protocol(x).to(torch.uint8)
+        logits = self.model(x.to(self.dtype))
         return logits.argmax(dim=1).to(torch.uint8)
 
     def warmup(self) -> "Predictor":
@@ -176,7 +218,19 @@ def main(argv=None):
                         help="standard /255 preprocessing")
     parser.add_argument("--num_classes", type=int, default=19)
     parser.add_argument("--protocol", type=str, default="plain",
-                        choices=["plain", "ensemble", "sliding"])
+                        choices=["plain", "ensemble", "sliding"],
+                        help="plain forward (real-time), multi-scale + flip "
+                             "ensemble, or sliding window (frames larger "
+                             "than the training size)")
+    parser.add_argument("--scales", type=str, default="0.75, 1.0, 1.25",
+                        help='ensemble scales, e.g. "0.75, 1.0, 1.25"')
+    parser.add_argument("--window", type=str, default="512, 1024",
+                        help='sliding window "H, W"')
+    parser.add_argument("--stride", type=str, default="",
+                        help='sliding stride "H, W" (default 3/4 window)')
+    parser.add_argument("--window_chunk", type=int, default=0,
+                        help="most sliding windows per forward; 0 = all "
+                             "in one forward")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the GPU)")
     for flag in ("--checkpoint", "--export", "--mesh", "--quantize"):
@@ -187,10 +241,6 @@ def main(argv=None):
     for flag in ("checkpoint", "export", "mesh", "quantize"):
         if getattr(args, flag) is not None:
             parser.error(f"--{flag} is not yet ported to rtsds_tpu_torch")
-    if args.model != "bisenet":
-        parser.error(f"--model {args.model} is not yet ported")
-    if args.protocol != "plain":
-        parser.error(f"--protocol {args.protocol} is not yet ported")
     if not args.images:
         parser.error("no input images given")
 
@@ -206,12 +256,16 @@ def main(argv=None):
     frames = np.stack(frames)
 
     print("serve: running from RANDOM init")
-    predictor = Predictor(image_size=size,
-                          batch_size=min(len(args.images), 8),
-                          num_classes=args.num_classes,
-                          backbone=args.backbone,
-                          correct_preprocessing=args.correct_preprocessing,
-                          device=args.device)
+    predictor = Predictor(
+        model_name=args.model, image_size=size,
+        batch_size=min(len(args.images), 8), num_classes=args.num_classes,
+        backbone=args.backbone,
+        correct_preprocessing=args.correct_preprocessing,
+        protocol=args.protocol,
+        protocol_kwargs=protocol_kwargs_from_flags(
+            args.protocol, args.scales, args.window, args.stride,
+            args.window_chunk),
+        device=args.device)
     os.makedirs(args.out, exist_ok=True)
     outputs = (predictor.predict_colored(frames) if args.colored
                else predictor.predict(frames))

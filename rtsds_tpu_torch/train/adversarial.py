@@ -39,6 +39,7 @@ from rtsds_tpu_torch.ops.losses import bce_with_logits, segmentation_loss
 from rtsds_tpu_torch.ops.pool import adaptive_avg_pool2d
 from rtsds_tpu_torch.train.factory import not_ported
 from rtsds_tpu_torch.train.state import TrainState
+from rtsds_tpu_torch.train.supervised import check_batch
 from rtsds_tpu_torch.utils.schedules import lambda_adv_schedule
 
 
@@ -57,8 +58,8 @@ def make_adversarial_step(lambda_: float, iterations: int, epochs: int,
     tensors, which the caller reads when it needs them, and ``total``
     (every source pixel, ignored ones too) as an int; v2 adds
     ``loss_gen_total``, ``loss_disc_total`` and ``lambda_adv`` (a float).
-    Each batch needs at least 2 frames.  ``epochs`` is part of the
-    signature only: no step depends on it.
+    A BiSeNet generator needs at least 2 frames in each batch.  ``epochs``
+    is part of the signature only: no step depends on it.
     """
     if lambda_ent:
         raise not_ported("MinEnt target-entropy minimization (lambda_ent)")
@@ -76,13 +77,10 @@ def make_adversarial_step(lambda_: float, iterations: int, epochs: int,
     raise ValueError(f"unknown adversarial variant {variant!r}")
 
 
-def _check_batches(src_images: torch.Tensor, tgt_images: torch.Tensor):
-    for name, images in (("source", src_images), ("target", tgt_images)):
-        if images.shape[0] < 2:
-            raise ValueError(
-                f"training needs a batch of at least 2 frames, got "
-                f"{images.shape[0]} {name} frames: the attention gates' "
-                f"batch norm runs over one pooled value per frame")
+def _check_batches(gen: TrainState, src_images: torch.Tensor,
+                   tgt_images: torch.Tensor):
+    check_batch(gen.model, src_images, "source")
+    check_batch(gen.model, tgt_images, "target")
 
 
 def _forward(model: nn.Module, images: torch.Tensor) -> tuple:
@@ -162,7 +160,7 @@ def v1_discriminator_update(dis: TrainState, src_main: torch.Tensor,
 
 def _make_v1_step(lambda_: float, iterations: int, ignore_index):
     def step(gen, dis, src_images, src_labels, tgt_images) -> dict:
-        _check_batches(src_images, tgt_images)
+        _check_batches(gen, src_images, tgt_images)
         src_main, tgt_main, seg_loss, adv_loss = v1_generator_update(
             gen, dis, src_images, src_labels, tgt_images, lambda_,
             iterations, ignore_index)
@@ -181,7 +179,7 @@ def _make_grl_step(lambda_: float, iterations: int, ignore_index,
     rev_scale = float(lambda_) * float(grl_alpha)
 
     def step(gen, dis, src_images, src_labels, tgt_images) -> dict:
-        _check_batches(src_images, tgt_images)
+        _check_batches(gen, src_images, tgt_images)
         gen.model.train()
         dis.model.train()
         with gen.autocast():
@@ -213,7 +211,7 @@ def _make_v2_step(lambda_: float, iterations: int, ignore_index):
     lam_schedule = lambda_adv_schedule(lambda_, iterations)
 
     def step(gen, dis, src_images, src_labels, tgt_images) -> dict:
-        _check_batches(src_images, tgt_images)
+        _check_batches(gen, src_images, tgt_images)
         tgt_size = tuple(tgt_images.shape[1:3])
         lam = lam_schedule(gen.step)
         gen.model.train()

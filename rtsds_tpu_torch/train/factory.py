@@ -1,11 +1,12 @@
 """Train state from config: model, optimizer, schedule, compute dtype.
 
-``build_supervised`` is the supervised path for BiSeNet: the poly learning
-rate over ``max_iter = epochs * steps_per_epoch`` steps, gated by
-``lr_decay_iter``, with an optional linear warmup, and the optimizer of
-``model.bisenet.optimizer``.  ``build_adversarial`` is the domain
-adaptation path: a BiSeNet generator and a domain discriminator, each with
-its own optimizer and schedule.
+``build_supervised`` is the supervised path for BiSeNet or DeepLabV2: the
+poly learning rate over ``max_iter = epochs * steps_per_epoch`` steps, gated
+by ``lr_decay_iter``, with an optional linear warmup, and the optimizer of
+``model.<name>.optimizer``; DeepLabV2's batch-norm affines stay frozen.
+``build_adversarial`` is the domain adaptation path: a BiSeNet or DeepLabV2
+generator and a domain discriminator, each with its own optimizer and
+schedule.
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ import torch
 from torch import nn
 
 from rtsds_tpu_torch.models.bisenet import BiSeNet
+from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2, frozen_bn_parameters
 from rtsds_tpu_torch.models.discriminator import (
     DomainDiscriminator, TinyDomainDiscriminator)
+from rtsds_tpu_torch.models.pretrained import load_deeplab_pretrained
 from rtsds_tpu_torch.ops.losses import make_criterion
 from rtsds_tpu_torch.train.optim import optimizer_from_config
 from rtsds_tpu_torch.train.state import TrainState
@@ -48,36 +51,62 @@ def load_backbone_pretrained(model: BiSeNet, path: str) -> None:
 
 def make_bisenet(cfg, seed: int = 0) -> BiSeNet:
     """model.bisenet section -> a BiSeNet initialised from ``seed``."""
-    if bool(cfg.get("remat", False)):
-        raise not_ported("model.bisenet.remat")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = BiSeNet(num_classes=int(cfg["num_classes"]),
-                        context_path=str(cfg["backbone"]))
+                        context_path=str(cfg["backbone"]),
+                        remat=bool(cfg.get("remat", False)))
     path = cfg.get("pretrain_model_path", "") or ""
     if cfg.get("pretrained", False) and path:
         load_backbone_pretrained(model, path)
     return model
 
 
+def make_deeplab(cfg, seed: int = 0) -> DeepLabV2:
+    """model.deeplab section -> a DeepLabV2 initialised from ``seed``, with
+    its ``bn_eval`` and ``remat``.  A pretrained checkpoint loads by the
+    reference's rule (:func:`load_deeplab_pretrained`); both key spellings
+    are read, ``pretrain``/``pretrain_model_path`` first, then
+    ``pretrained``/``pretrained_path``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = DeepLabV2(num_classes=int(cfg["num_classes"]),
+                          bn_eval=bool(cfg.get("bn_eval", False)),
+                          remat=bool(cfg.get("remat", False)))
+    want = cfg.get("pretrain", cfg.get("pretrained", False))
+    path = cfg.get("pretrain_model_path", cfg.get("pretrained_path", "")) or ""
+    if want and path:
+        load_deeplab_pretrained(model, path)
+    return model
+
+
+def make_segmentor(config, name: str, seed: int = 0
+                   ) -> tuple[nn.Module, list[nn.Parameter]]:
+    """``bisenet`` or ``deeplab`` from its ``model.<name>`` section: the
+    model and the parameters its optimizer keeps frozen."""
+    if name == "bisenet":
+        return make_bisenet(config.model["bisenet"], seed), []
+    if name == "deeplab":
+        model = make_deeplab(config.model["deeplab"], seed)
+        return model, frozen_bn_parameters(model)
+    raise ValueError("Invalid model name. Please select deeplab or bisenet")
+
+
 def build_supervised(config, model_name: str, steps_per_epoch: int,
                      device: torch.device | str, seed: int = 0) -> TrainState:
     """The supervised train state, its model on ``device``."""
-    if model_name == "deeplab":
-        raise not_ported("DeepLabV2 training (--model deeplab)")
-    if model_name != "bisenet":
-        raise ValueError(
-            "Invalid model name. Please select deeplab or bisenet")
+    model, frozen = make_segmentor(config, model_name, seed)
     tcfg = config.training.get("segmentation")
-    cfg = config.model.get("bisenet")
+    cfg = config.model.get(model_name)
     max_iter = int(tcfg["epochs"]) * int(steps_per_epoch)
     schedule = with_warmup(
         poly_lr_schedule(float(cfg["optimizer"]["lr"]), max_iter,
                          float(cfg.get("power_lr_factor", 0.9)),
                          int(tcfg["lr_decay_iter"])),
         int(tcfg.get("warmup_iters", 0)))
-    model = make_bisenet(cfg, seed).to(device)
-    optimizer = optimizer_from_config(cfg["optimizer"], model, schedule)
+    model = model.to(device)
+    optimizer = optimizer_from_config(cfg["optimizer"], model, schedule,
+                                      frozen)
     return TrainState(model, optimizer, compute_dtype_from_config(config))
 
 
@@ -118,9 +147,7 @@ def build_adversarial(config, device: torch.device | str, seed: int = 0
     # JAX package
     make_criterion(gen_cfg["criterion"])
     make_criterion(dis_cfg["criterion"])
-    if gen_cfg["name"] == "deeplab":
-        raise not_ported("a DeepLabV2 generator")
-    if gen_cfg["name"] != "bisenet":
+    if gen_cfg["name"] not in ("bisenet", "deeplab"):
         raise ValueError("Invalid generator name. Please select deeplab or "
                          "bisenet")
     gen_sched = with_warmup(
@@ -128,10 +155,12 @@ def build_adversarial(config, device: torch.device | str, seed: int = 0
                          epochs * iterations,
                          float(gen_cfg["power_lr_factor"]), lr_decay_iter),
         warmup)
-    generator = make_bisenet(config.model["bisenet"], seed).to(device)
+    generator, frozen = make_segmentor(config, gen_cfg["name"], seed)
+    generator = generator.to(device)
     gen_state = TrainState(
         generator,
-        optimizer_from_config(gen_cfg["optimizer"], generator, gen_sched),
+        optimizer_from_config(gen_cfg["optimizer"], generator, gen_sched,
+                              frozen),
         dtype)
 
     dis_lr = float(dis_cfg["optimizer"]["lr"])

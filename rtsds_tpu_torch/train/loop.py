@@ -71,15 +71,17 @@ def train_epoch(state, train_step: Callable, batches: Iterable, epoch: int,
 def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
                    make_val_batches: Callable, epochs: int, num_classes: int,
                    class_names=None, callbacks=None, do_validation: int = 1,
-                   checkpoint=None, start_epoch: int = 0, device=None):
+                   checkpoint=None, start_epoch: int = 0, device=None,
+                   eval_step=None):
     """Epochs ``start_epoch .. epochs - 1`` of training and validation.
 
     ``make_train_batches(epoch)`` and ``make_val_batches(epoch)`` return
     iterables of device batches.  The model is moved to ``device``
     (``None`` means the GPU, and raises without one).  ``checkpoint`` (a
     :class:`~rtsds_tpu_torch.callbacks.checkpoint.ModelCheckpoint`) saves
-    ``{"model": state}``.  Returns ``(state, history)``, one history entry
-    per validation.
+    ``{"model": state}``.  ``eval_step`` validates (a protocol's, from
+    ``eval/sliding.py`` or ``eval/ensemble.py``); ``None`` builds the plain
+    one.  Returns ``(state, history)``, one history entry per validation.
     """
     device = resolve_device(device)
     state.model.to(device)
@@ -88,10 +90,11 @@ def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
         if checkpoint not in callbacks:
             callbacks.append(checkpoint)
         checkpoint.attach(lambda: {"model": state})
-    plot_cbs = any(hasattr(cb, "add_sample") for cb in callbacks)
-    eval_step = make_eval_step(state.model, num_classes,
-                               return_preds=plot_cbs,
-                               compute_dtype=state.compute_dtype)
+    if eval_step is None:
+        eval_step = make_eval_step(
+            state.model, num_classes,
+            return_preds=any(hasattr(cb, "add_sample") for cb in callbacks),
+            compute_dtype=state.compute_dtype)
 
     history = []
     for epoch in range(start_epoch, epochs):
@@ -138,7 +141,8 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
                     make_val_batches: Callable, iterations: int, epochs: int,
                     num_classes: int, class_names=None, callbacks=None,
                     do_validation: int = 1, checkpoint=None,
-                    when_print: int = -1, start_epoch: int = 0, device=None):
+                    when_print: int = -1, start_epoch: int = 0, device=None,
+                    eval_step=None):
     """Epochs ``start_epoch .. epochs - 1`` of domain adaptation.
 
     ``source_iter`` and ``target_iter`` are endless iterators of device
@@ -149,6 +153,7 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
     ``{"generator", "discriminator"}`` to ``checkpoint``.  ``when_print >
     0`` prints every ``when_print``-th step's losses.  Both models are
     moved to ``device`` (``None`` means the GPU, and raises without one).
+    ``eval_step`` validates the generator, as for :func:`supervised_fit`.
     Returns ``(gen_state, dis_state, history)``, one history entry per
     validation.
     """
@@ -161,10 +166,11 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
             callbacks.append(checkpoint)
         checkpoint.attach(lambda: {"generator": gen_state,
                                    "discriminator": dis_state})
-    plot_cbs = any(hasattr(cb, "add_sample") for cb in callbacks)
-    eval_step = make_eval_step(gen_state.model, num_classes,
-                               return_preds=plot_cbs,
-                               compute_dtype=gen_state.compute_dtype)
+    if eval_step is None:
+        eval_step = make_eval_step(
+            gen_state.model, num_classes,
+            return_preds=any(hasattr(cb, "add_sample") for cb in callbacks),
+            compute_dtype=gen_state.compute_dtype)
 
     history = []
     for epoch in range(start_epoch, epochs):

@@ -2,6 +2,8 @@
 schedule and an optional global-norm gradient clip.
 
 The update rule, in order:
+  0. the gradients of the ``frozen`` parameters (DeepLabV2's batch-norm
+     affines) are set to zero, a missing one created as zero;
   1. ``grad_clip``: when the global norm of all gradients exceeds it, every
      gradient is scaled by ``grad_clip / norm`` (before the moments);
   2. Adam (betas 0.9, 0.999, eps 1e-8, ``weight_decay`` added to the
@@ -12,9 +14,15 @@ The update rule, in order:
      where ``count`` is the number of steps taken before this one, so the
      first step uses ``schedule(0)``.
 
-``head_lr_mult`` puts every BiSeNet module except the pretrained
-``context_path`` into a second param group whose rate is scaled by it; on a
-model without a ``context_path`` it raises.
+So a frozen parameter stays exactly still under SGD and under Adam without
+weight decay, and under Adam with ``weight_decay > 0`` it moves by the
+decay's update alone, as it does in the JAX package, whose chain zeroes
+the frozen updates before ``add_decayed_weights``.
+
+``head_lr_mult`` puts the parameters a segmentor's ``is_head`` names
+(BiSeNet: all but the pretrained ``context_path``; DeepLabV2: the
+``layer6`` classifier) into a second param group whose rate is scaled by
+it; on a model without ``is_head`` (a discriminator) it raises.
 """
 
 from __future__ import annotations
@@ -35,10 +43,12 @@ class ScheduledOptimizer:
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 learning_rate: float | Schedule, grad_clip: float = 0.0):
+                 learning_rate: float | Schedule, grad_clip: float = 0.0,
+                 frozen: Iterable[torch.Tensor] = ()):
         self.optimizer = optimizer
         self.learning_rate = learning_rate
         self.grad_clip = float(grad_clip)
+        self.frozen = list(frozen)
         self.count = 0
 
     @property
@@ -58,6 +68,11 @@ class ScheduledOptimizer:
         lr = self.current_lr()
         for group in self.param_groups:
             group["lr"] = lr * group.get("lr_mult", 1.0)
+        for p in self.frozen:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.zero_()
         if self.grad_clip:
             clip_by_global_norm(
                 [p for g in self.param_groups for p in g["params"]],
@@ -91,8 +106,10 @@ def clip_by_global_norm(params: Iterable[torch.Tensor],
 
 def make_optimizer(name: str, param_groups, learning_rate: float | Schedule,
                    weight_decay: float = 0.0, momentum: float = 0.9,
-                   grad_clip: float = 0.0) -> ScheduledOptimizer:
-    """``param_groups``: parameters, or dicts ``{"params", "lr_mult"}``."""
+                   grad_clip: float = 0.0,
+                   frozen: Iterable[torch.Tensor] = ()) -> ScheduledOptimizer:
+    """``param_groups``: parameters, or dicts ``{"params", "lr_mult"}``;
+    ``frozen``: parameters among them whose gradient is zeroed first."""
     groups = list(param_groups)
     lr0 = learning_rate(0) if callable(learning_rate) else learning_rate
     if name == "Adam":
@@ -102,30 +119,34 @@ def make_optimizer(name: str, param_groups, learning_rate: float | Schedule,
         inner = torch.optim.SGD(groups, lr=lr0, momentum=momentum)
     else:
         raise ValueError("Invalid optimizer name. Please select Adam or SGD")
-    return ScheduledOptimizer(inner, learning_rate, grad_clip)
+    return ScheduledOptimizer(inner, learning_rate, grad_clip, frozen)
 
 
 def head_param_groups(model: nn.Module, head_mult: float) -> list[dict]:
-    """Two groups: the ``context_path`` at 1x, every other module at
-    ``head_mult``; one group when ``head_mult`` is 0 or 1.  A model without
-    a ``context_path`` (a discriminator) has no head to scale: raises."""
+    """Two groups: the parameters ``model.is_head`` rejects at 1x, those it
+    names at ``head_mult``; one group when ``head_mult`` is 0 or 1.  A model
+    without ``is_head`` (a discriminator) has no head to scale: raises."""
     if not head_mult or head_mult == 1.0:
         return [{"params": list(model.parameters()), "lr_mult": 1.0}]
-    if not hasattr(model, "context_path"):
+    if not hasattr(model, "is_head"):
         raise ValueError(
             f"head_lr_mult is defined for segmentor optimizers only "
-            f"(bisenet's non-backbone modules), not {type(model).__name__}")
+            f"(deeplab's ASPP head, bisenet's non-backbone modules), not "
+            f"{type(model).__name__}")
     backbone, head = [], []
     for name, p in model.named_parameters():
-        (backbone if name.split(".")[0] == "context_path" else head).append(p)
+        (head if model.is_head(name) else backbone).append(p)
     return [{"params": backbone, "lr_mult": 1.0},
             {"params": head, "lr_mult": float(head_mult)}]
 
 
 def optimizer_from_config(opt_cfg, model: nn.Module,
-                          schedule: Callable | None) -> ScheduledOptimizer:
+                          schedule: Callable | None,
+                          frozen: Iterable[torch.Tensor] = ()
+                          ) -> ScheduledOptimizer:
     """From a config node ``{name, lr[, weight_decay, momentum, grad_clip,
-    head_lr_mult]}``; ``schedule`` overrides the static ``lr``."""
+    head_lr_mult]}``; ``schedule`` overrides the static ``lr``; ``frozen``
+    as for :func:`make_optimizer`."""
     return make_optimizer(
         opt_cfg["name"],
         head_param_groups(model,
@@ -133,4 +154,5 @@ def optimizer_from_config(opt_cfg, model: nn.Module,
         learning_rate=schedule if schedule is not None else opt_cfg["lr"],
         weight_decay=float(opt_cfg.get("weight_decay", 0.0) or 0.0),
         momentum=float(opt_cfg.get("momentum", 0.9) or 0.9),
-        grad_clip=float(opt_cfg.get("grad_clip", 0.0) or 0.0))
+        grad_clip=float(opt_cfg.get("grad_clip", 0.0) or 0.0),
+        frozen=frozen)

@@ -36,6 +36,7 @@ from rtsds_tpu.train.adversarial import (
 from rtsds_tpu.train.state import TrainState as JaxTrainState
 from rtsds_tpu_torch.config import load_config
 from rtsds_tpu_torch.models.bisenet import BiSeNet
+from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2, frozen_bn_parameters
 from rtsds_tpu_torch.models.discriminator import (
     DomainDiscriminator, TinyDomainDiscriminator)
 from rtsds_tpu_torch.models.pretrained import load_flax_variables, torch_scope
@@ -268,7 +269,10 @@ def test_d_takes_none_of_the_generators_gradient():
 
 @pytest.mark.parametrize("which", ["source", "target"])
 def test_da_step_refuses_a_batch_of_one(which):
+    """A generator that trains on at least 2 frames (``min_train_batch``,
+    BiSeNet's) refuses one, in either stream."""
     gen, dis = _tiny_states(1)
+    gen.model.min_train_batch = 2
     src, labels, tgt = _tiny_batch()
     if which == "source":
         src, labels = src[:1], labels[:1]
@@ -356,10 +360,10 @@ def test_build_adversarial_fc_discriminator_and_refusals():
         build_adversarial(load_config(overrides={
             "model": {"adversarial_model": {"discriminator": {
                 "optimizer": {"head_lr_mult": 10.0}}}}}), "cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="Invalid generator name"):
         build_adversarial(load_config(overrides={
             "model": {"adversarial_model": {"generator": {
-                "name": "deeplab"}}}}), "cpu")
+                "name": "pspnet"}}}}), "cpu")
     with pytest.raises(ValueError, match="unknown discriminator"):
         build_adversarial(load_config(overrides={
             "model": {"adversarial_model": {"discriminator": {
@@ -368,3 +372,29 @@ def test_build_adversarial_fc_discriminator_and_refusals():
         build_adversarial(load_config(overrides={
             "model": {"adversarial_model": {"discriminator": {
                 "criterion": {"name": "Hinge"}}}}}), "cpu")
+
+
+def test_build_adversarial_deeplab_generator_keeps_bn_frozen():
+    config = load_config(overrides={
+        "model": {"adversarial_model": {"generator": {"name": "deeplab"}}}})
+    gen, dis = build_adversarial(config, "cpu", seed=5)
+    assert isinstance(gen.model, DeepLabV2)
+    assert isinstance(dis.model, TinyDomainDiscriminator)
+    assert {id(p) for p in gen.optimizer.frozen} == {
+        id(p) for p in frozen_bn_parameters(gen.model)}
+    assert dis.optimizer.frozen == []
+
+
+def test_da_step_takes_a_batch_of_one_from_a_deeplab_generator():
+    torch.manual_seed(0)
+    model = DeepLabV2(layers=(1, 1, 1, 1))
+    gen = TrainState(model, make_optimizer("SGD", model.parameters(), 0.01,
+                                           frozen=frozen_bn_parameters(model)))
+    _, dis = _tiny_states(1)
+    g = torch.Generator().manual_seed(0)
+    metrics = make_adversarial_step(0.1, 4, 2)(
+        gen, dis, torch.randn((1, 32, 48, 3), generator=g),
+        torch.randint(0, 20, (1, 32, 48), generator=g),
+        torch.randn((1, 32, 64, 3), generator=g))
+    assert gen.step == dis.step == 1
+    assert torch.isfinite(metrics["loss_adversarial"])

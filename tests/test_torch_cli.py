@@ -1,8 +1,10 @@
 """The port's training CLI on the CPU, end to end at tiny sizes: synthetic
 data, and GTA5-layout PNGs with colour-coded labels remapped on the
 device; best-model checkpoints, ``--resume`` and ``--validate_only``, as
-the JAX package's CLI does them; the checkpoint and early-stopping
-callbacks; and the switches not ported yet."""
+the JAX package's CLI does them; DeepLabV2 as the trained model and as the
+DA generator, validated under the sliding and ensemble protocols; the
+checkpoint and early-stopping callbacks; and the switches not ported
+yet."""
 
 import numpy as np
 import pytest
@@ -127,13 +129,10 @@ def test_validate_only_without_a_checkpoint_exits(tmp_path):
 
 
 @pytest.mark.parametrize("argv,extra,match", [
-    (["--domain_adaptation"],
-     "model: {adversarial_model: {generator: {name: deeplab}}}",
-     "DeepLabV2 generator"),
-    (["--model", "deeplab"], "", "DeepLabV2"),
     (["--multihost"], "", "--multihost"),
-    ([], "validation: {sliding: {enabled: true}}", "validation.sliding"),
-    ([], "validation: {ensemble: {enabled: true}}", "validation.ensemble"),
+    (["--wandb"], "", "--wandb"),
+    (["--model", "deeplab", "--debug"], "", "--debug"),
+    ([], "callbacks: {history: {path: h.jsonl}}", "callbacks.history"),
 ])
 def test_not_ported_switches_exit(tmp_path, argv, extra, match):
     with pytest.raises(SystemExit, match=match) as info:
@@ -317,3 +316,96 @@ def test_early_stopping_counts_validations_without_gain():
         assert not stop.should_stop
         stop.on_validation_end({"validation_mIoU": miou})
     assert stop.should_stop and stop.best == 0.4
+
+
+def test_deeplab_run_with_sliding_validation(tmp_path, capsys):
+    """``--model deeplab`` trains DeepLabV2-R101 (at batch 2) and validates
+    it window by window; ``--validate_only`` takes the same protocol."""
+    config = _config(tmp_path, "validation: {sliding: {enabled: true, "
+                               "window: '16, 32', window_chunk: 4}}")
+    text = (tmp_path / "config.yaml").read_text().replace(
+        "epochs: 2", "epochs: 1")
+    (tmp_path / "config.yaml").write_text(text)
+    history = cli.main(["--config", config, "--synthetic", "--model",
+                        "deeplab"])
+    _check_history(history, [0])
+    saved = torch.load(tmp_path / "ckpt" / "m" / "epoch_0.pt",
+                       weights_only=True)
+    assert "layer6.conv2d_list.3.weight" in saved["model"]["model"]
+    miou = cli.main(["--config", config, "--synthetic", "--model", "deeplab",
+                     "--validate_only"])
+    assert 0.0 <= miou <= 1.0
+    assert "validate_only: checkpoint epoch 0" in capsys.readouterr().out
+
+
+def test_deeplab_generator_run_with_ensemble_validation(tmp_path, capsys):
+    config = _da_config(
+        tmp_path, extra="model: {adversarial_model: {generator: {name: "
+                        "deeplab}}}\nvalidation: {ensemble: {enabled: true, "
+                        "scales: '0.5, 1.0'}}")
+    history = cli.main(["--config", config, "--synthetic",
+                        "--domain_adaptation"])
+    assert [h["epoch"] for h in history] == [0]
+    assert np.isfinite(history[0]["loss_adversarial"])
+    assert 0.0 <= history[0]["validation_mIoU"] <= 1.0
+    saved = torch.load(tmp_path / "ckpt" / "m_da" / "epoch_0.pt",
+                       weights_only=True)
+    assert "layer6.conv2d_list.0.bias" in saved["generator"]["model"]
+
+
+class _Stop(Exception):
+    pass
+
+
+def _stop(*args, **kwargs):
+    raise _Stop
+
+
+@pytest.mark.parametrize("argv,extra,target,want", [
+    (["--model", "deeplab"], "", "supervised.make_train_step", 7),
+    ([], "", "supervised.make_train_step", 5),
+    (["--domain_adaptation"], "", "adversarial.make_adversarial_step", 5),
+    (["--domain_adaptation"],
+     "  adversarial_model: {generator: {name: deeplab}}",
+     "adversarial.make_adversarial_step", 7),
+])
+def test_ignore_index_comes_from_the_trained_models_section(
+        tmp_path, monkeypatch, argv, extra, target, want):
+    """The trained model's section gives ``ignore_index``: the generator's
+    under ``--domain_adaptation``."""
+    seen = []
+
+    def record(*args, ignore_index=None, **kwargs):
+        seen.append(ignore_index)
+        raise _Stop
+
+    module, name = target.split(".")
+    monkeypatch.setattr(f"rtsds_tpu_torch.train.{module}.{name}", record)
+    sections = ("model:\n  deeplab: {criterion: {ignore_index: 7}}\n"
+                "  bisenet: {criterion: {ignore_index: 5}}\n" + extra)
+    with pytest.raises(_Stop):
+        cli.main(["--config", _da_config(tmp_path, extra=sections),
+                  "--synthetic", *argv])
+    assert seen == [want]
+
+
+@pytest.mark.parametrize("model,section,exits", [
+    ("deeplab", "deeplab", True), ("deeplab", "bisenet", False),
+    ("bisenet", "bisenet", True)])
+def test_criterion_comes_from_the_trained_models_section(
+        tmp_path, monkeypatch, model, section, exits):
+    monkeypatch.setattr("rtsds_tpu_torch.train.supervised.make_train_step",
+                        _stop)
+    config = _config(tmp_path, f"model: {{{section}: {{criterion: "
+                               f"{{name: Dice}}}}}}")
+    with pytest.raises(SystemExit if exits else _Stop,
+                       match=f"model.{model}.criterion.name" if exits
+                       else None):
+        cli.main(["--config", config, "--synthetic", "--model", model])
+
+
+def test_both_validation_protocols_exit(tmp_path):
+    config = _config(tmp_path, "validation: {ensemble: {enabled: true}, "
+                               "sliding: {enabled: true}}")
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        cli.main(["--config", config, "--synthetic"])

@@ -20,9 +20,14 @@ import torch.nn.functional as F
 import chip_smoke
 from rtsds_tpu_torch import cli
 from rtsds_tpu_torch.bench.da_bench import da_step_benchmark
+from rtsds_tpu_torch.bench.train_bench import supervised_step_benchmark
 from rtsds_tpu_torch.config import load_config
 from rtsds_tpu_torch.data.synthetic import SyntheticSegDataset
+from rtsds_tpu_torch.eval.ensemble import make_ensemble_predict
+from rtsds_tpu_torch.eval.sliding import make_sliding_predict
 from rtsds_tpu_torch.eval.validate import validate
+from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
+from rtsds_tpu_torch.models.pretrained import load_flax_variables
 from rtsds_tpu_torch.ops.cuda.hist import fast_hist_cuda
 from rtsds_tpu_torch.ops.cuda.remap import rgb_to_train_ids_cuda
 from rtsds_tpu_torch.ops.preprocess import normalize
@@ -325,3 +330,82 @@ callbacks:
     assert rgb_to_train_ids_cuda.launches - k2 == 3
     assert fast_hist_cuda.launches - k1 >= 1
     assert (tmp_path / "ckpt" / "m_da" / "epoch_0.pt").exists()
+
+
+@pytest.fixture(scope="module")
+def deeplab_tree():
+    """chip_smoke.py's seeded DeepLabV2-R101 tree, BN statistics
+    calibrated on the CPU; made only where there is a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    frames = np.stack([SyntheticSegDataset(2, (64, 128), seed=5)[i][0]
+                       for i in range(2)])
+    return chip_smoke.calibrate_batch_stats(
+        chip_smoke.random_flax_deeplab(0), frames, "cpu", DeepLabV2)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_deeplab_forward_on_the_card_matches_the_cpu(cuda, deeplab_tree):
+    """DeepLabV2-R101 eval logits at 65x97 (the ceil-mode pool's partial
+    windows), f32 with TF32 off: within 1e-3 of the CPU's largest logit."""
+    model = load_flax_variables(DeepLabV2(), deeplab_tree).eval()
+    x = torch.randn((2, 3, 65, 97), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad(), _no_tf32():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("protocol", ["sliding", "ensemble"])
+def test_protocol_on_the_card_matches_the_cpu(cuda, deeplab_tree, protocol):
+    """Each protocol's probabilities at 64x128 (sliding: 32x64 windows;
+    ensemble: scales 0.75/1/1.25 with flip), f32 with TF32 off, within
+    1e-4 of the CPU's."""
+    model = load_flax_variables(DeepLabV2(), deeplab_tree).eval()
+    x = torch.randn((2, 3, 64, 128), generator=torch.Generator().manual_seed(1))
+    probs = {}
+    with torch.no_grad(), _no_tf32():
+        for dev in ("cpu", cuda):
+            model.to(dev)
+            if protocol == "sliding":
+                predict = make_sliding_predict(model, (64, 128), (32, 64),
+                                               return_probs=True)
+            else:
+                predict = make_ensemble_predict(model, (64, 128),
+                                                return_probs=True)
+            probs[str(dev)] = predict(x.to(dev)).cpu()
+    torch.testing.assert_close(probs["cuda"], probs["cpu"], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("protocol,kwargs", [
+    ("plain", {}), ("sliding", {"window": (32, 64)}),
+    ("ensemble", {"scales": (0.75, 1.0, 1.25)})])
+def test_deeplab_predictor_on_the_card(cuda, deeplab_tree, protocol, kwargs):
+    frames = np.stack([SyntheticSegDataset(3, (64, 128), seed=6)[i][0]
+                       for i in range(3)])
+    masks = Predictor(model_name="deeplab", variables=deeplab_tree,
+                      image_size=(64, 128), batch_size=2, protocol=protocol,
+                      protocol_kwargs=kwargs).predict(frames)
+    assert masks.shape == (3, 64, 128) and masks.dtype == np.int32
+    assert masks.min() >= 0 and masks.max() < 19
+
+
+def test_deeplab_train_bench_on_the_card(cuda):
+    out = supervised_step_benchmark("deeplab", batch_size=1,
+                                    image_size=(64, 96), steps=2, repeats=2,
+                                    remat=True)
+    assert out["ms_per_step"] > 0 and np.isfinite(out["last_train_loss"])
+    assert out["max_memory_gb"] > 0 and out["remat"]

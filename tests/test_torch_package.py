@@ -12,10 +12,16 @@ import pytest
 import torch
 
 from rtsds_tpu_torch import cli
+from rtsds_tpu_torch.eval import ensemble, sliding
+from rtsds_tpu_torch.models import deeplabv2
 from rtsds_tpu_torch.bench.da_bench import da_step_benchmark
+from rtsds_tpu_torch.bench.train_bench import supervised_step_benchmark
 from rtsds_tpu_torch.config import load_config
+from rtsds_tpu_torch.eval.ensemble import make_ensemble_eval_step
+from rtsds_tpu_torch.eval.sliding import make_sliding_eval_step
 from rtsds_tpu_torch.eval.validate import validate
 from rtsds_tpu_torch.models.bisenet import BiSeNet
+from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
 from rtsds_tpu_torch.ops.cuda import hist as cuda_hist
 from rtsds_tpu_torch.ops.cuda import remap as cuda_remap
 from rtsds_tpu_torch.serve import Predictor
@@ -46,15 +52,22 @@ _IMPORT_ALL = textwrap.dedent("""
         importlib.import_module(name)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
-    print(len(names))
+    print(" ".join(names))
 """)
+
+# modules whose import must stay clean by name, beside the walk of them all
+NAMED = ("rtsds_tpu_torch.models.deeplabv2", "rtsds_tpu_torch.eval.sliding",
+         "rtsds_tpu_torch.eval.ensemble",
+         "rtsds_tpu_torch.bench.train_bench", "chip_smoke")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    imported = proc.stdout.split()
+    assert len(imported) >= 15
+    assert set(NAMED) <= set(imported)
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
@@ -113,3 +126,39 @@ def test_remap_wrapper_has_no_fallback():
     """The same for the RGB remap kernel's wrapper."""
     tree = ast.parse(inspect.getsource(cuda_remap))
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("module", [deeplabv2, sliding, ensemble])
+def test_deeplab_and_protocol_modules_catch_nothing(module):
+    """The model and the protocols call K1's wrapper and the model with no
+    ``try`` around either: a failed launch is never swallowed."""
+    tree = ast.parse(inspect.getsource(module))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_deeplab_protocols_and_train_bench_refuse_to_fall_back_to_the_cpu(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for protocol in ("plain", "sliding", "ensemble"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Predictor(model_name="deeplab", image_size=(64, 128),
+                      protocol=protocol)
+    model = DeepLabV2(layers=(1, 1, 1, 1))
+    for step in (make_sliding_eval_step(model, (64, 128), 19),
+                 make_ensemble_eval_step(model, (64, 128), 19)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            validate(model, iter([]), 19, eval_step=step)
+    for kwargs in ({}, {"remat": True}, {"bn_eval": True}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            supervised_step_benchmark("deeplab", batch_size=1,
+                                      image_size=(32, 64), **kwargs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        da_step_benchmark(batch_size=1, src_hw=(32, 64), tgt_hw=(32, 64),
+                          generator="deeplab")
+
+
+def test_unported_benches_exit():
+    from rtsds_tpu_torch.bench import train_bench
+    for argv in (["--qat"], ["--distill", "deeplab"]):
+        with pytest.raises(SystemExit, match="not ported yet"):
+            train_bench.main(argv)

@@ -98,8 +98,9 @@ def test_colorize_masks_matches_jax(rng):
                                   jax_serve.colorize_masks(masks[0]))
 
 
-@pytest.mark.parametrize("kwargs", [{"model_name": "deeplab"},
-                                    {"protocol": "sliding"},
+@pytest.mark.parametrize("kwargs", [{"mesh": "batch"},
+                                    {"model_name": "deeplab",
+                                     "mesh": "spatial"},
                                     {"quantize": "int8"}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not yet ported"):

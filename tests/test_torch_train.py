@@ -37,6 +37,7 @@ from rtsds_tpu_torch.config import load_config
 from rtsds_tpu_torch.data.synthetic import SyntheticSegDataset
 from rtsds_tpu_torch.eval.validate import make_eval_step
 from rtsds_tpu_torch.models.bisenet import BiSeNet
+from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2, frozen_bn_parameters
 from rtsds_tpu_torch.models.pretrained import (
     state_dict_from_flax, torch_scope)
 from rtsds_tpu_torch.ops.preprocess import normalize
@@ -272,8 +273,25 @@ def test_factory_schedule_and_refusals():
     assert state.schedule(0) == pytest.approx(0.02)
     assert state.schedule(12) == pytest.approx(0.0)  # max_iter = 3 x 4
     assert [g["lr_mult"] for g in state.optimizer.param_groups] == [1.0, 10.0]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_supervised(config, "deeplab", 4, "cpu")
+    with pytest.raises(ValueError, match="Invalid model name"):
+        build_supervised(config, "pspnet", 4, "cpu")
     bf = load_config(overrides={"precision": {"compute_dtype": "float16"}})
     with pytest.raises(ValueError, match="compute_dtype"):
         build_supervised(bf, "bisenet", 4, "cpu")
+
+
+def test_build_supervised_deeplab_freezes_its_bn_affines():
+    config = load_config(overrides={
+        "training": {"segmentation": {"epochs": 2}},
+        "model": {"deeplab": {"optimizer": {"lr": 0.03, "head_lr_mult": 10.0},
+                              "bn_eval": True}}})
+    state = build_supervised(config, "deeplab", 3, "cpu", seed=2)
+    model = state.model
+    assert isinstance(model, DeepLabV2) and model.bn_eval
+    assert state.schedule(0) == pytest.approx(0.03)
+    frozen = {id(p) for p in state.optimizer.frozen}
+    assert frozen == {id(p) for p in frozen_bn_parameters(model)}
+    head = state.optimizer.param_groups[1]
+    assert head["lr_mult"] == 10.0
+    assert {id(p) for p in head["params"]} == {
+        id(p) for p in model.layer6.parameters()}
