@@ -14,7 +14,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device: the card, its power limit, and the build of the CUDA kernels
      from ``rtsds_tpu_torch/ops/cuda/csrc``;
   2. hist_check: the confusion-matrix kernel (K1) against its plain PyTorch
-     version, exactly, on edge cases and at the eval batch's size;
+     version, exactly, on edge cases, on each pair of id dtypes the main
+     paths pass it, and at the eval batch's size;
   3. remap_check: the RGB -> trainId remap kernel (K2) against its plain
      version, exactly, at the training batch's size and on edge cases;
   4. serving: BiSeNet-R18 at 1024x2048, batch 8, bf16, from a Flax-layout
@@ -41,15 +42,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
      on the CPU in float64, and the v1 and v2 steps timed
      (``rtsds_tpu_torch.bench.da_bench``) with v1's generator and
      discriminator phases apart and the peak device memory;
-  8. train_profile: torch.profiler over a few train steps: the device's
+  8. deeplab_serving, deeplab_validation, deeplab_training, deeplab_da:
+     DeepLabV2-R101 served, validated under each protocol, trained and
+     adapted at full width;
+  9. the DA extras, BiSeNet-R18 at full width (source 720x1280, target
+     512x1024, batch 8, bf16), each through the port's entry points on
+     colour-coded labels (K2 in the source transform, K1 in the
+     validation), with its step's p50, peak memory and one float64 step on
+     the card held against the CPU's:
+     ema_accumulate (supervised, EMA and gradient accumulation in 2
+     micro-batches, validated on the EMA, its checkpoint restored),
+     da_minent_fda (DA v1 and v2 with MinEnt and FDA), self_training (the
+     mean-teacher step with CBST calibration and ClassMix) and
+     distillation (a DeepLabV2-R101 teacher checkpoint with an ``ema``
+     item, read back by ``load_teacher``, distilled into BiSeNet);
+  10. train_profile: torch.profiler over a few train steps: the device's
      idle share and kernel time by group, and each hand-written kernel's
      device time per launch beside the timer's (run after the kernel
      timings, which the profiler's tracing could slow);
-  9. the ``kernels`` line: each kernel's launches on the main paths (phases
-     4-5, phase 6 and phase 7, each counted from zero), its device time
+  11. the ``kernels`` line: each kernel's launches on the main paths (each
+     counted from zero), its device time as the main path calls it
      (median, min, max), its wrapper's host cost, its plain version's
      time, a one-call library yardstick where one exists, and the card's
-     bound.
+     bound; K1's also on int32 predictions.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -98,8 +113,7 @@ from rtsds_tpu_torch.serve import Predictor
 from rtsds_tpu_torch.train.adversarial import make_adversarial_step
 from rtsds_tpu_torch.train.factory import (
     build_adversarial, build_supervised, make_discriminator, make_segmentor)
-from rtsds_tpu_torch.train.loop import (
-    DA_LOSS_KEYS, adversarial_fit, supervised_fit)
+from rtsds_tpu_torch.train.loop import adversarial_fit, supervised_fit
 from rtsds_tpu_torch.train.optim import make_optimizer
 from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.train.supervised import make_train_step
@@ -404,6 +418,26 @@ def phase_device() -> dict:
     return info
 
 
+# the (label, prediction) id dtypes K1 reads as they are
+ID_DTYPE_PAIRS = ((torch.int32, torch.int32), (torch.int32, torch.int64),
+                  (torch.uint8, torch.int64), (torch.int64, torch.int64))
+
+
+def out_of_range_ids(gen: torch.Generator, n: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """``n`` ids of ``dtype`` on the card, about a third in [0, CLASSES),
+    the rest negative or >= CLASSES; in int64 a third of all >= 2^32, of
+    which 2^32 + k would wrap to k in 32 bits."""
+    dev = torch.device("cuda")
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-2 * CLASSES,
+                                                     2 * CLASSES)
+    ids = torch.randint(lo, hi, (n,), generator=gen, device=dev)
+    if dtype == torch.int64:
+        wide = torch.rand((n,), generator=gen, device=dev) < 1 / 3
+        ids = torch.where(wide, ids.remainder(CLASSES) + 2 ** 32, ids)
+    return ids.to(dtype)
+
+
 def phase_hist_check() -> float:
     """Kernel == plain on every case; returns the largest |difference|."""
     dev = torch.device("cuda")
@@ -437,6 +471,14 @@ def phase_hist_check() -> float:
                                      CLASSES),
         "coherent_labels": (coherent, (coherent + 1) % CLASSES, CLASSES),
     }
+    # each pair of id dtypes the main paths pass, read as it is: negative
+    # ids, ids >= n and, in int64, ids of 2^32 and above, which must not
+    # wrap into range
+    for label_dtype, pred_dtype in ID_DTYPE_PAIRS:
+        name = (f"{str(label_dtype)[6:]}_labels_{str(pred_dtype)[6:]}_preds"
+                f"_out_of_range")
+        cases[name] = (out_of_range_ids(gen, 1_000_003, label_dtype),
+                       out_of_range_ids(gen, 1_000_003, pred_dtype), CLASSES)
     worst = 0
     report = {}
     for name, (labels, preds, n) in cases.items():
@@ -794,11 +836,14 @@ def relu_routing(masks: list, replay: bool = False):
 
 def step_card_vs_cpu(dtype: torch.dtype, batch: int,
                      model_name: str = "bisenet",
-                     size: tuple[int, int] = (64, 128)) -> dict:
+                     size: tuple[int, int] = (64, 128),
+                     accumulate_steps: int = 1) -> dict:
     """One SGD step of ``model_name`` at full depth (BiSeNet-R18, or
     DeepLabV2-R101 with its BN affines frozen) at ``size`` on the card and
-    on the CPU, same weights and batch, in ``dtype``, TF32 off; fails
-    unless they agree, and unless the frozen affines stay exactly still.
+    on the CPU, same weights and batch, in ``dtype``, TF32 off (with
+    ``accumulate_steps`` > 1, the accumulating step over that many
+    micro-batches); fails unless they agree, and unless the frozen affines
+    stay exactly still.
     The CPU step takes the card's ReLU routing: an input within rounding of
     zero may round to either side, and one such flip moves some tensors'
     updates by tens of times the limit (PERF.md).  Returns
@@ -828,6 +873,14 @@ def step_card_vs_cpu(dtype: torch.dtype, batch: int,
     before = {k: v.detach().clone() for k, v in
               states["cpu"].model.named_parameters()}
     step = make_train_step(19)
+    if accumulate_steps > 1:
+        from rtsds_tpu_torch.train.accumulate import (
+            make_accumulating_train_step, split_microbatches)
+        acc = make_accumulating_train_step(19)
+
+        def step(state, images, labels):  # noqa: F811
+            return acc(state, split_microbatches(images, accumulate_steps),
+                       split_microbatches(labels, accumulate_steps))
     losses, masks = {}, []
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=False, allow_tf32=False):
@@ -858,6 +911,7 @@ def step_card_vs_cpu(dtype: torch.dtype, batch: int,
                                        before[k])]
     result = {"model": model_name, "size": list(size),
               "dtype": str(dtype).replace("torch.", ""), "batch": batch,
+              "accumulate_steps": accumulate_steps,
               "loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"],
               "loss_rel_diff": abs(losses["cuda"] - losses["cpu"])
               / abs(losses["cpu"]),
@@ -1063,16 +1117,38 @@ class _DALossRecorder(Callback):
         self.losses.append(dict(logs))
 
 
-def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0,
-                        generator: str = "bisenet") -> dict:
+def _update_ratios(named: dict, before: dict, prefix: str) -> dict:
+    """Per tensor, the largest difference of the card's update from the
+    CPU's over ``1e-3 * largest CPU update + 1e-6``; ``named`` maps a name
+    to its (CPU tensor, card tensor)."""
+    ratios = {}
+    for k, (cpu, gpu) in named.items():
+        want = cpu.detach() - before[k]
+        got = gpu.detach().cpu() - before[k]
+        limit = 1e-3 * float(want.abs().max()) + 1e-6
+        ratios[f"{prefix}:{k}"] = float((got - want).abs().max()) / limit
+    return ratios
+
+
+def da_step_card_vs_cpu(variant: str = "v1", grl_alpha: float = 0.0,
+                        generator: str = "bisenet", lambda_ent: float = 0.0,
+                        fda_beta: float = 0.0,
+                        self_training: bool = False) -> dict:
     """One float64 SGD step of the adversarial trainer (a BiSeNet-R18 or
     DeepLabV2-R101 ``generator``, the latter with its BN affines frozen,
     and the Tiny discriminator, b2, source 64x96, target 64x128) on the
-    card and on the CPU, same weights and batches; fails unless every loss
-    agrees
-    to 1e-4 relative, G's BN running statistics to rtol 1e-4 / atol 1e-5,
-    and each parameter tensor's update, of G and of D, to 1e-3 of its
-    largest update + 1e-6.  Returns the worst of each, over its limit."""
+    card and on the CPU, same weights and batches; with ``lambda_ent`` and
+    ``fda_beta`` its MinEnt and FDA, and with ``self_training`` the
+    mean-teacher step (ClassMix on scores drawn on the CPU, a threshold
+    near the median confidence), whose EMA is compared too.  Fails unless
+    every loss agrees to 1e-4 relative, G's BN running statistics to rtol
+    1e-4 / atol 1e-5, and each parameter tensor's update, of G, of D and
+    of the EMA, to 1e-3 of its largest update + 1e-6.  Returns the worst of
+    each, over its limit."""
+    from rtsds_tpu_torch.train.ema import ema_init
+    from rtsds_tpu_torch.train.self_training import (
+        classmix_scores, make_self_training_step)
+
     def batch(size, seed):
         ds = SyntheticSegDataset(2, size, CLASSES, seed=seed,
                                  fixed_tints=True)
@@ -1099,13 +1175,30 @@ def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0,
                                            momentum=0.0)))
     before = [{k: v.detach().clone() for k, v in s.model.named_parameters()}
               for s in states["cpu"]]
-    step = make_adversarial_step(0.1, DA_ITERATIONS, DA_EPOCHS, 19, variant,
-                                 grl_alpha=grl_alpha)
-    metrics = {dev: step(*states[dev], src.to(dev), labels.to(dev),
-                         tgt.to(dev)) for dev in ("cuda", "cpu")}
-    loss_err = max(abs(float(metrics["cuda"][k]) - float(v)) / abs(float(v))
-                   for k, v in metrics["cpu"].items()
-                   if k.startswith("loss_"))
+    if self_training:
+        emas = {dev: ema_init(states[dev][0].model) for dev in states}
+        scores = classmix_scores(SEED, 0, 2, CLASSES)
+        st_step = make_self_training_step(
+            0.1, DA_ITERATIONS, 19, threshold=0.18, ema_decay=0.99,
+            lambda_ent=lambda_ent, fda_beta=fda_beta, classmix=True)
+
+        def run(dev):
+            return st_step(*states[dev], emas[dev], src.to(dev),
+                           labels.to(dev), tgt.to(dev), scores=scores)
+    else:
+        step = make_adversarial_step(0.1, DA_ITERATIONS, DA_EPOCHS, 19,
+                                     variant, lambda_ent=lambda_ent,
+                                     fda_beta=fda_beta, grl_alpha=grl_alpha)
+
+        def run(dev):
+            return step(*states[dev], src.to(dev), labels.to(dev),
+                        tgt.to(dev))
+    metrics = {dev: run(dev) for dev in ("cuda", "cpu")}
+    loss_keys = [k for k in metrics["cpu"] if k.startswith(("loss_", "pl_",
+                                                            "mix_"))]
+    loss_err = max(abs(float(metrics["cuda"][k]) - float(metrics["cpu"][k]))
+                   / max(abs(float(metrics["cpu"][k])), 1e-12)
+                   for k in loss_keys)
     cpu_state = states["cpu"][0].model.state_dict()
     stats_err = max(float(((v.cpu() - cpu_state[k]).abs()
                            / (1e-5 + 1e-4 * cpu_state[k].abs())).max())
@@ -1115,16 +1208,20 @@ def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0,
     for net, cpu_s, gpu_s, start in zip("GD", states["cpu"], states["cuda"],
                                         before):
         gpu_params = dict(gpu_s.model.named_parameters())
-        for k, p in cpu_s.model.named_parameters():
-            want = p.detach() - start[k]
-            got = gpu_params[k].detach().cpu() - start[k]
-            limit = 1e-3 * float(want.abs().max()) + 1e-6
-            ratios[f"{net}:{k}"] = float((got - want).abs().max()) / limit
+        ratios.update(_update_ratios(
+            {k: (p, gpu_params[k]) for k, p in
+             cpu_s.model.named_parameters()}, start, net))
+    if self_training:
+        ratios.update(_update_ratios(
+            {k: (v, emas["cuda"][k]) for k, v in emas["cpu"].items()},
+            before[0], "EMA"))
     worst = sorted(ratios, key=ratios.get, reverse=True)
     result = {"generator": generator, "variant": variant,
-              "grl_alpha": grl_alpha,
-              "loss_gen_source_cpu": float(metrics["cpu"]["loss_gen_source"]),
+              "grl_alpha": grl_alpha, "lambda_ent": lambda_ent,
+              "fda_beta": fda_beta, "self_training": self_training,
+              "losses_cpu": {k: float(metrics["cpu"][k]) for k in loss_keys},
               "loss_rel_diff": loss_err, "bn_stats_err_over_limit": stats_err,
+              "tensors_compared": len(ratios),
               "tensors_over_limit": sum(r > 1.0 for r in ratios.values()),
               "worst_update_err_over_limit": {k: ratios[k]
                                               for k in worst[:2]}}
@@ -1134,10 +1231,70 @@ def da_step_card_vs_cpu(variant: str, grl_alpha: float = 0.0,
     return result
 
 
-def check_da_losses(losses: list, steps: int) -> None:
-    """``steps`` rows of v1's four losses, every one finite."""
+def distill_step_card_vs_cpu() -> dict:
+    """One float64 SGD step of distillation on the card and on the CPU:
+    the BiSeNet-R18 student (b2, 64x96) under a DeepLabV2-R101 teacher at
+    full depth, each made from a seed; fails unless the three losses agree
+    to 1e-4 relative, the student's BN running statistics to rtol 1e-4 /
+    atol 1e-5, and each parameter's update to 1e-3 of its largest update
+    + 1e-6."""
+    from rtsds_tpu_torch.train.distill import make_distill_step
+
+    ds = SyntheticSegDataset(2, (64, 96), CLASSES, seed=SEED + 15,
+                             fixed_tints=True)
+    images = normalize(torch.from_numpy(np.stack([ds[i][0]
+                                                  for i in range(2)])))
+    images = images.double()
+    labels = torch.from_numpy(np.stack([ds[i][1] for i in range(2)]))
+    labels[:, :3] = 19
+    config = load_config()
+    states, metrics = {}, {}
+    for dev in ("cuda", "cpu"):
+        student, _ = make_segmentor(config, "bisenet", seed=SEED)
+        student.to(dev, torch.float64)
+        teacher, _ = make_segmentor(config, "deeplab", seed=SEED + 1)
+        teacher.to(dev, torch.float64)
+        states[dev] = TrainState(student, make_optimizer(
+            "SGD", student.parameters(), 0.01, momentum=0.0))
+        before = {k: v.detach().clone().cpu() for k, v in
+                  student.named_parameters()}
+        metrics[dev] = make_distill_step(teacher, 19)(
+            states[dev], images.to(dev), labels.to(dev))
+    keys = ("train_loss", "loss_ce", "loss_distill")
+    loss_err = max(abs(float(metrics["cuda"][k]) - float(metrics["cpu"][k]))
+                   / abs(float(metrics["cpu"][k])) for k in keys)
+    cpu_state = states["cpu"].model.state_dict()
+    stats_err = max(float(((v.cpu() - cpu_state[k]).abs()
+                           / (1e-5 + 1e-4 * cpu_state[k].abs())).max())
+                    for k, v in states["cuda"].model.state_dict().items()
+                    if "running_" in k)
+    gpu_params = dict(states["cuda"].model.named_parameters())
+    ratios = _update_ratios({k: (p, gpu_params[k]) for k, p in
+                             states["cpu"].model.named_parameters()},
+                            before, "student")
+    worst = sorted(ratios, key=ratios.get, reverse=True)
+    result = {"student": "bisenet-resnet18", "teacher": "deeplabv2-resnet101",
+              "losses_cpu": {k: float(metrics["cpu"][k]) for k in keys},
+              "loss_rel_diff": loss_err, "bn_stats_err_over_limit": stats_err,
+              "tensors_over_limit": sum(r > 1.0 for r in ratios.values()),
+              "worst_update_err_over_limit": {k: ratios[k]
+                                              for k in worst[:2]}}
+    if loss_err > 1e-4 or stats_err > 1.0 or result["tensors_over_limit"]:
+        raise AssertionError(f"the distillation step on the card differs "
+                             f"from the CPU's: {result}")
+    return result
+
+
+V1_LOSS_KEYS = ("loss_gen_source", "loss_adversarial", "loss_disc_source",
+                "loss_disc_target")
+
+
+def check_da_losses(losses: list, steps: int,
+                    keys: tuple = V1_LOSS_KEYS) -> None:
+    """``steps`` rows of the losses ``keys`` (v1's four by default), every
+    one finite."""
     if len(losses) != steps or not all(
-            sorted(logs) == sorted(DA_LOSS_KEYS[:4])
+            sorted(logs) == sorted(keys)
             and all(math.isfinite(v) for v in logs.values())
             for logs in losses):
         raise AssertionError(f"DA losses {losses}")
@@ -1565,6 +1722,362 @@ def phase_deeplab_da() -> dict:
     return {"launches": launches}
 
 
+def _extras_config(**training):
+    """The default config in bf16 with ``training`` merged in."""
+    return load_config(overrides={
+        "precision": {"compute_dtype": "bfloat16"}, "training": training})
+
+
+def _peak_gb(run) -> float:
+    """The peak device memory allocated while ``run()`` runs, in GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_ema_accumulate() -> dict:
+    """Supervised BiSeNet-R18 through ``supervised_fit`` with an EMA (decay
+    0.999) and gradient accumulation over 2 micro-batches of 4, one epoch of
+    TRAIN_STEPS steps at 720x1280 b8 bf16 on colour-coded labels (K2),
+    validated on the EMA at 512x1024 (K1); the saved ``ema`` item restored
+    exactly by ``resume``, the step and the EMA update timed, one float64
+    accumulated step at b4 (micro 2) on the card held against the CPU's."""
+    from rtsds_tpu_torch.train.accumulate import (
+        make_accumulating_train_step, split_microbatches)
+    from rtsds_tpu_torch.train.ema import ema_update, setup_ema
+    from rtsds_tpu_torch.train.loop import on_ema
+
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_ema_")
+    k = 2
+    config = _extras_config(segmentation={
+        "epochs": 1, "do_validation": 1, "accumulate_steps": k,
+        "ema": {"enabled": True, "decay": 0.999}})
+    loader, transform = _gta5_stream(TRAIN_STEPS * TRAIN_BATCH, SEED + 16)
+    val_batches = _val_stream()
+    state = build_supervised(config, "bisenet", len(loader), dev, seed=SEED)
+    acc = make_accumulating_train_step(19)
+
+    def step(st, images, labels):
+        return acc(st, split_microbatches(images, k),
+                   split_microbatches(labels, k))
+
+    recorder = _LossRecorder()
+    checkpoint = ModelCheckpoint(save_dir=tmp.name, save_name="smoke_ema",
+                                 save_best=False)
+    (_, history), launches, checked = on_main_path(
+        lambda: supervised_fit(
+            state, step,
+            lambda epoch: device_batches(loader, transform, dev, seed=SEED,
+                                         epoch=epoch),
+            val_batches, epochs=1, num_classes=CLASSES,
+            class_names=CLASS_NAMES, callbacks=[recorder],
+            checkpoint=checkpoint, device=dev, ema_decay=0.999))
+    if len(recorder.losses) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in recorder.losses):
+        raise AssertionError(f"EMA/accumulation losses {recorder.losses}")
+    if checked != TRAIN_STEPS or state.step != TRAIN_STEPS:
+        raise AssertionError(f"{checked} K2 calls checked, step {state.step}")
+    bn_counts = {int(v) for key, v in state.model.state_dict().items()
+                 if key.endswith("num_batches_tracked")}
+    if bn_counts != {k * TRAIN_STEPS}:
+        raise AssertionError(f"BN counts {bn_counts}, want {k * TRAIN_STEPS}")
+
+    # --resume's round trip: the stored EMA restored exactly into fresh
+    # states, and validated again on the restored model's BN statistics
+    saved = checkpoint.manager.load(checkpoint.manager.latest_step())
+    fresh = build_supervised(config, "bisenet", len(loader), dev,
+                             seed=SEED + 9)
+    template = setup_ema(fresh.model)
+    restored, start = ModelCheckpoint(
+        save_dir=tmp.name, save_name="smoke_ema").resume(
+            {"model": fresh, "ema": template}, optional=("ema",))
+    if start != 1 or "ema" not in restored:
+        raise AssertionError(f"EMA resume: start {start}, {sorted(restored)}")
+    ema_mismatch = [key for key, v in saved["ema"]["params"].items()
+                    if not torch.equal(template.params[key].cpu(), v)]
+    if ema_mismatch or all(torch.equal(saved["ema"]["params"][key], v.cpu())
+                           for key, v in fresh.model.named_parameters()):
+        raise AssertionError(f"EMA not restored exactly: {ema_mismatch[:4]}")
+    miou_restored, _ = validate(
+        fresh.model, val_batches(0), CLASSES,
+        eval_step=on_ema(make_eval_step(fresh.model, CLASSES,
+                                        compute_dtype=torch.bfloat16),
+                         fresh.model, template), device=dev)
+    del fresh, template, saved
+    tmp.cleanup()
+
+    host_images, host_rgb = next(iter(loader))
+    images, labels = transform(torch.from_numpy(host_images).to(dev),
+                               torch.from_numpy(host_rgb).to(dev),
+                               batch_generator(SEED, 0, 0))
+    ema = setup_ema(state.model)
+    step_ms = cuda_ms(lambda: step(state, images, labels), reps=10)
+    plain_step = make_train_step(19)
+    plain_ms = cuda_ms(lambda: plain_step(state, images, labels), reps=10)
+    ema_ms = cuda_ms(lambda: ema_update(ema.params, state.model, 0.999,
+                                        state.step))
+    peak = _peak_gb(lambda: step(state, images, labels))
+    torch.cuda.empty_cache()
+    check = step_card_vs_cpu(torch.float64, 4, accumulate_steps=2)
+    result = {"phase": "ema_accumulate", "model": "bisenet-resnet18",
+              "image_size": list(TRAIN_SIZE), "batch": TRAIN_BATCH,
+              "accumulate_steps": k, "micro_batch": TRAIN_BATCH // k,
+              "ema_decay": 0.999, "dtype": "bfloat16",
+              "steps": TRAIN_STEPS, "losses": recorder.losses,
+              "history": history, "k2_outputs_checked": checked,
+              "launches": launches,
+              "validation_mIoU_on_ema": history[0]["validation_mIoU"],
+              "validation_mIoU_on_restored_ema": miou_restored,
+              "step_p50_ms": step_ms, "plain_b8_step_p50_ms": plain_ms,
+              "ema_update_ms": ema_ms, "max_memory_gb": peak,
+              "step_card_vs_cpu_float64": check}
+    emit(result)
+    if abs(miou_restored - history[0]["validation_mIoU"]) > 1e-3:
+        raise AssertionError("the restored EMA validates differently")
+    return {"launches": launches}
+
+
+def _da_fit(config, make_step, seed: int, iterations: int = DA_ITERATIONS,
+            **fit_kwargs) -> tuple:
+    """One epoch of ``iterations`` DA steps of a fresh BiSeNet-R18 and Tiny
+    discriminator (``config``'s) through ``adversarial_fit`` as a main path,
+    the step ``make_step(generator state)``: colour-coded GTA5 source (K2),
+    Cityscapes-sized target, validation at 512x1024 (K1).  Returns
+    ``(history, launches, K2 outputs checked, losses, fit seconds)``."""
+    dev = torch.device("cuda")
+    n = iterations * TRAIN_BATCH
+    src_loader, src_transform = _gta5_stream(n, seed, infinite=True)
+    tgt_loader, tgt_transform = _target_stream(n, seed + 1)
+    gen, dis = build_adversarial(config, dev, seed=SEED)
+    step = make_step(gen)
+    recorder = _DALossRecorder()
+    source_iter = device_batches(src_loader, src_transform, dev, seed=SEED)
+    target_iter = device_batches(tgt_loader, tgt_transform, dev)
+    with contextlib.closing(source_iter), contextlib.closing(target_iter):
+        t0 = time.perf_counter()
+        (_, _, history), launches, checked = on_main_path(
+            lambda: adversarial_fit(
+                gen, dis, step, source_iter, target_iter, _val_stream(),
+                iterations=iterations, epochs=1, num_classes=CLASSES,
+                class_names=CLASS_NAMES, callbacks=[recorder], device=dev,
+                **fit_kwargs))
+        fit_s = time.perf_counter() - t0
+    if checked != iterations:
+        raise AssertionError(f"{checked} K2 calls checked")
+    if len(history) != 1 or not 0.0 <= history[0]["validation_mIoU"] <= 1.0:
+        raise AssertionError(f"history {history}")
+    return history, launches, checked, recorder.losses, fit_s
+
+
+def _bench_summary(b: dict) -> dict:
+    return {"p50_ms": b["ms_per_step"], "steps_per_sec": b["steps_per_sec"],
+            "max_memory_gb": b["max_memory_gb"], "fda_ms": b["fda_ms"]}
+
+
+def phase_da_minent_fda() -> dict:
+    """BiSeNet DA v1 and v2 with MinEnt (lambda 0.005) and FDA (beta 0.01)
+    through ``adversarial_fit``, an epoch of DA_ITERATIONS steps each;
+    both steps timed with their peak memory and FDA's own time on the b8
+    batch (``da_bench``); one float64 v1 step with both extras (FDA at
+    beta 0.05, whose window is empty at 64x96 below 1/64) on the card held
+    against the CPU's.  Returns the launches of each path."""
+    lambda_ent, fda_beta = 0.005, 0.01
+    report, paths = {}, {}
+    for variant in ("v1", "v2"):
+        config = _extras_config(domain_adaptation={
+            "epochs": 1, "iterations": DA_ITERATIONS, "do_validation": 1,
+            "variant": variant,
+            "entropy_min": {"enabled": True, "lambda": lambda_ent},
+            "fda": {"enabled": True, "beta": fda_beta}})
+        step = make_adversarial_step(
+            float(config.training["domain_adaptation"]["lambda"]),
+            DA_ITERATIONS, 1, 19, variant, lambda_ent=lambda_ent,
+            fda_beta=fda_beta)
+        history, launches, checked, losses, fit_s = _da_fit(
+            config, lambda gen: step, SEED + 17 + (variant == "v2"))
+        keys = V1_LOSS_KEYS + ("loss_entropy",) + (
+            ("loss_gen_total", "loss_disc_total") if variant == "v2" else ())
+        check_da_losses(losses, DA_ITERATIONS, keys)
+        torch.cuda.empty_cache()
+        bench = da_step_benchmark(
+            batch_size=TRAIN_BATCH, src_hw=TRAIN_SIZE, tgt_hw=DA_TGT_SIZE,
+            steps=DA_BENCH_STEPS, repeats=DA_BENCH_REPEATS,
+            dtype=torch.bfloat16, variant=variant, seed=SEED,
+            lambda_ent=lambda_ent, fda_beta=fda_beta)
+        torch.cuda.empty_cache()
+        if not math.isfinite(bench["last_loss_gen_source"]):
+            raise AssertionError(f"DA bench {variant}: {bench}")
+        report[variant] = {"history": history, "fit_s": fit_s,
+                           "losses": losses, "k2_outputs_checked": checked,
+                           "launches": launches, **_bench_summary(bench)}
+        paths[variant] = launches
+    check = da_step_card_vs_cpu("v1", lambda_ent=lambda_ent, fda_beta=0.05)
+    emit({"phase": "da_minent_fda", "generator": "bisenet-resnet18",
+          "discriminator": "tiny", "source_size": list(TRAIN_SIZE),
+          "target_size": list(DA_TGT_SIZE), "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "lambda_ent": lambda_ent,
+          "fda_beta": fda_beta, "iterations": DA_ITERATIONS, **report,
+          "step_card_vs_cpu_float64": check})
+    return paths
+
+
+def phase_self_training() -> dict:
+    """The mean-teacher self-training step (v1, EMA 0.999, ClassMix, CBST
+    thresholds calibrated over 2 target batches on the generator as it
+    starts) through ``adversarial_fit`` with ``ema_in_step``, an epoch of
+    DA_ITERATIONS steps at full width; the step timed with its peak memory
+    (``da_bench``); one float64 step on the card, ClassMix scores drawn on
+    the CPU, held against the CPU's, EMA included.  Returns the
+    launches."""
+    from rtsds_tpu_torch.train.self_training import (
+        calibrate_class_thresholds, make_self_training_step)
+
+    config = _extras_config(domain_adaptation={
+        "epochs": 1, "iterations": DA_ITERATIONS, "do_validation": 1,
+        "ema": {"enabled": True, "decay": 0.999},
+        "self_training": {"enabled": True, "classmix": {"enabled": True},
+                          "calibration": {"enabled": True, "portion": 0.5,
+                                          "batches": 2}}})
+    calibrated = {}
+
+    def build(gen):
+        # the target batches the calibration reads come from a stream of
+        # their own, so that the training stream starts where it would
+        cal_loader, cal_transform = _target_stream(2 * TRAIN_BATCH, SEED + 21)
+        cal = device_batches(cal_loader, cal_transform, gen.device)
+        with contextlib.closing(cal):
+            thr = calibrate_class_thresholds(
+                gen.model, [next(cal) for _ in range(2)], CLASSES,
+                portion=0.5, compute_dtype=gen.compute_dtype)
+        calibrated["thresholds"] = [float(t) for t in thr]
+        return make_self_training_step(
+            float(config.training["domain_adaptation"]["lambda"]),
+            DA_ITERATIONS, 19, threshold=thr, ema_decay=0.999,
+            classmix=True, classmix_seed=SEED)
+
+    history, launches, checked, losses, fit_s = _da_fit(
+        config, build, SEED + 19, ema_in_step=True)
+    keys = V1_LOSS_KEYS + ("loss_pseudo", "pl_coverage", "mix_coverage")
+    check_da_losses(losses, DA_ITERATIONS, keys)
+    torch.cuda.empty_cache()
+    bench = da_step_benchmark(
+        batch_size=TRAIN_BATCH, src_hw=TRAIN_SIZE, tgt_hw=DA_TGT_SIZE,
+        steps=DA_BENCH_STEPS, repeats=DA_BENCH_REPEATS, dtype=torch.bfloat16,
+        seed=SEED, self_training=True, classmix=True)
+    torch.cuda.empty_cache()
+    if not math.isfinite(bench["last_loss_gen_source"]):
+        raise AssertionError(f"self-training bench: {bench}")
+    check = da_step_card_vs_cpu(self_training=True)
+    emit({"phase": "self_training", "generator": "bisenet-resnet18",
+          "discriminator": "tiny", "source_size": list(TRAIN_SIZE),
+          "target_size": list(DA_TGT_SIZE), "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "ema_decay": 0.999, "classmix": True,
+          "calibration_batches": 2, **calibrated,
+          "iterations": DA_ITERATIONS, "history": history, "fit_s": fit_s,
+          "losses": losses,
+          "pl_coverage": [row["pl_coverage"] for row in losses],
+          "mix_coverage": [row["mix_coverage"] for row in losses],
+          "k2_outputs_checked": checked, "launches": launches,
+          **_bench_summary(bench), "step_card_vs_cpu_float64": check})
+    return launches
+
+
+def phase_distillation() -> dict:
+    """A DeepLabV2-R101 teacher checkpoint written by the port from seeded
+    weights, its ``ema`` item made from another seed; ``load_teacher``
+    reads it back, and the distillation loss shows that the ``ema`` item
+    was taken.  BiSeNet-R18 distils from it through ``supervised_fit``, an
+    epoch of TRAIN_STEPS steps at 720x1280 b8 bf16 on colour-coded labels
+    (K2), validated at 512x1024 (K1); the step and the teacher's forward
+    timed (``train_bench --distill deeplab``) with the peak memory; one
+    float64 step on the card held against the CPU's.  Returns the
+    launches."""
+    from rtsds_tpu_torch.callbacks.checkpoint import CheckpointManager
+    from rtsds_tpu_torch.models.pretrained import load_segmentor_state
+    from rtsds_tpu_torch.train.distill import (
+        distillation_kl, load_teacher, make_distill_step)
+    from rtsds_tpu_torch.train.ema import EMA, ema_init
+
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_kd_")
+    config = train_config()
+    trained, _ = make_segmentor(config, "deeplab", seed=SEED + 22)
+    averaged, _ = make_segmentor(config, "deeplab", seed=SEED + 23)
+    CheckpointManager(tmp.name).save(0, {
+        "model": TrainState(trained, make_optimizer(
+            "SGD", trained.parameters(), 0.01)),
+        "ema": EMA(ema_init(averaged))}, monitor=0.5)
+
+    def teacher_from(state):
+        model, _ = make_segmentor(config, "deeplab", seed=SEED)
+        return load_segmentor_state(model, state).to(dev).eval()
+
+    teacher = teacher_from(load_teacher(tmp.name))
+    raw = teacher_from(load_teacher(tmp.name, use_ema=False))
+    direct = teacher_from({**trained.state_dict(), **ema_init(averaged)})
+    del trained, averaged
+    tmp.cleanup()
+    val_images, _ = next(iter(_val_stream()(0)))
+    x = val_images.permute(0, 3, 1, 2)
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        student_out = BiSeNet().to(dev).eval()(x)
+        kd = {name: float(distillation_kl(student_out, t(x)))
+              for name, t in (("loaded", teacher), ("ema_weights", direct),
+                              ("model_weights", raw))}
+    del raw, direct, student_out, x
+    # the same weights give the same loss up to the order of the card's
+    # sums; the trained weights another
+    if not (abs(kd["loaded"] - kd["ema_weights"]) <= 1e-6 * kd["loaded"]
+            < 1e-3 * abs(kd["loaded"] - kd["model_weights"])):
+        raise AssertionError(f"load_teacher did not take the ema item: {kd}")
+
+    loader, transform = _gta5_stream(TRAIN_STEPS * TRAIN_BATCH, SEED + 24)
+    state = build_supervised(config, "bisenet", len(loader), dev, seed=SEED)
+    step = make_distill_step(teacher, 19)
+    losses = []
+
+    class _KD(Callback):
+        def on_batch_end(self, batch, logs=None):
+            losses.append({k: logs[k] for k in ("train_loss", "loss_ce",
+                                                "loss_distill")})
+
+    (_, history), launches, checked = on_main_path(
+        lambda: supervised_fit(
+            state, step,
+            lambda epoch: device_batches(loader, transform, dev, seed=SEED,
+                                         epoch=epoch),
+            _val_stream(), epochs=1, num_classes=CLASSES,
+            class_names=CLASS_NAMES, callbacks=[_KD()], device=dev))
+    if len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for row in losses for v in row.values()):
+        raise AssertionError(f"distillation losses {losses}")
+    if checked != TRAIN_STEPS or len(history) != 1:
+        raise AssertionError(f"{checked} K2 calls checked, {history}")
+    del teacher, state, step
+    torch.cuda.empty_cache()
+    bench = supervised_step_benchmark(
+        "bisenet", batch_size=TRAIN_BATCH, image_size=TRAIN_SIZE,
+        steps=DA_BENCH_STEPS, repeats=3, seed=SEED, distill="deeplab")
+    torch.cuda.empty_cache()
+    if not math.isfinite(bench["last_train_loss"]):
+        raise AssertionError(f"distillation bench: {bench}")
+    check = distill_step_card_vs_cpu()
+    emit({"phase": "distillation", "student": "bisenet-resnet18",
+          "teacher": "deeplabv2-resnet101", "image_size": list(TRAIN_SIZE),
+          "batch": TRAIN_BATCH, "dtype": "bfloat16", "steps": TRAIN_STEPS,
+          "teacher_kl_on_val_batch": kd, "losses": losses,
+          "history": history, "k2_outputs_checked": checked,
+          "launches": launches, "step_p50_ms": bench["ms_per_step"],
+          "steps_per_sec": bench["steps_per_sec"],
+          "teacher_forward_ms": bench["teacher_forward_ms"],
+          "max_memory_gb": bench["max_memory_gb"],
+          "step_card_vs_cpu_float64": check})
+    return launches
+
+
 def timed_entry(kernel, plain, library, nbytes: int) -> dict:
     """The measured keys of a ``kernels`` entry: the kernel's device time
     (median, min, max), its wrapper's host cost, the plain version's and
@@ -1593,25 +2106,41 @@ def remap_timing(rgb: torch.Tensor, launches: int,
                           lambda: rgb_to_train_ids(rgb), None, nbytes)}
 
 
+def hist_bytes(labels: torch.Tensor, preds: torch.Tensor) -> int:
+    """K1's bytes: each id read once in its own dtype, the (n, n) int32
+    matrix written once."""
+    return (labels.numel() * labels.element_size()
+            + preds.numel() * preds.element_size() + CLASSES * CLASSES * 4)
+
+
 def kernel_timing(labels: torch.Tensor, preds: torch.Tensor,
                   launches: int, max_abs_err: float) -> dict:
     """The hist kernel's entry of the ``kernels`` line, timed on the eval
-    step's own labels and int32 predictions.  The library yardstick is
+    step's own int32 labels and int64 predictions, as it calls K1
+    (``as_called_ms``, which is also ``ms``), and, beside it, on the same
+    predictions cast to int32 beforehand (``int32_preds_ms``).  The bound
+    is that of the as-called dtypes.  The library yardstick is
     ``torch.bincount`` of the joint ids, which syncs with the host to size
     its output."""
     n = CLASSES
     l64, p64 = labels.reshape(-1).long(), preds.reshape(-1).long()
     idx = torch.where((l64 >= 0) & (l64 < n) & (p64 >= 0) & (p64 < n),
                       l64 * n + p64, n * n)
-    nbytes = labels.numel() * 4 + preds.numel() * 4 + n * n * 4
+    preds32 = preds.to(torch.int32)
+    entry = timed_entry(lambda: fast_hist_cuda(labels, preds, n),
+                        lambda: fast_hist(labels, preds, n),
+                        lambda: torch.bincount(idx, minlength=n * n + 1),
+                        hist_bytes(labels, preds))
+    int32 = device_ms(lambda: fast_hist_cuda(labels, preds32, n))
     return {"name": "fast_hist_cuda", "route": "cuda",
             "source": "rtsds_tpu_torch/ops/cuda/csrc/hist.cu",
             "replaces": "rtsds_tpu/ops/pallas/hist.py:48",
-            "launches": launches, "max_abs_err": max_abs_err,
-            **timed_entry(lambda: fast_hist_cuda(labels, preds, n),
-                          lambda: fast_hist(labels, preds, n),
-                          lambda: torch.bincount(idx, minlength=n * n + 1),
-                          nbytes)}
+            "launches": launches, "max_abs_err": max_abs_err, **entry,
+            "as_called_ms": entry["ms"],
+            "as_called_dtypes": [str(labels.dtype)[6:], str(preds.dtype)[6:]],
+            "int32_preds_ms": int32["ms"],
+            "int32_preds_bound_ms": hist_bytes(labels, preds32)
+            / HBM_BYTES_PER_S * 1e3}
 
 
 def profile_kernels(calls: dict, launches: int = 20) -> dict:
@@ -1645,10 +2174,12 @@ def profile_kernels(calls: dict, launches: int = 20) -> dict:
 def kernels_only() -> int:
     """Builds the kernels and times K1 and K2 alone with :func:`device_ms`,
     at the main paths' shapes; K2's output is held against the plain
-    remap.  K2's labels are made as the trainer's are; K1's predictions
-    are the labels with 30% noise, not a model's argmax.  To compare two
-    trees in one call, copy this script to each tree's root and run it
-    there with ``--kernels-only``."""
+    remap.  K2's labels are made as the trainer's are; K1's labels are
+    int32 and its predictions int64, as the eval step passes them (the
+    labels with 30% noise, not a model's argmax), and K1 is also timed on
+    the predictions cast to int32 beforehand.  To compare two trees in one
+    call, copy this script to each tree's root and run it there with
+    ``--kernels-only``: it imports only what earlier trees have."""
     phase_device()
     dev = torch.device("cuda")
     gta5 = ColorCodedLabels(
@@ -1664,18 +2195,31 @@ def kernels_only() -> int:
         BATCH, *SIZE).contiguous()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     noise = torch.randint(0, CLASSES, labels.shape, generator=gen,
-                          device=dev, dtype=torch.int32)
+                          device=dev)
+    # int64, as the eval step's argmax gives them
     preds = torch.where(torch.rand(labels.shape, generator=gen, device=dev)
-                        < 0.3, noise, labels)
+                        < 0.3, noise, labels.long())
+    preds32 = preds.to(torch.int32)
+    if not torch.equal(fast_hist_cuda(labels, preds, CLASSES),
+                       fast_hist(labels, preds, CLASSES)):
+        raise AssertionError("hist kernel != plain on int64 predictions")
     times = {}
     for name, fn in (
-            ("fast_hist_cuda", lambda: fast_hist_cuda(labels, preds,
-                                                      CLASSES)),
+            ("fast_hist_cuda_as_called",
+             lambda: fast_hist_cuda(labels, preds, CLASSES)),
+            ("fast_hist_cuda_int32_preds",
+             lambda: fast_hist_cuda(labels, preds32, CLASSES)),
             ("rgb_to_train_ids_cuda", lambda: rgb_to_train_ids_cuda(rgb))):
         times[name] = {**device_ms(fn), "host_us": host_us(fn)}
     emit({"phase": "kernel_times", "timing": KERNEL_TIMING,
           "launches_per_timing": TIMED_LAUNCHES,
           "remap_pixels": rgb.numel() // 3, "hist_pixels": labels.numel(),
+          "hist_dtypes": {"labels": str(labels.dtype)[6:],
+                          "as_called_preds": str(preds.dtype)[6:]},
+          "hist_bound_ms": {
+              "as_called": hist_bytes(labels, preds) / HBM_BYTES_PER_S * 1e3,
+              "int32_preds": hist_bytes(labels, preds32) / HBM_BYTES_PER_S
+              * 1e3},
           "kernels": times})
     print(gpu_name_and_power_limit(), flush=True)
     return 0
@@ -1738,23 +2282,39 @@ def main() -> int:
     dl_da = phase_deeplab_da()
     torch.cuda.empty_cache()
 
+    # main paths 9-13: the DA extras (counts reset inside each, just
+    # before)
+    extras = {"ema_accumulate": phase_ema_accumulate()["launches"]}
+    torch.cuda.empty_cache()
+    for variant, n in phase_da_minent_fda().items():
+        extras[f"da_minent_fda_{variant}"] = n
+    torch.cuda.empty_cache()
+    extras["self_training"] = phase_self_training()
+    torch.cuda.empty_cache()
+    extras["distillation"] = phase_distillation()
+    torch.cuda.empty_cache()
+
     hist_paths = {"bisenet_serving_validation": serve_launches,
                   "bisenet_training": train_launches["fast_hist_cuda"],
                   "bisenet_da": da_launches["fast_hist_cuda"],
                   **{f"deeplab_validation_{k}": n for k, n in dl_val.items()},
                   "deeplab_training": dl_train["launches"]["fast_hist_cuda"],
-                  "deeplab_da": dl_da["launches"]["fast_hist_cuda"]}
+                  "deeplab_da": dl_da["launches"]["fast_hist_cuda"],
+                  **{f"bisenet_{k}": n["fast_hist_cuda"]
+                     for k, n in extras.items()}}
     remap_paths = {
         "bisenet_training": train_launches["rgb_to_train_ids_cuda"],
         "bisenet_da": da_launches["rgb_to_train_ids_cuda"],
         "deeplab_training": dl_train["launches"]["rgb_to_train_ids_cuda"],
-        "deeplab_da": dl_da["launches"]["rgb_to_train_ids_cuda"]}
+        "deeplab_da": dl_da["launches"]["rgb_to_train_ids_cuda"],
+        **{f"bisenet_{k}": n["rgb_to_train_ids_cuda"]
+           for k, n in extras.items()}}
     for kernel, paths in (("K1", hist_paths), ("K2", remap_paths)):
         missed = [p for p, n in paths.items() if n < 1]
         if missed:
             raise AssertionError(f"{kernel} never launched on {missed}")
 
-    preds = preds.to(torch.int32)
+    # the eval step's own int32 labels and int64 argmax, as it passes them
     kernels = [
         {**kernel_timing(labels, preds, sum(hist_paths.values()), hist_err),
          "launches_by_path": hist_paths},

@@ -12,10 +12,14 @@ also times the generator phase and the discriminator phase apart, with an
 event between them.
 
     python -m rtsds_tpu_torch.bench.da_bench [--variant v1|v2] [--grl-alpha A] \
-        [--generator bisenet|deeplab]
+        [--generator bisenet|deeplab] [--lambda-ent L] [--fda-beta B] \
+        [--self-training [--classmix]]
 
 prints one JSON line for batch 8, a 720x1280 source and a 512x1024 target
-in bf16.  Without a GPU it raises.
+in bf16.  ``--lambda-ent`` adds MinEnt and ``--fda-beta`` FDA to the step;
+``--self-training`` benches the mean-teacher pseudo-label step (v1, a
+threshold of 0.9, the EMA updated in the step), ``--classmix`` with
+ClassMix.  Without a GPU it raises.
 """
 
 from __future__ import annotations
@@ -30,9 +34,12 @@ from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2, frozen_bn_parameters
 from rtsds_tpu_torch.models.discriminator import TinyDomainDiscriminator
+from rtsds_tpu_torch.ops.fda import fda_source_to_target
 from rtsds_tpu_torch.train.adversarial import (
     make_adversarial_step, v1_discriminator_update, v1_generator_update)
+from rtsds_tpu_torch.train.ema import ema_init
 from rtsds_tpu_torch.train.optim import make_optimizer
+from rtsds_tpu_torch.train.self_training import make_self_training_step
 from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.utils.schedules import poly_lr_schedule
 
@@ -51,12 +58,21 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
                       tgt_hw=(512, 1024), steps: int = 5, repeats: int = 3,
                       dtype: torch.dtype = torch.bfloat16,
                       variant: str = "v1", grl_alpha: float = 0.0,
-                      seed: int = 0, generator: str = "bisenet") -> dict:
+                      seed: int = 0, generator: str = "bisenet",
+                      lambda_ent: float = 0.0, fda_beta: float = 0.0,
+                      self_training: bool = False,
+                      classmix: bool = False) -> dict:
     """``ms_per_step`` is the median over ``repeats`` of the mean step time
-    of ``steps`` chained steps; ``split_ms`` (v1 without reversal) the
+    of ``steps`` chained steps; ``split_ms`` (the plain v1 step) the
     median generator and discriminator phase times over the same number of
-    steps; ``max_memory_gb`` the peak of the allocated device memory during
-    the run, ``memory_at_start_gb`` what was allocated before it."""
+    steps; ``fda_ms`` (``fda_beta > 0``) the median time of the FDA of one
+    source batch; ``max_memory_gb`` the peak of the allocated device memory
+    during the run, ``memory_at_start_gb`` what was allocated before
+    it."""
+    if self_training and (variant != "v1" or grl_alpha):
+        raise ValueError("the self-training step composes with v1 only")
+    if classmix and not self_training:
+        raise ValueError("classmix is a self-training option")
     device = resolve_device(None)
     torch.cuda.reset_peak_memory_stats()
     at_start = torch.cuda.memory_allocated()
@@ -87,8 +103,19 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
     labels = torch.zeros((batch_size, *src_hw), dtype=torch.int32,
                          device=device)
     tgt = torch.randn((batch_size, *tgt_hw, 3), generator=rng, device=device)
-    step = make_adversarial_step(LAMBDA, ITERATIONS, EPOCHS, variant=variant,
-                                 grl_alpha=grl_alpha)
+    if self_training:
+        ema = ema_init(generator)
+        st_step = make_self_training_step(
+            LAMBDA, ITERATIONS, lambda_ent=lambda_ent, fda_beta=fda_beta,
+            classmix=classmix, classmix_seed=seed)
+
+        def step(gen, dis, src, labels, tgt):
+            return st_step(gen, dis, ema, src, labels, tgt)
+    else:
+        step = make_adversarial_step(LAMBDA, ITERATIONS, EPOCHS,
+                                     variant=variant, grl_alpha=grl_alpha,
+                                     lambda_ent=lambda_ent,
+                                     fda_beta=fda_beta)
 
     for _ in range(WARMUP_STEPS):
         metrics = step(gen, dis, src, labels, tgt)
@@ -105,12 +132,13 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
     last_loss = float(metrics["loss_gen_source"])
 
     split = None
-    if variant == "v1" and not grl_alpha:
+    plain_v1 = not (grl_alpha or lambda_ent or fda_beta or self_training)
+    if variant == "v1" and plain_v1:
         phases = {"generator": [], "discriminator": []}
         for _ in range(steps):
             (start, mid), (_, end) = _events(), _events()
             start.record()
-            src_main, tgt_main, _, _ = v1_generator_update(
+            src_main, tgt_main, *_ = v1_generator_update(
                 gen, dis, src, labels, tgt, LAMBDA, ITERATIONS)
             mid.record()
             v1_discriminator_update(dis, src_main, tgt_main, ITERATIONS)
@@ -120,9 +148,23 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
             phases["discriminator"].append(mid.elapsed_time(end))
         split = {k: statistics.median(v) for k, v in phases.items()}
 
+    fda_ms = None
+    if fda_beta:
+        fda_times = []
+        for _ in range(steps):
+            start, end = _events()
+            start.record()
+            fda_source_to_target(src, tgt, fda_beta)
+            end.record()
+            end.synchronize()
+            fda_times.append(start.elapsed_time(end))
+        fda_ms = statistics.median(fda_times)
+
     ms = statistics.median(times)
     return {"ms_per_step": ms, "ms_per_step_all": times,
             "steps_per_sec": 1000.0 / ms, "split_ms": split,
+            "fda_ms": fda_ms, "lambda_ent": lambda_ent, "fda_beta": fda_beta,
+            "self_training": self_training, "classmix": classmix,
             "batch_size": batch_size, "src_hw": list(src_hw),
             "tgt_hw": list(tgt_hw), "dtype": str(dtype).replace("torch.", ""),
             "generator": gen_name, "variant": variant,
@@ -140,10 +182,20 @@ def main(argv=None):
                         help="> 0: the gradient-reversal step (v1 only)")
     parser.add_argument("--generator", choices=["bisenet", "deeplab"],
                         default="bisenet")
+    parser.add_argument("--lambda-ent", type=float, default=0.0,
+                        help="> 0: MinEnt on the target logits")
+    parser.add_argument("--fda-beta", type=float, default=0.0,
+                        help="> 0: FDA of the source by the target")
+    parser.add_argument("--self-training", action="store_true",
+                        help="the mean-teacher pseudo-label step (v1)")
+    parser.add_argument("--classmix", action="store_true",
+                        help="ClassMix in the self-training step")
     args = parser.parse_args(argv)
-    print(json.dumps(da_step_benchmark(variant=args.variant,
-                                       grl_alpha=args.grl_alpha,
-                                       generator=args.generator)))
+    print(json.dumps(da_step_benchmark(
+        variant=args.variant, grl_alpha=args.grl_alpha,
+        generator=args.generator, lambda_ent=args.lambda_ent,
+        fda_beta=args.fda_beta, self_training=args.self_training,
+        classmix=args.classmix)))
 
 
 if __name__ == "__main__":

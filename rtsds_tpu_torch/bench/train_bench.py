@@ -9,10 +9,13 @@ updates in place; after warmup, CUDA events bracket each repeat of
 ``steps`` steps, and the last step's loss is read.
 
     python -m rtsds_tpu_torch.bench.train_bench [--model deeplab] \
-        [--bn_eval] [--remat] [--batch 8] [--size "720, 1280"]
+        [--bn_eval] [--remat] [--batch 8] [--size "720, 1280"] \
+        [--distill deeplab|bisenet]
 
-prints one JSON line (bf16).  Without a GPU it raises.  Distillation and
-QAT steps are not ported yet.
+prints one JSON line (bf16).  ``--distill MODEL`` benches the distillation
+step (``train/distill.py``) with a teacher of that model made from the seed
++ 1, whose eval forward the step runs; the line adds the teacher forward's
+own time.  Without a GPU it raises.  The QAT step is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from rtsds_tpu_torch.config import parse_int_list
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2, frozen_bn_parameters
+from rtsds_tpu_torch.train.distill import make_distill_step
 from rtsds_tpu_torch.train.factory import not_ported
 from rtsds_tpu_torch.train.optim import make_optimizer
 from rtsds_tpu_torch.train.state import TrainState
@@ -43,29 +47,33 @@ def supervised_step_benchmark(model_name: str = "bisenet",
                               dtype: torch.dtype = torch.bfloat16,
                               backbone: str = "resnet18",
                               bn_eval: bool = False, remat: bool = False,
-                              seed: int = 0) -> dict:
+                              seed: int = 0, distill: str | None = None
+                              ) -> dict:
     """``ms_per_step`` is the median over ``repeats`` of the mean step time
     of ``steps`` chained steps; ``max_memory_gb`` the peak of the allocated
     device memory during the run, ``memory_at_start_gb`` what was
-    allocated before it."""
+    allocated before it; with ``distill``, ``teacher_forward_ms`` the
+    median time of the teacher's eval forward alone."""
     if bn_eval and model_name != "deeplab":
         raise ValueError(f"bn_eval is a deeplab knob (model.deeplab.bn_eval); "
                          f"it does not apply to {model_name!r}")
     device = resolve_device(None)
     torch.cuda.reset_peak_memory_stats()
     at_start = torch.cuda.memory_allocated()
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        if model_name == "deeplab":
-            model = DeepLabV2(num_classes=num_classes, bn_eval=bn_eval,
-                              remat=remat)
-            frozen = frozen_bn_parameters(model)
-        elif model_name == "bisenet":
-            model = BiSeNet(num_classes=num_classes, context_path=backbone,
-                            remat=remat)
-            frozen = []
-        else:
-            raise ValueError(f"unknown model {model_name!r}")
+
+    def make(name, model_seed, remat=False, bn_eval=False):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(model_seed)
+            if name == "deeplab":
+                model = DeepLabV2(num_classes=num_classes, bn_eval=bn_eval,
+                                  remat=remat)
+                return model, frozen_bn_parameters(model)
+            if name == "bisenet":
+                return BiSeNet(num_classes=num_classes, context_path=backbone,
+                               remat=remat), []
+        raise ValueError(f"unknown model {name!r}")
+
+    model, frozen = make(model_name, seed, remat=remat, bn_eval=bn_eval)
     model.to(device)
     state = TrainState(model, make_optimizer(
         "Adam", model.parameters(), poly_lr_schedule(1e-4, 5000, 0.9),
@@ -77,6 +85,23 @@ def supervised_step_benchmark(model_name: str = "bisenet",
     labels = torch.zeros((batch_size, *image_size), dtype=torch.int32,
                          device=device)
     step = make_train_step(ignore_index=num_classes)
+    teacher_ms = None
+    if distill:
+        teacher = make(distill, seed + 1)[0].to(device)
+        step = make_distill_step(teacher, ignore_index=num_classes)
+        x = images.permute(0, 3, 1, 2)
+        teacher_times = []
+        for i in range(WARMUP_STEPS + repeats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with torch.no_grad(), state.autocast():
+                teacher(x)
+            end.record()
+            end.synchronize()
+            if i >= WARMUP_STEPS:
+                teacher_times.append(start.elapsed_time(end))
+        teacher_ms = statistics.median(teacher_times)
 
     for _ in range(WARMUP_STEPS):
         metrics = step(state, images, labels)
@@ -101,7 +126,9 @@ def supervised_step_benchmark(model_name: str = "bisenet",
             "samples_per_sec": batch_size * 1000.0 / ms,
             "batch_size": batch_size, "image_size": list(image_size),
             "dtype": str(dtype).replace("torch.", ""), "bn_eval": bn_eval,
-            "remat": remat, "steps": steps, "repeats": repeats,
+            "remat": remat, "distill": distill,
+            "teacher_forward_ms": teacher_ms, "steps": steps,
+            "repeats": repeats,
             "last_train_loss": last_loss,
             "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "memory_at_start_gb": at_start / 1e9,
@@ -121,20 +148,22 @@ def main(argv=None):
                         help="DeepLabV2 with every BN on its running stats")
     parser.add_argument("--remat", action="store_true",
                         help="recompute each residual block in the backward")
-    parser.add_argument("--distill", default=None,
-                        help="not ported yet: the distillation step")
+    parser.add_argument("--distill", choices=["bisenet", "deeplab"],
+                        default=None,
+                        help="bench the distillation step with a teacher "
+                             "of this model")
     parser.add_argument("--qat", action="store_true",
                         help="not ported yet: the QAT step")
     args = parser.parse_args(argv)
-    for flag, what in (("distill", "the distillation step bench"),
-                       ("qat", "the QAT step bench")):
-        if getattr(args, flag):
-            raise SystemExit(str(not_ported(what)))
+    if args.qat:
+        raise SystemExit(str(not_ported("the QAT step bench")))
     stats = supervised_step_benchmark(
         args.model, batch_size=args.batch,
         image_size=tuple(parse_int_list(args.size)), steps=args.steps,
-        backbone=args.backbone, bn_eval=args.bn_eval, remat=args.remat)
-    print(json.dumps({"metric": f"{args.model}_supervised_train_step",
+        backbone=args.backbone, bn_eval=args.bn_eval, remat=args.remat,
+        distill=args.distill)
+    kind = "distill" if args.distill else "supervised"
+    print(json.dumps({"metric": f"{args.model}_{kind}_train_step",
                       "value": stats["ms_per_step"], "unit": "ms/step",
                       **stats}))
 

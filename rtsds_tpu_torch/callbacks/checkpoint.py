@@ -83,33 +83,40 @@ class CheckpointManager:
             json.dump({str(k): v for k, v in sorted(metrics.items())}, f)
         os.replace(tmp, self._metrics_path)
 
-    def restore(self, states: dict, step: int | None = None) -> bool:
+    def load(self, step: int) -> dict:
+        """The saved ``{name: state_dict}`` of epoch ``step``, on the CPU."""
+        return torch.load(self._path(step), map_location="cpu",
+                          weights_only=True)
+
+    def restore(self, states: dict, step: int | None = None,
+                optional: tuple[str, ...] = ()) -> frozenset:
         """Load epoch ``step`` (default: the latest) into ``states`` in
-        place.  Returns False, and leaves ``states`` as they were, when no
-        checkpoint exists or it does not hold every named state with
-        matching tensors."""
+        place.  Returns the names restored: every name of ``states``, less
+        those of ``optional`` that the checkpoint does not hold (they are
+        left as they were).  Returns an empty set, and leaves ``states`` as
+        they were, when no checkpoint exists or it does not hold every
+        other named state with matching tensors."""
         if step is None:
             step = self.latest_step()
         if step is None:
-            return False
-        payload = torch.load(self._path(step), map_location="cpu",
-                             weights_only=True)
-        missing = sorted(set(states) - set(payload))
+            return frozenset()
+        payload = self.load(step)
+        missing = sorted(set(states) - set(payload) - set(optional))
         if missing:
             print(f"checkpoint restore skipped: epoch {step} holds "
                   f"{sorted(payload)}, wanted {sorted(states)}")
-            return False
-        backup = {name: _copy(state.state_dict())
-                  for name, state in states.items()}
+            return frozenset()
+        names = [name for name in states if name in payload]
+        backup = {name: _copy(states[name].state_dict()) for name in names}
         try:
-            for name, state in states.items():
-                state.load_state_dict(payload[name])
+            for name in names:
+                states[name].load_state_dict(payload[name])
         except (RuntimeError, KeyError, ValueError) as e:
-            for name, state in states.items():
-                state.load_state_dict(backup[name])
+            for name in names:
+                states[name].load_state_dict(backup[name])
             print(f"checkpoint restore skipped: {e}")
-            return False
-        return True
+            return frozenset()
+        return frozenset(names)
 
 
 def _copy(tree):
@@ -184,16 +191,21 @@ class ModelCheckpoint(Callback):
             self.manager.save(self._epoch, self._get_states(), monitor=value)
             print(f"Best Model Saved at Epoch {self._epoch}")
 
-    def resume(self, states: dict) -> tuple[dict, int]:
-        """Load the latest checkpoint into ``states``; returns ``(states,
-        start_epoch)``, ``start_epoch`` being the epoch after the saved one
-        (0 when nothing was restored).  The best value so far is re-armed
-        from the stored metrics, so save-best cannot regress after a
-        resume."""
+    def resume(self, states: dict, optional: tuple[str, ...] = ()
+               ) -> tuple[dict, int]:
+        """Load the latest checkpoint into ``states``; returns ``(restored,
+        start_epoch)``: the states restored (all of ``states`` but the
+        ``optional`` ones the checkpoint lacks) and the epoch after the
+        saved one; ``(states, 0)`` when nothing was restored.  The best
+        value so far is re-armed from the stored metrics, so save-best
+        cannot regress after a resume."""
         mgr = self.manager
         latest = mgr.latest_step()
-        if latest is None or not mgr.restore(states, latest):
+        restored = (mgr.restore(states, latest, optional)
+                    if latest is not None else frozenset())
+        if not restored:
             return states, 0
+        states = {name: states[name] for name in states if name in restored}
         start_epoch = int(latest) + 1
         best = mgr.best_step()
         if best is not None:

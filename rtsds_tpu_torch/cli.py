@@ -7,10 +7,16 @@
 The first trains BiSeNet (or DeepLabV2, ``--model deeplab``) on GTA5 (or
 Cityscapes) and validates on Cityscapes every
 ``training.segmentation.do_validation`` epochs, saving the best model
-(``callbacks.model_checkpoint``).  The second runs adversarial
-GTA5 -> Cityscapes domain adaptation (``training.domain_adaptation``:
-``variant`` v1 or v2, ``model.adversarial_model.discriminator.grl`` for
-the gradient-reversal step): ``iterations`` generator/discriminator steps
+(``callbacks.model_checkpoint``); ``training.segmentation`` may add
+``accumulate_steps`` (gradient accumulation), ``ema`` (an exponential
+moving average of the weights, validated on and checkpointed) or
+``distillation`` (a frozen teacher's soft classes).  The second runs
+adversarial GTA5 -> Cityscapes domain adaptation
+(``training.domain_adaptation``: ``variant`` v1 or v2,
+``model.adversarial_model.discriminator.grl`` for the gradient-reversal
+step, and ``ema``, ``entropy_min`` (MinEnt), ``fda`` and
+``self_training``, the mean-teacher pseudo-label step with CBST
+calibration and ClassMix): ``iterations`` generator/discriminator steps
 per epoch on endless source and target streams, the generator
 (``model.adversarial_model.generator.name``: bisenet or deeplab) validated
 on Cityscapes, checkpoints of both networks under ``<save_name>_da``.
@@ -24,12 +30,16 @@ trainIds on the device.
 
 The config's ``device`` key picks the device: ``cpu`` is the CPU, anything
 else the GPU, which raises when there is none.  Features of the JAX CLI
-that are not ported yet exit with a message saying so.
+that are not ported yet (an int8 distillation teacher, a mesh of more than
+one device, ``--multihost``, ``--wandb``, ``--debug``,
+``callbacks.history``) exit with a message saying so.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 from functools import partial
 
 import torch
@@ -85,12 +95,15 @@ def _check_supervised(args, config) -> None:
     if criterion != "CrossEntropy":
         raise SystemExit(f"model.{args.model}.criterion.name {criterion!r}: "
                          f"the supervised step trains with CrossEntropy")
-    tcfg = config.training["segmentation"]
-    if int(tcfg.get("accumulate_steps", 1)) > 1:
-        raise _not_ported("training.segmentation.accumulate_steps > 1")
-    for key in ("ema", "distillation"):
-        if _enabled(tcfg.get(key)):
-            raise _not_ported(f"training.segmentation.{key}")
+    dist_cfg = config.training["segmentation"].get("distillation")
+    if _enabled(dist_cfg):
+        quantize = (dist_cfg.get("teacher") or {}).get("quantize") or None
+        if quantize not in (None, "int8"):
+            raise SystemExit(f"distillation.teacher.quantize {quantize!r} is "
+                             f"not supported (null or int8)")
+        if quantize:
+            raise _not_ported("training.segmentation.distillation.teacher."
+                              "quantize: int8")
 
 
 def _check_domain_adaptation(config) -> None:
@@ -105,9 +118,6 @@ def _check_domain_adaptation(config) -> None:
     if grl and str(tcfg.get("variant", "v1")) != "v1":
         raise SystemExit("discriminator.grl composes with the v1 "
                          "adversarial step only; set variant: v1")
-    for key in ("self_training", "ema", "entropy_min", "fda"):
-        if _enabled(tcfg.get(key)):
-            raise _not_ported(f"training.domain_adaptation.{key}")
     for net, want in (("generator", "CrossEntropy"),
                       ("discriminator", "BCEWithLogits")):
         name = adv[net]["criterion"].get("name")
@@ -273,12 +283,21 @@ def build_callbacks(config, mode_suffix: str = ""):
     return callbacks, checkpoint
 
 
+def _ema_decay_from(tcfg) -> float | None:
+    """``training.*.ema`` -> its decay, or None when it is off."""
+    ema_cfg = tcfg.get("ema")
+    return float(ema_cfg.get("decay", 0.999)) if _enabled(ema_cfg) else None
+
+
 def run_validation_only(states: dict, which: str, checkpoint, val_batches,
                         num_classes: int, class_names, device,
-                        eval_step) -> float:
+                        eval_step, use_ema: bool = False) -> float:
     """Restore the best (else latest) checkpoint into ``states`` and
-    validate ``states[which]`` once with ``eval_step``."""
+    validate ``states[which]`` once with ``eval_step``; with ``use_ema``,
+    on the checkpoint's ``ema`` item where it holds one."""
     from rtsds_tpu_torch.eval.validate import validate
+    from rtsds_tpu_torch.train.ema import setup_ema
+    from rtsds_tpu_torch.train.loop import on_ema
 
     if checkpoint is None:
         raise SystemExit("--validate_only needs a callbacks.model_checkpoint "
@@ -290,17 +309,82 @@ def run_validation_only(states: dict, which: str, checkpoint, val_batches,
     if step is None:
         raise SystemExit(f"--validate_only: no checkpoint found under "
                          f"{checkpoint.save_dir}")
-    if not mgr.restore(states, step=step):
+    model = states[which].model
+    if use_ema:
+        states = {**states, "ema": setup_ema(model)}
+    restored = mgr.restore(states, step=step, optional=("ema",))
+    if not restored:
         raise SystemExit(f"--validate_only: checkpoint at epoch {step} under "
                          f"{checkpoint.save_dir} does not match this run's "
                          f"model")
-    state = states[which]
-    miou, _ = validate(state.model, val_batches(0), num_classes,
+    if "ema" in restored:
+        eval_step = on_ema(eval_step, model, states["ema"])
+    miou, _ = validate(model, val_batches(0), num_classes,
                        class_names=class_names, detailed_report=True,
                        eval_step=eval_step, device=device)
     print(f"validate_only: checkpoint epoch {step} -> "
           f"validation_mIoU = {miou:.6f}")
     return miou
+
+
+def _resume(checkpoint, states: dict, ema_template=None):
+    """``--resume`` into ``states`` (and the EMA template, when the run keeps
+    an EMA): returns ``(start_epoch, resumed EMA dict or None)``.  A
+    checkpoint without an ``ema`` item restores the rest, and the EMA
+    restarts from the restored parameters, as in the JAX package."""
+    if ema_template is None:
+        _, start_epoch = checkpoint.resume(states)
+        return start_epoch, None
+    restored, start_epoch = checkpoint.resume(
+        {**states, "ema": ema_template}, optional=("ema",))
+    if start_epoch and "ema" in restored:
+        return start_epoch, ema_template.params
+    return start_epoch, None
+
+
+def _self_training_threshold(st_cfg, num_classes: int):
+    """``self_training.threshold``: a number, or a comma list of one per
+    class."""
+    from rtsds_tpu_torch.config import parse_float_list
+
+    thr = st_cfg.get("threshold", 0.9)
+    if isinstance(thr, str) and "," in thr:
+        thr = parse_float_list(thr)
+        if len(thr) != num_classes:
+            raise SystemExit(f"self_training.threshold lists one value per "
+                             f"class ({num_classes}), got {len(thr)}")
+        return thr
+    return float(thr)
+
+
+def _calibrated_threshold(cal_cfg, gen_state, teacher_ema, data, device,
+                          num_classes: int):
+    """CBST thresholds of the teacher (the resumed EMA, else the generator
+    as it starts) over the first ``calibration.batches`` target batches, of
+    a pass of its own over the target set, so that the training stream's
+    position is untouched."""
+    from rtsds_tpu_torch.data.pipeline import DataLoader, device_batches
+    from rtsds_tpu_torch.train.ema import ema_weights
+    from rtsds_tpu_torch.train.self_training import (
+        calibrate_class_thresholds)
+
+    portion = float(cal_cfg.get("portion", 0.5))
+    stream = data["cs_train"]
+    loader = DataLoader(stream.dataset, stream.batch_size,
+                        shuffle=stream.shuffle,
+                        num_workers=stream.num_workers, seed=stream.seed)
+    batches = device_batches(loader, data["cs_transform"], device)
+    model = gen_state.model
+    with contextlib.closing(batches), (
+            ema_weights(model, teacher_ema) if teacher_ema is not None
+            else contextlib.nullcontext()):
+        thr = calibrate_class_thresholds(
+            model, itertools.islice(batches, int(cal_cfg.get("batches", 8))),
+            num_classes, portion=portion,
+            compute_dtype=gen_state.compute_dtype)
+    print(f"self-training calibration (portion={portion}): thresholds "
+          f"{[round(float(t), 3) for t in thr]}")
+    return thr
 
 
 def run_domain_adaptation(args, config, data, callbacks, checkpoint,
@@ -309,12 +393,36 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     with ``--validate_only``."""
     from rtsds_tpu_torch.data.pipeline import device_batches
     from rtsds_tpu_torch.train.adversarial import make_adversarial_step
+    from rtsds_tpu_torch.train.ema import setup_ema
     from rtsds_tpu_torch.train.factory import build_adversarial
     from rtsds_tpu_torch.train.loop import adversarial_fit
+    from rtsds_tpu_torch.train.self_training import make_self_training_step
 
     tcfg = config.training["domain_adaptation"]
     num_classes = int(tcfg["num_classes"])
     iterations = int(tcfg["iterations"])
+    variant = str(tcfg.get("variant", "v1"))
+    ema_decay = _ema_decay_from(tcfg)
+    st_cfg = tcfg.get("self_training")
+    self_training = _enabled(st_cfg)
+    if self_training:
+        # the mean-teacher pseudo-label step is built after the resume, so
+        # that calibration sees the restored teacher
+        if variant != "v1":
+            raise SystemExit("self_training composes with the v1 "
+                             "adversarial step only; set variant: v1")
+        if ema_decay is None:
+            raise SystemExit("self_training needs the mean-teacher: enable "
+                             "training.domain_adaptation.ema (enabled: true)")
+        cal_cfg = st_cfg.get("calibration")
+        threshold = (None if _enabled(cal_cfg)
+                     else _self_training_threshold(st_cfg, num_classes))
+    ent_cfg = tcfg.get("entropy_min")
+    lambda_ent = float(ent_cfg.get("lambda", 0.005)) if _enabled(ent_cfg) \
+        else 0.0
+    fda_cfg = tcfg.get("fda")
+    fda_beta = float(fda_cfg.get("beta", 0.01)) if _enabled(fda_cfg) else 0.0
+
     gen_state, dis_state = build_adversarial(config, device, seed=args.seed)
     states = {"generator": gen_state, "discriminator": dis_state}
     eval_step = build_eval_step(config, gen_state, data["cs_size"],
@@ -326,23 +434,41 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     if args.validate_only:
         return run_validation_only(states, "generator", checkpoint,
                                    val_batches, num_classes, class_names,
-                                   device, eval_step)
+                                   device, eval_step,
+                                   use_ema=ema_decay is not None)
 
     adv = config.model["adversarial_model"]
     grl_cfg = adv["discriminator"].get("grl")
     # the generator's own model section, bisenet or deeplab
-    gen_cfg = config.model[adv["generator"]["name"]]
-    da_step = make_adversarial_step(
-        lambda_=float(tcfg["lambda"]), iterations=iterations,
-        epochs=int(tcfg["epochs"]),
-        ignore_index=gen_cfg["criterion"].get("ignore_index"),
-        variant=str(tcfg.get("variant", "v1")),
-        grl_alpha=(float(grl_cfg.get("alpha", 0.1)) if _enabled(grl_cfg)
-                   else 0.0))
+    ignore_index = config.model[adv["generator"]["name"]]["criterion"].get(
+        "ignore_index")
 
-    start_epoch = 0
+    start_epoch, resumed_ema = 0, None
     if args.resume and checkpoint is not None:
-        _, start_epoch = checkpoint.resume(states)
+        start_epoch, resumed_ema = _resume(
+            checkpoint, states,
+            setup_ema(gen_state.model) if ema_decay is not None else None)
+
+    if self_training:
+        if threshold is None:
+            threshold = _calibrated_threshold(
+                cal_cfg, gen_state, resumed_ema, data, device, num_classes)
+        da_step = make_self_training_step(
+            lambda_=float(tcfg["lambda"]), iterations=iterations,
+            ignore_index=19 if ignore_index is None else ignore_index,
+            threshold=threshold,
+            lambda_pl=float(st_cfg.get("lambda_pl", 1.0)),
+            ema_decay=ema_decay, lambda_ent=lambda_ent, fda_beta=fda_beta,
+            classmix=_enabled(st_cfg.get("classmix")),
+            classmix_seed=int(args.seed))
+    else:
+        da_step = make_adversarial_step(
+            lambda_=float(tcfg["lambda"]), iterations=iterations,
+            epochs=int(tcfg["epochs"]), ignore_index=ignore_index,
+            variant=variant, lambda_ent=lambda_ent, fda_beta=fda_beta,
+            grl_alpha=(float(grl_cfg.get("alpha", 0.1)) if _enabled(grl_cfg)
+                       else 0.0))
+
     # fast-forward both streams past the batches the finished epochs drew,
     # so the resumed run draws the shuffles and augmentation the
     # uninterrupted run would have
@@ -363,7 +489,9 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
             num_classes=num_classes, class_names=class_names,
             callbacks=callbacks, do_validation=int(tcfg["do_validation"]),
             checkpoint=checkpoint, when_print=int(tcfg.get("when_print", -1)),
-            start_epoch=start_epoch, device=device, eval_step=eval_step)
+            start_epoch=start_epoch, device=device, eval_step=eval_step,
+            ema_decay=ema_decay, ema_params=resumed_ema,
+            ema_in_step=self_training)
     finally:
         # stops the loaders' prefetch threads
         source_iter.close()
@@ -371,13 +499,60 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     return history
 
 
+def supervised_train_step(args, config, tcfg, train_loader, device):
+    """The supervised step of ``training.segmentation``: distillation from a
+    frozen teacher, gradient accumulation over ``accumulate_steps``
+    micro-batches, or the plain step."""
+    from rtsds_tpu_torch.models.pretrained import load_segmentor_state
+    from rtsds_tpu_torch.train.accumulate import (
+        make_accumulating_train_step, split_microbatches)
+    from rtsds_tpu_torch.train.distill import load_teacher, make_distill_step
+    from rtsds_tpu_torch.train.factory import make_segmentor
+    from rtsds_tpu_torch.train.supervised import make_train_step
+
+    ignore_index = config.model[args.model]["criterion"].get("ignore_index")
+    accumulate_steps = int(tcfg.get("accumulate_steps", 1))
+    dist_cfg = tcfg.get("distillation")
+    if _enabled(dist_cfg):
+        if accumulate_steps > 1:
+            raise SystemExit("distillation does not compose with "
+                             "accumulate_steps > 1; pick one")
+        t_cfg = dist_cfg.get("teacher") or {}
+        t_dir = t_cfg.get("checkpoint_dir", "") or ""
+        if not t_dir:
+            raise SystemExit("distillation needs training.segmentation."
+                             "distillation.teacher.checkpoint_dir (a "
+                             "trained ModelCheckpoint directory)")
+        teacher, _ = make_segmentor(config, str(t_cfg.get("model", "deeplab")),
+                                    seed=args.seed)
+        load_segmentor_state(teacher, load_teacher(
+            t_dir, use_ema=bool(t_cfg.get("use_ema", True))))
+        return make_distill_step(
+            teacher.to(device), ignore_index=ignore_index,
+            temperature=float(dist_cfg.get("temperature", 2.0)),
+            alpha=float(dist_cfg.get("alpha", 0.5)))
+    if accumulate_steps > 1:
+        if train_loader.batch_size % accumulate_steps:
+            raise SystemExit(
+                f"batch_size {train_loader.batch_size} does not divide into "
+                f"accumulate_steps={accumulate_steps} micro-batches")
+        acc_step = make_accumulating_train_step(ignore_index=ignore_index)
+
+        def train_step(state, images, labels):
+            return acc_step(state,
+                            split_microbatches(images, accumulate_steps),
+                            split_microbatches(labels, accumulate_steps))
+        return train_step
+    return make_train_step(ignore_index=ignore_index)
+
+
 def main(argv=None):
     """Returns the training history (a list of per-validation dicts), or
     the mIoU with ``--validate_only``."""
     from rtsds_tpu_torch.data.pipeline import device_batches
+    from rtsds_tpu_torch.train.ema import setup_ema
     from rtsds_tpu_torch.train.factory import build_supervised
     from rtsds_tpu_torch.train.loop import supervised_fit
-    from rtsds_tpu_torch.train.supervised import make_train_step
 
     args = argument_parser(argv)
     config = load_config(args.config)
@@ -408,8 +583,9 @@ def main(argv=None):
     num_classes = int(tcfg["num_classes"])
     state = build_supervised(config, args.model, len(train_loader), device,
                              seed=args.seed)
-    ignore_index = config.model[args.model]["criterion"].get("ignore_index")
-    train_step = make_train_step(ignore_index=ignore_index)
+    ema_decay = _ema_decay_from(tcfg)
+    train_step = supervised_train_step(args, config, tcfg, train_loader,
+                                       device)
     eval_step = build_eval_step(config, state, data["cs_size"], num_classes)
 
     def train_batches(epoch):
@@ -423,11 +599,14 @@ def main(argv=None):
     if args.validate_only:
         return run_validation_only({"model": state}, "model", checkpoint,
                                    val_batches, num_classes, class_names,
-                                   device, eval_step)
+                                   device, eval_step,
+                                   use_ema=ema_decay is not None)
 
-    start_epoch = 0
+    start_epoch, resumed_ema = 0, None
     if args.resume and checkpoint is not None:
-        _, start_epoch = checkpoint.resume({"model": state})
+        start_epoch, resumed_ema = _resume(
+            checkpoint, {"model": state},
+            setup_ema(state.model) if ema_decay is not None else None)
         # the resumed epochs see the shuffles the uninterrupted run drew
         train_loader.set_epoch(start_epoch)
 
@@ -436,7 +615,8 @@ def main(argv=None):
         epochs=int(tcfg["epochs"]), num_classes=num_classes,
         class_names=class_names, callbacks=callbacks,
         do_validation=int(tcfg["do_validation"]), checkpoint=checkpoint,
-        start_epoch=start_epoch, device=device, eval_step=eval_step)
+        start_epoch=start_epoch, device=device, eval_step=eval_step,
+        ema_decay=ema_decay, ema_params=resumed_ema)
     return history
 
 

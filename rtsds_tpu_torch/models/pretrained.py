@@ -7,7 +7,10 @@ its conv kernels are HWIO where torch's are OIHW, and its BN leaves are
 ``scale``/``bias`` in params and ``mean``/``var`` in batch_stats.
 
 :func:`load_deeplab_pretrained` ingests an external DeepLab checkpoint (a
-torch state dict) the way the reference does.
+torch state dict) the way the reference does.  :func:`ema_from_flax` maps a
+Flax ``params`` tree (an EMA) to the port's EMA dict, and
+:func:`state_dict_from_reference` reads back what the JAX package's
+``export_torch`` writes.
 """
 
 from __future__ import annotations
@@ -75,15 +78,23 @@ def state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
-    """Load a Flax variable tree into ``module`` with ``strict=True``.
+def ema_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """A Flax ``params`` tree (the JAX package's ``ema`` item holds one
+    under ``"params"``) -> the port's EMA dict (``train/ema.py``): the
+    parameters' torch names, no buffers."""
+    return state_dict_from_flax({"params": params})
 
-    Every tensor of the module must come from the tree, except BN
+
+def load_segmentor_state(module: nn.Module,
+                         state: Mapping[str, torch.Tensor]) -> nn.Module:
+    """Load a torch state dict into ``module`` with ``strict=True``.
+
+    Every tensor of the module must come from ``state``, except BN
     ``num_batches_tracked`` counters and the :data:`TRAIN_ONLY_SCOPES`
-    heads, which a tree initialised for eval lacks: those keep the module's
-    own values.  Any other missing or unexpected key raises.
+    heads, which weights kept for evaluation may lack: those keep the
+    module's own values.  Any other missing or unexpected key raises.
     """
-    state = state_dict_from_flax(variables)
+    state = dict(state)
     own = module.state_dict()
     missing = [k for k in own if k not in state
                and not k.endswith("num_batches_tracked")]
@@ -93,13 +104,52 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
             state[k] = own[k]
         missing = []
     if missing:
-        raise KeyError(f"Flax tree lacks {len(missing)} tensors of the "
+        raise KeyError(f"the weights lack {len(missing)} tensors of the "
                        f"module: {missing[:8]}")
     for k, v in own.items():
-        if k.endswith("num_batches_tracked"):
+        if k.endswith("num_batches_tracked") and k not in state:
             state[k] = v
     module.load_state_dict(state, strict=True)
     return module
+
+
+def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
+    """Load a Flax variable tree into ``module`` with ``strict=True``, as
+    :func:`load_segmentor_state` loads a state dict: train-only heads and
+    BN counters, which the tree lacks, keep the module's own values."""
+    return load_segmentor_state(module, state_dict_from_flax(variables))
+
+
+# the reference BiSeNet's module names -> the port's (the JAX package's
+# export_torch writes the reference's, including its 'saptial_path')
+REFERENCE_BISENET_NAMES = {
+    "saptial_path": "spatial_path",
+    "attention_refinement_module1": "arm1",
+    "attention_refinement_module2": "arm2",
+    "feature_fusion_module": "ffm",
+}
+
+
+def state_dict_from_reference(state: Mapping) -> dict[str, torch.Tensor]:
+    """A state dict that ``python -m rtsds_tpu.export_torch`` wrote ->
+    the port's names.  A dotted prefix shared by every key (``--prefix``)
+    is stripped, the reference BiSeNet's module names are mapped to the
+    port's, and its ``context_path.features.*`` aliases of the context
+    path's tensors are dropped.  The DeepLab and raw layouts already use
+    the port's names."""
+    state = {k: torch.as_tensor(v) for k, v in state.items()}
+    while state:
+        heads = {k.split(".", 1)[0] for k in state}
+        if len(heads) != 1 or any("." not in k for k in state):
+            break
+        state = {k.split(".", 1)[1]: v for k, v in state.items()}
+    out = {}
+    for k, v in state.items():
+        if k.startswith("context_path.features."):
+            continue
+        head, _, rest = k.partition(".")
+        out[".".join([REFERENCE_BISENET_NAMES.get(head, head), rest])] = v
+    return out
 
 
 def load_deeplab_pretrained(module: nn.Module, source) -> dict:

@@ -93,7 +93,7 @@ def load() -> ctypes.CDLL:
             lib.rtsds_hist_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.rtsds_hist_launch.restype = ctypes.c_int
             lib.rtsds_remap_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,

@@ -12,40 +12,59 @@
 // A pixel counts only if 0 <= label < n and 0 <= pred < n, the TPU kernel's
 // rule (there an out-of-range id gets a zero one-hot row or column).
 //
-// Bound: bytes. Each pixel reads one int32 label and one int32 prediction,
-// 8 B/pixel: 134 MB for an eval batch of 8 x 1024 x 2048 pixels, about
-// 0.040 ms at the H100's 3.35 TB/s. What limits this simple form is
-// contention on the shared-memory atomics: labels come in spatially coherent
-// regions, so most of a warp's 32 pixels hit one bin and serialise.
+// The kernel reads the ids in the dtype its caller holds them in (int32,
+// int64 or uint8, chosen per argument), so the wrapper makes no copy: the
+// eval step passes int32 labels and the int64 argmax of its logits.
+//
+// Bound: bytes. Each pixel reads one label and one prediction in their own
+// dtypes: with int32 labels and int64 predictions that is 12 B/pixel, 201 MB
+// for an eval batch of 8 x 1024 x 2048 pixels, about 0.060 ms at the H100's
+// 3.35 TB/s. What limits this simple form is contention on the shared-memory
+// atomics: labels come in spatially coherent regions, so most of a warp's 32
+// pixels hit one bin and serialise.
 //
 // Plain C interface, loaded with ctypes (rtsds_tpu_torch/ops/cuda/_build.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kMaxClasses = 128;  // 64 KB of shared memory at the most
 
+// 0 <= id < n, compared in the id's own width: a negative int64 id, or one
+// of 2^32 and above, is dropped and never wraps into range
+template <typename T>
+__device__ __forceinline__ bool in_range(T id, int n) {
+  if constexpr (std::is_unsigned<T>::value) {
+    return id < static_cast<T>(n);
+  } else {
+    return id >= T(0) && id < static_cast<T>(n);
+  }
+}
+
+template <typename L, typename P>
 __global__ void __launch_bounds__(kThreads)
-hist_kernel(const int32_t* __restrict__ labels,
-            const int32_t* __restrict__ preds, int32_t* __restrict__ out,
-            int64_t n_pixels, int num_classes) {
+hist_kernel(const L* __restrict__ labels, const P* __restrict__ preds,
+            int32_t* __restrict__ out, int64_t n_pixels, int num_classes) {
   extern __shared__ int32_t bins[];
   const int n_bins = num_classes * num_classes;
   for (int i = threadIdx.x; i < n_bins; i += blockDim.x) bins[i] = 0;
   __syncthreads();
 
-  // one unsigned compare per id also rejects negative ids
-  const uint32_t n = static_cast<uint32_t>(num_classes);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n_pixels; i += stride) {
-    const uint32_t l = static_cast<uint32_t>(__ldg(labels + i));
-    const uint32_t p = static_cast<uint32_t>(__ldg(preds + i));
-    if (l < n && p < n) atomicAdd(&bins[l * n + p], 1);
+    const L l = labels[i];
+    const P p = preds[i];
+    if (in_range(l, num_classes) && in_range(p, num_classes)) {
+      atomicAdd(&bins[static_cast<int>(l) * num_classes +
+                      static_cast<int>(p)], 1);
+    }
   }
   __syncthreads();
 
@@ -55,35 +74,83 @@ hist_kernel(const int32_t* __restrict__ labels,
   }
 }
 
+template <typename L, typename P>
+cudaError_t launch(const void* labels, const void* preds, void* out,
+                   long long n_pixels, int num_classes, int max_blocks,
+                   cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(int32_t)) * num_classes *
+                   num_classes;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hist_kernel<L, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+  }
+  long long blocks = (n_pixels + kThreads - 1) / kThreads;
+  if (blocks > max_blocks) blocks = max_blocks;
+  hist_kernel<L, P><<<static_cast<unsigned>(blocks), kThreads, smem,
+                      stream>>>(
+      static_cast<const L*>(labels), static_cast<const P*>(preds),
+      static_cast<int32_t*>(out), static_cast<int64_t>(n_pixels),
+      num_classes);
+  return cudaGetLastError();
+}
+
+// the ids' dtype codes of the C interface
+enum IdType { kInt32 = 0, kInt64 = 1, kUint8 = 2 };
+
+template <typename L>
+cudaError_t launch_for_preds(int pred_type, const void* labels,
+                             const void* preds, void* out, long long n_pixels,
+                             int num_classes, int max_blocks,
+                             cudaStream_t stream) {
+  switch (pred_type) {
+    case kInt32:
+      return launch<L, int32_t>(labels, preds, out, n_pixels, num_classes,
+                                max_blocks, stream);
+    case kInt64:
+      return launch<L, int64_t>(labels, preds, out, n_pixels, num_classes,
+                                max_blocks, stream);
+    case kUint8:
+      return launch<L, uint8_t>(labels, preds, out, n_pixels, num_classes,
+                                max_blocks, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Adds the histogram of (labels, preds) to `out`, which the caller zeroes.
-// Returns a cudaError_t: 0 when the launch was accepted.
+// `label_type` and `pred_type` are IdType codes. Returns a cudaError_t: 0
+// when the launch was accepted.
 int rtsds_hist_launch(const void* labels, const void* preds, void* out,
                       long long n_pixels, int num_classes, int max_blocks,
-                      void* stream) {
+                      int label_type, int pred_type, void* stream) {
   if (num_classes < 1 || num_classes > kMaxClasses || max_blocks < 1 ||
       n_pixels < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_pixels == 0) return static_cast<int>(cudaSuccess);
-  const int smem = static_cast<int>(sizeof(int32_t)) * num_classes *
-                   num_classes;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (label_type) {
+    case kInt32:
+      return static_cast<int>(launch_for_preds<int32_t>(
+          pred_type, labels, preds, out, n_pixels, num_classes, max_blocks,
+          s));
+    case kInt64:
+      return static_cast<int>(launch_for_preds<int64_t>(
+          pred_type, labels, preds, out, n_pixels, num_classes, max_blocks,
+          s));
+    case kUint8:
+      return static_cast<int>(launch_for_preds<uint8_t>(
+          pred_type, labels, preds, out, n_pixels, num_classes, max_blocks,
+          s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  long long blocks = (n_pixels + kThreads - 1) / kThreads;
-  if (blocks > max_blocks) blocks = max_blocks;
-  hist_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(labels), static_cast<const int32_t*>(preds),
-      static_cast<int32_t*>(out), static_cast<int64_t>(n_pixels),
-      num_classes);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* rtsds_cuda_error_string(int code) {

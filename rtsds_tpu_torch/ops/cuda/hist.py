@@ -15,12 +15,18 @@ from rtsds_tpu_torch.utils.metrics import fast_hist
 
 MAX_CLASSES = 128  # the kernel's n x n int32 bins fit in 64 KB of smem
 BLOCKS_PER_SM = 4  # 4 x 512 threads fill an SM
+# the id dtypes the kernel reads as they are, by their code in csrc/hist.cu;
+# any other integer dtype is cast to int32 first
+ID_TYPES = {torch.int32: 0, torch.int64: 1, torch.uint8: 2}
 
 
 def fast_hist_cuda(labels: torch.Tensor, preds: torch.Tensor,
                    num_classes: int) -> torch.Tensor:
     """(n, n) int32 confusion matrix of integer ``labels`` and ``preds`` of
-    any one shape.  A pixel counts only when both ids lie in [0, n)."""
+    any one shape.  A pixel counts only when both ids lie in [0, n).
+
+    int32, int64 and uint8 ids go to the kernel as they are (a contiguous
+    tensor is not copied); other integer dtypes are cast to int32."""
     if not 0 < num_classes <= MAX_CLASSES:
         raise ValueError(f"num_classes must be in [1, {MAX_CLASSES}], got "
                          f"{num_classes}")
@@ -37,8 +43,9 @@ def fast_hist_cuda(labels: torch.Tensor, preds: torch.Tensor,
                          f"{preds.device}: both must be on one CUDA device")
 
     device = labels.device
-    labels = labels.reshape(-1).to(torch.int32).contiguous()
-    preds = preds.reshape(-1).to(torch.int32).contiguous()
+    labels, preds = (
+        (t if t.dtype in ID_TYPES else t.to(torch.int32)).reshape(-1)
+        .contiguous() for t in (labels, preds))
     out = torch.zeros((num_classes, num_classes), dtype=torch.int32,
                       device=device)
     n_pixels = labels.numel()
@@ -52,7 +59,8 @@ def fast_hist_cuda(labels: torch.Tensor, preds: torch.Tensor,
     with torch.cuda.device(device):  # the launch goes to the current device
         code = lib.rtsds_hist_launch(
             labels.data_ptr(), preds.data_ptr(), out.data_ptr(), n_pixels,
-            num_classes, sms * BLOCKS_PER_SM,
+            num_classes, sms * BLOCKS_PER_SM, ID_TYPES[labels.dtype],
+            ID_TYPES[preds.dtype],
             torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, code, "confusion-matrix kernel launch")
     fast_hist_cuda.launches += 1

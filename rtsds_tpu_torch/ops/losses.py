@@ -1,5 +1,6 @@
-"""Segmentation losses on NCHW logits and (N, H, W) integer labels, and the
-discriminator's binary cross entropy.
+"""Segmentation losses on NCHW logits and (N, H, W) integer labels, the
+discriminator's binary cross entropy, and the entropy of the per-pixel
+class distributions (MinEnt).
 
 ``cross_entropy`` is the mean over non-ignored pixels of the per-pixel
 negative log-likelihood.  A batch whose pixels are all ignored gives 0,
@@ -7,6 +8,8 @@ not NaN: the count in the denominator is at least 1.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +43,15 @@ def bce_with_logits(logits: torch.Tensor, targets) -> torch.Tensor:
     x = at_least_f32(logits)
     y = torch.as_tensor(targets, dtype=x.dtype, device=x.device)
     return (x.clamp(min=0) - x * y + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def entropy_loss(logits: torch.Tensor) -> torch.Tensor:
+    """Mean Shannon entropy of the per-pixel class distributions of (N, C,
+    H, W) logits, divided by ``log C`` so that it lies in [0, 1] (MinEnt,
+    Vu et al., CVPR'19), in at least float32."""
+    logp = F.log_softmax(at_least_f32(logits), dim=1)
+    ent = -(logp.exp() * logp).sum(dim=1)
+    return ent.mean() / math.log(logits.shape[1])
 
 
 def make_criterion(cfg):

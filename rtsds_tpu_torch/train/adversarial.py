@@ -23,6 +23,13 @@ Three steps, picked by :func:`make_adversarial_step`:
     real = target convention, and D trained on the *updated* generator's
     outputs, recomputed in train mode without gradients (BN advances twice
     more) and pooled to the target's size.
+
+Two options compose with all three: ``lambda_ent > 0`` adds MinEnt, the
+``lambda_ent``-weighted entropy of the generator's main target logits, to
+G's losses (divided by ``iterations`` under v1 and the reversal step, as
+their other losses are; unscaled under v2), reported as ``loss_entropy``;
+``fda_beta > 0`` restyles each source batch with the target batch's
+low-frequency amplitude (``ops/fda.py``) before the step sees it.
 """
 
 from __future__ import annotations
@@ -35,9 +42,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from rtsds_tpu_torch.models.discriminator import gradient_reversal
-from rtsds_tpu_torch.ops.losses import bce_with_logits, segmentation_loss
+from rtsds_tpu_torch.ops.fda import fda_source_to_target
+from rtsds_tpu_torch.ops.losses import (
+    bce_with_logits, entropy_loss, segmentation_loss)
 from rtsds_tpu_torch.ops.pool import adaptive_avg_pool2d
-from rtsds_tpu_torch.train.factory import not_ported
 from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.train.supervised import check_batch
 from rtsds_tpu_torch.utils.schedules import lambda_adv_schedule
@@ -57,24 +65,38 @@ def make_adversarial_step(lambda_: float, iterations: int, epochs: int,
     ``correct`` (main-head source pixels equal to the label) as device
     tensors, which the caller reads when it needs them, and ``total``
     (every source pixel, ignored ones too) as an int; v2 adds
-    ``loss_gen_total``, ``loss_disc_total`` and ``lambda_adv`` (a float).
-    A BiSeNet generator needs at least 2 frames in each batch.  ``epochs``
-    is part of the signature only: no step depends on it.
+    ``loss_gen_total``, ``loss_disc_total`` and ``lambda_adv`` (a float),
+    and ``lambda_ent > 0`` adds ``loss_entropy``.  A BiSeNet generator
+    needs at least 2 frames in each batch.  ``epochs`` is part of the
+    signature only: no step depends on it.
     """
-    if lambda_ent:
-        raise not_ported("MinEnt target-entropy minimization (lambda_ent)")
-    if fda_beta:
-        raise not_ported("FDA source restyling (fda_beta)")
     if grl_alpha and variant != "v1":
         raise ValueError("grl composes with the v1 step only; "
                          f"got variant={variant!r}")
     if grl_alpha:
-        return _make_grl_step(lambda_, iterations, ignore_index, grl_alpha)
-    if variant == "v1":
-        return _make_v1_step(lambda_, iterations, ignore_index)
-    if variant == "v2":
-        return _make_v2_step(lambda_, iterations, ignore_index)
-    raise ValueError(f"unknown adversarial variant {variant!r}")
+        step = _make_grl_step(lambda_, iterations, ignore_index, grl_alpha,
+                              lambda_ent)
+    elif variant == "v1":
+        step = _make_v1_step(lambda_, iterations, ignore_index, lambda_ent)
+    elif variant == "v2":
+        step = _make_v2_step(lambda_, iterations, ignore_index, lambda_ent)
+    else:
+        raise ValueError(f"unknown adversarial variant {variant!r}")
+    return _with_fda(step, fda_beta)
+
+
+def _with_fda(step: Callable, fda_beta: float) -> Callable:
+    """``step`` with each source batch FDA-restyled by the target batch
+    first; ``step`` itself when ``fda_beta`` is 0."""
+    if not fda_beta:
+        return step
+
+    def fda_step(gen, dis, src_images, src_labels, tgt_images) -> dict:
+        return step(gen, dis,
+                    fda_source_to_target(src_images, tgt_images, fda_beta),
+                    src_labels, tgt_images)
+
+    return fda_step
 
 
 def _check_batches(gen: TrainState, src_images: torch.Tensor,
@@ -113,11 +135,15 @@ def _accuracy(src_main: torch.Tensor, src_labels: torch.Tensor) -> dict:
 def v1_generator_update(gen: TrainState, dis: TrainState,
                         src_images: torch.Tensor, src_labels: torch.Tensor,
                         tgt_images: torch.Tensor, lambda_: float,
-                        iterations: int, ignore_index: int | None = 19):
+                        iterations: int, ignore_index: int | None = 19,
+                        lambda_ent: float = 0.0):
     """v1's G phase: the source CE, then the adversarial BCE through the
     frozen D, each backward in turn (the source graph is freed before the
-    target forward), and G's optimizer step.  Returns the detached main
-    logits of source and target and the two losses."""
+    target forward), and G's optimizer step.  ``lambda_ent`` adds MinEnt
+    on the main target logits to the target backward, divided by
+    ``iterations``.  Returns the detached main logits of source and target
+    and the losses: ``(src_main, tgt_main, seg_loss, adv_loss, ent_loss or
+    None)``."""
     inv_iters = 1.0 / float(iterations)
     gen.model.train()
     dis.model.train()
@@ -129,15 +155,25 @@ def v1_generator_update(gen: TrainState, dis: TrainState,
     seg_loss.backward()
     src_main = src_out[0].detach()
     del src_out
+    ent_loss = None
     with _frozen(dis.model):
         with gen.autocast():
             tgt_main = _forward(gen.model, tgt_images)[0]
         with dis.autocast():
             d_tgt = dis.model(F.softmax(tgt_main, dim=1))
             adv_loss = lambda_ * bce_with_logits(d_tgt, 1.0) * inv_iters
-        adv_loss.backward()
+        total = adv_loss
+        if lambda_ent:
+            ent_loss = lambda_ent * entropy_loss(tgt_main) * inv_iters
+            total = total + ent_loss
+        total.backward()
     gen.optimizer.step()
-    return src_main, tgt_main.detach(), seg_loss.detach(), adv_loss.detach()
+    return (src_main, tgt_main.detach(), seg_loss.detach(), adv_loss.detach(),
+            _detached(ent_loss))
+
+
+def _detached(loss):
+    return None if loss is None else loss.detach()
 
 
 def v1_discriminator_update(dis: TrainState, src_main: torch.Tensor,
@@ -158,23 +194,32 @@ def v1_discriminator_update(dis: TrainState, src_main: torch.Tensor,
     return loss_src.detach(), loss_tgt.detach()
 
 
-def _make_v1_step(lambda_: float, iterations: int, ignore_index):
+def _with_entropy(metrics: dict, ent_loss) -> dict:
+    if ent_loss is not None:
+        metrics["loss_entropy"] = ent_loss
+    return metrics
+
+
+def _make_v1_step(lambda_: float, iterations: int, ignore_index,
+                  lambda_ent: float = 0.0):
     def step(gen, dis, src_images, src_labels, tgt_images) -> dict:
         _check_batches(gen, src_images, tgt_images)
-        src_main, tgt_main, seg_loss, adv_loss = v1_generator_update(
-            gen, dis, src_images, src_labels, tgt_images, lambda_,
-            iterations, ignore_index)
+        src_main, tgt_main, seg_loss, adv_loss, ent_loss = \
+            v1_generator_update(gen, dis, src_images, src_labels,
+                                tgt_images, lambda_, iterations,
+                                ignore_index, lambda_ent)
         loss_src, loss_tgt = v1_discriminator_update(dis, src_main, tgt_main,
                                                      iterations)
-        return {"loss_gen_source": seg_loss, "loss_adversarial": adv_loss,
-                "loss_disc_source": loss_src, "loss_disc_target": loss_tgt,
-                **_accuracy(src_main, src_labels)}
+        return _with_entropy(
+            {"loss_gen_source": seg_loss, "loss_adversarial": adv_loss,
+             "loss_disc_source": loss_src, "loss_disc_target": loss_tgt,
+             **_accuracy(src_main, src_labels)}, ent_loss)
 
     return step
 
 
 def _make_grl_step(lambda_: float, iterations: int, ignore_index,
-                   grl_alpha: float):
+                   grl_alpha: float, lambda_ent: float = 0.0):
     inv_iters = 1.0 / float(iterations)
     rev_scale = float(lambda_) * float(grl_alpha)
 
@@ -193,21 +238,28 @@ def _make_grl_step(lambda_: float, iterations: int, ignore_index,
             # unweighted BCE: D's update is v1's; G's weight is rev_scale
             loss_src = bce_with_logits(dis.model(src_feat), 1.0) * inv_iters
             loss_tgt = bce_with_logits(dis.model(tgt_feat), 0.0) * inv_iters
+        total = seg_loss + loss_src + loss_tgt
+        ent_loss = None
+        if lambda_ent:
+            ent_loss = lambda_ent * entropy_loss(tgt_main) * inv_iters
+            total = total + ent_loss
         gen.optimizer.zero_grad()
         dis.optimizer.zero_grad()
-        (seg_loss + loss_src + loss_tgt).backward()
+        total.backward()
         gen.optimizer.step()
         dis.optimizer.step()
         loss_src, loss_tgt = loss_src.detach(), loss_tgt.detach()
-        return {"loss_gen_source": seg_loss.detach(),
-                "loss_adversarial": rev_scale * (loss_src + loss_tgt),
-                "loss_disc_source": loss_src, "loss_disc_target": loss_tgt,
-                **_accuracy(src_out[0], src_labels)}
+        return _with_entropy(
+            {"loss_gen_source": seg_loss.detach(),
+             "loss_adversarial": rev_scale * (loss_src + loss_tgt),
+             "loss_disc_source": loss_src, "loss_disc_target": loss_tgt,
+             **_accuracy(src_out[0], src_labels)}, _detached(ent_loss))
 
     return step
 
 
-def _make_v2_step(lambda_: float, iterations: int, ignore_index):
+def _make_v2_step(lambda_: float, iterations: int, ignore_index,
+                  lambda_ent: float = 0.0):
     lam_schedule = lambda_adv_schedule(lambda_, iterations)
 
     def step(gen, dis, src_images, src_labels, tgt_images) -> dict:
@@ -225,6 +277,7 @@ def _make_v2_step(lambda_: float, iterations: int, ignore_index):
         seg_loss.backward()
         src_main = src_out[0].detach()
         del src_out
+        ent_loss = None
         with _frozen(dis.model):
             with gen.autocast():
                 tgt_main = _forward(gen.model, tgt_images)[0]
@@ -232,7 +285,12 @@ def _make_v2_step(lambda_: float, iterations: int, ignore_index):
                 d_real = dis.model(F.softmax(
                     adaptive_avg_pool2d(tgt_main, tgt_size), dim=1))
                 loss_adv = bce_with_logits(d_real, 0.0)
-            (lam * loss_adv).backward()
+            total = lam * loss_adv
+            if lambda_ent:
+                ent_loss = lambda_ent * entropy_loss(tgt_main)
+                total = total + ent_loss
+            total.backward()
+        del tgt_main
         gen.optimizer.step()
 
         # D on the updated generator's outputs: real = target, fake = source
@@ -250,11 +308,16 @@ def _make_v2_step(lambda_: float, iterations: int, ignore_index):
         dis.optimizer.step()
 
         seg_loss, loss_adv = seg_loss.detach(), loss_adv.detach()
-        return {"loss_gen_source": seg_loss, "loss_adversarial": loss_adv,
-                "loss_gen_total": seg_loss + lam * loss_adv,
-                "loss_disc_source": d_fake_loss.detach(),
-                "loss_disc_target": d_real_loss.detach(),
-                "loss_disc_total": d_total.detach(), "lambda_adv": lam,
-                **_accuracy(src_main, src_labels)}
+        ent_loss = _detached(ent_loss)
+        g_total = seg_loss + lam * loss_adv
+        if ent_loss is not None:
+            g_total = g_total + ent_loss
+        return _with_entropy(
+            {"loss_gen_source": seg_loss, "loss_adversarial": loss_adv,
+             "loss_gen_total": g_total,
+             "loss_disc_source": d_fake_loss.detach(),
+             "loss_disc_target": d_real_loss.detach(),
+             "loss_disc_total": d_total.detach(), "lambda_adv": lam,
+             **_accuracy(src_main, src_labels)}, ent_loss)
 
     return step

@@ -1,6 +1,9 @@
 """The training loops: supervised (``supervised_fit``) and adversarial
 domain adaptation (``adversarial_fit``), each with validation every
-``do_validation`` epochs, callbacks and checkpoints.
+``do_validation`` epochs, callbacks and checkpoints, and optionally an
+exponential moving average of the trained model's parameters
+(``train/ema.py``) that validation runs on and checkpoints carry as their
+``ema`` item.
 
 The loops read each step's metrics one step late: they queue the next step
 on the device before they fetch the previous step's losses and counts, so
@@ -15,6 +18,7 @@ from typing import Callable, Iterable, Iterator
 
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.eval.validate import make_eval_step, validate
+from rtsds_tpu_torch.train.ema import ema_update, ema_weights, setup_ema
 
 
 def _fan_out(callbacks, method: str, *args, **kwargs):
@@ -68,11 +72,27 @@ def train_epoch(state, train_step: Callable, batches: Iterable, epoch: int,
     return logs
 
 
+def on_ema(eval_step: Callable, model, ema) -> Callable:
+    """``eval_step`` computing with the EMA's weights (``ema`` an
+    :class:`~rtsds_tpu_torch.train.ema.EMA`, or None for ``eval_step``
+    itself).  They are swapped into ``model`` for each batch's step only,
+    so a callback between batches, a checkpoint's save among them, sees
+    the model's own weights."""
+    if ema is None:
+        return eval_step
+
+    def step(*args):
+        with ema_weights(model, ema.params):
+            return eval_step(*args)
+    return step
+
+
 def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
                    make_val_batches: Callable, epochs: int, num_classes: int,
                    class_names=None, callbacks=None, do_validation: int = 1,
                    checkpoint=None, start_epoch: int = 0, device=None,
-                   eval_step=None):
+                   eval_step=None, ema_decay: float | None = None,
+                   ema_params=None):
     """Epochs ``start_epoch .. epochs - 1`` of training and validation.
 
     ``make_train_batches(epoch)`` and ``make_val_batches(epoch)`` return
@@ -81,15 +101,29 @@ def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
     :class:`~rtsds_tpu_torch.callbacks.checkpoint.ModelCheckpoint`) saves
     ``{"model": state}``.  ``eval_step`` validates (a protocol's, from
     ``eval/sliding.py`` or ``eval/ensemble.py``); ``None`` builds the plain
-    one.  Returns ``(state, history)``, one history entry per validation.
+    one.  ``ema_decay`` keeps an EMA of the model's parameters, updated
+    after each step at the optimizer's new count, validates on it (with the
+    model's own BN buffers) and checkpoints it as ``ema``; ``ema_params``
+    (a restored EMA dict) seeds it, else it starts from the parameters.
+    Returns ``(state, history)``, one history entry per validation.
     """
     device = resolve_device(device)
     state.model.to(device)
     callbacks = list(callbacks or [])
+    ema = None
+    if ema_decay is not None:
+        ema = setup_ema(state.model, ema_params)
+        base_step = train_step
+
+        def train_step(st, images, labels):  # noqa: F811 -- EMA wrapper
+            metrics = base_step(st, images, labels)
+            ema_update(ema.params, st.model, ema_decay, st.step)
+            return metrics
     if checkpoint is not None:
         if checkpoint not in callbacks:
             callbacks.append(checkpoint)
-        checkpoint.attach(lambda: {"model": state})
+        checkpoint.attach(lambda: {"model": state} if ema is None
+                          else {"model": state, "ema": ema})
     if eval_step is None:
         eval_step = make_eval_step(
             state.model, num_classes,
@@ -106,8 +140,8 @@ def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
             miou, _ = validate(
                 state.model, make_val_batches(epoch), num_classes,
                 class_names=class_names, epoch=epoch, callbacks=callbacks,
-                detailed_report=class_names is not None, eval_step=eval_step,
-                device=device)
+                detailed_report=class_names is not None,
+                eval_step=on_ema(eval_step, state.model, ema), device=device)
             history.append({"epoch": epoch, **train_logs,
                             "validation_mIoU": miou})
         if any(getattr(cb, "should_stop", False) for cb in callbacks):
@@ -116,10 +150,13 @@ def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
     return state, history
 
 
-# the adversarial steps' losses, in the epoch table's order (v2 adds the
-# two totals)
-DA_LOSS_KEYS = ("loss_gen_source", "loss_adversarial", "loss_disc_source",
-                "loss_disc_target", "loss_gen_total", "loss_disc_total")
+# the adversarial steps' losses, in the epoch table's order: self-training
+# adds the pseudo-label loss and coverages, MinEnt the entropy, v2 the two
+# totals
+DA_LOSS_KEYS = ("loss_gen_source", "loss_adversarial", "loss_pseudo",
+                "pl_coverage", "mix_coverage", "loss_entropy",
+                "loss_disc_source", "loss_disc_target", "loss_gen_total",
+                "loss_disc_total")
 
 
 def tabular_print(row: dict) -> None:
@@ -142,7 +179,8 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
                     num_classes: int, class_names=None, callbacks=None,
                     do_validation: int = 1, checkpoint=None,
                     when_print: int = -1, start_epoch: int = 0, device=None,
-                    eval_step=None):
+                    eval_step=None, ema_decay: float | None = None,
+                    ema_params=None, ema_in_step: bool = False):
     """Epochs ``start_epoch .. epochs - 1`` of domain adaptation.
 
     ``source_iter`` and ``target_iter`` are endless iterators of device
@@ -154,18 +192,28 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
     0`` prints every ``when_print``-th step's losses.  Both models are
     moved to ``device`` (``None`` means the GPU, and raises without one).
     ``eval_step`` validates the generator, as for :func:`supervised_fit`.
-    Returns ``(gen_state, dis_state, history)``, one history entry per
-    validation.
+    ``ema_decay`` keeps an EMA of the generator as :func:`supervised_fit`
+    does, checkpointed as ``ema`` beside both networks; ``ema_params``
+    seeds it.  ``ema_in_step``: the step updates the EMA itself (the
+    self-training step, ``train/self_training.py``) and is called as
+    ``da_step(gen_state, dis_state, ema_dict, src_images, src_labels,
+    tgt_images)``; the loop then only seeds, validates on and checkpoints
+    the EMA, and ``ema_decay`` is not read.  Returns ``(gen_state,
+    dis_state, history)``, one history entry per validation.
     """
     device = resolve_device(device)
     gen_state.model.to(device)
     dis_state.model.to(device)
     callbacks = list(callbacks or [])
+    ema = None
+    if ema_in_step or ema_decay is not None:
+        ema = setup_ema(gen_state.model, ema_params)
     if checkpoint is not None:
         if checkpoint not in callbacks:
             callbacks.append(checkpoint)
         checkpoint.attach(lambda: {"generator": gen_state,
-                                   "discriminator": dis_state})
+                                   "discriminator": dis_state,
+                                   **({} if ema is None else {"ema": ema})})
     if eval_step is None:
         eval_step = make_eval_step(
             gen_state.model, num_classes,
@@ -198,8 +246,15 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
         for i in range(iterations):
             src_images, src_labels = next(source_iter)
             tgt_images, _ = next(target_iter)
-            metrics = da_step(gen_state, dis_state, src_images, src_labels,
-                              tgt_images)
+            if ema_in_step:
+                metrics = da_step(gen_state, dis_state, ema.params,
+                                  src_images, src_labels, tgt_images)
+            else:
+                metrics = da_step(gen_state, dis_state, src_images,
+                                  src_labels, tgt_images)
+                if ema is not None:
+                    ema_update(ema.params, gen_state.model, ema_decay,
+                               gen_state.step)
             if pending is not None:
                 consume(pending)
             pending = (i, metrics)
@@ -220,7 +275,8 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
             miou, _ = validate(
                 gen_state.model, make_val_batches(epoch), num_classes,
                 class_names=class_names, epoch=epoch, callbacks=callbacks,
-                detailed_report=class_names is not None, eval_step=eval_step,
+                detailed_report=class_names is not None,
+                eval_step=on_ema(eval_step, gen_state.model, ema),
                 device=device)
             print("-" * 100)
             history.append({"epoch": epoch, **summary,

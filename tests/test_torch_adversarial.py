@@ -286,8 +286,6 @@ def test_da_step_refuses_a_batch_of_one(which):
 @pytest.mark.parametrize("kwargs,error,match", [
     ({"variant": "v2", "grl_alpha": 0.1}, ValueError, "v1 step only"),
     ({"variant": "v3"}, ValueError, "unknown adversarial variant"),
-    ({"lambda_ent": 0.005}, NotImplementedError, "not ported yet"),
-    ({"fda_beta": 0.01}, NotImplementedError, "not ported yet"),
 ])
 def test_step_refusals(kwargs, error, match):
     with pytest.raises(error, match=match):

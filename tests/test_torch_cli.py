@@ -3,8 +3,12 @@ data, and GTA5-layout PNGs with colour-coded labels remapped on the
 device; best-model checkpoints, ``--resume`` and ``--validate_only``, as
 the JAX package's CLI does them; DeepLabV2 as the trained model and as the
 DA generator, validated under the sliding and ensemble protocols; the
-checkpoint and early-stopping callbacks; and the switches not ported
-yet."""
+training extras (EMA, gradient accumulation, distillation, MinEnt, FDA,
+self-training with CBST calibration and ClassMix) and the JAX CLI's
+refusals of their combinations; the checkpoint and early-stopping
+callbacks; and the switches not ported yet."""
+
+import shutil
 
 import numpy as np
 import pytest
@@ -12,7 +16,14 @@ import torch
 from PIL import Image
 
 from rtsds_tpu_torch import cli
-from rtsds_tpu_torch.callbacks.checkpoint import EarlyStopping, ModelCheckpoint
+from rtsds_tpu_torch.callbacks.checkpoint import (
+    CheckpointManager, EarlyStopping, ModelCheckpoint)
+from rtsds_tpu_torch.config import load_config
+from rtsds_tpu_torch.train import loop
+from rtsds_tpu_torch.train.ema import EMA, ema_init
+from rtsds_tpu_torch.train.factory import make_segmentor
+from rtsds_tpu_torch.train.optim import make_optimizer
+from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.utils.colors import class_colors_for_remap
 
 
@@ -80,6 +91,15 @@ def _write_pngs(tmp_path):
         rgb[:5] = (1, 2, 3)  # void rows
         Image.fromarray(rgb.astype(np.uint8)).save(
             tmp_path / "gta5" / "labels" / f"{i:05d}.png")
+
+
+@pytest.fixture
+def drop_checkpoints(tmp_path):
+    """Delete the run's checkpoints when the test ends: each BiSeNet epoch
+    with its Adam moments takes ~0.2 GB of the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path / "ckpt", ignore_errors=True)
+    shutil.rmtree(tmp_path / "teacher", ignore_errors=True)
 
 
 def _check_history(history, epochs):
@@ -216,10 +236,6 @@ def test_supervised_and_da_checkpoints_keep_apart(tmp_path):
 
 
 @pytest.mark.parametrize("da,extra,match", [
-    (", self_training: {enabled: true}", "", "self_training"),
-    (", ema: {enabled: true}", "", "domain_adaptation.ema"),
-    (", entropy_min: {enabled: true}", "", "entropy_min"),
-    (", fda: {enabled: true}", "", "fda"),
     ("", "mesh: {data: 2}", "mesh"),
 ])
 def test_not_ported_da_switches_exit(tmp_path, da, extra, match):
@@ -227,6 +243,72 @@ def test_not_ported_da_switches_exit(tmp_path, da, extra, match):
         cli.main(["--config", _da_config(tmp_path, da, extra), "--synthetic",
                   "--domain_adaptation"])
     assert "not ported yet" in str(info.value)
+
+
+@pytest.mark.parametrize("da,extra", [
+    (", ema: {enabled: true, decay: 0.9}", ""),
+    (", entropy_min: {enabled: true, lambda: 0.05}", ""),
+    (", fda: {enabled: true, beta: 0.05}", ""),
+    (", variant: v2, entropy_min: {enabled: true}, fda: {enabled: true}", ""),
+    (", entropy_min: {enabled: true}, fda: {enabled: true}",
+     "model: {adversarial_model: {discriminator: {grl: {enabled: true}}}}"),
+    (", ema: {enabled: true}, self_training: {enabled: true, threshold: 0.1}",
+     ""),
+    (", ema: {enabled: true}, self_training: {enabled: true, threshold: "
+     "'0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, "
+     "0.1, 0.1, 0.1, 0.1, 0.1, 0.1', classmix: {enabled: true}}, "
+     "entropy_min: {enabled: true}, fda: {enabled: true}", ""),
+])
+@pytest.mark.usefixtures("drop_checkpoints")
+def test_da_extras_run(tmp_path, da, extra):
+    """Each DA extra through the CLI, one epoch of three steps: the epoch
+    table holds its losses, and a run with EMA checkpoints it."""
+    history = cli.main(["--config", _da_config(tmp_path, da, extra),
+                        "--synthetic", "--domain_adaptation"])
+    h = history[0]
+    assert 0.0 <= h["validation_mIoU"] <= 1.0
+    assert np.isfinite(h["loss_gen_source"])
+    assert ("loss_entropy" in h) == ("entropy_min" in da)
+    assert ("loss_pseudo" in h) == ("self_training" in da)
+    assert ("mix_coverage" in h) == ("classmix" in da)
+    if "self_training" in da:
+        assert 0.0 <= h["pl_coverage"] <= 1.0
+    saved = torch.load(tmp_path / "ckpt" / "m_da" / "epoch_0.pt",
+                       weights_only=True)
+    assert ("ema" in saved) == ("ema" in da)
+
+
+@pytest.mark.usefixtures("drop_checkpoints")
+def test_self_training_calibrates_on_the_resumed_teacher(tmp_path, capsys):
+    """CBST calibration prints the thresholds it derives, and a resumed
+    self-training run picks up the stored EMA and step."""
+    da = (", ema: {enabled: true}, self_training: {enabled: true, "
+          "calibration: {enabled: true, portion: 0.5, batches: 2}}")
+    config = _da_config(tmp_path, da)
+    cli.main(["--config", config, "--synthetic", "--domain_adaptation"])
+    out = capsys.readouterr().out
+    assert "self-training calibration (portion=0.5): thresholds [" in out
+    longer = tmp_path / "longer.yaml"
+    longer.write_text((tmp_path / "config.yaml").read_text().replace(
+        "epochs: 1, iterations: 3", "epochs: 2, iterations: 3"))
+    history = cli.main(["--config", str(longer), "--synthetic",
+                        "--domain_adaptation", "--resume"])
+    assert [h["epoch"] for h in history] == [1]
+    out = capsys.readouterr().out
+    assert "Resuming from epoch 1" in out and "thresholds [" in out
+
+
+@pytest.mark.parametrize("da,extra,match", [
+    (", self_training: {enabled: true}", "", "needs the mean-teacher"),
+    (", variant: v2, ema: {enabled: true}, self_training: {enabled: true}",
+     "", "composes with the v1 adversarial step only"),
+    (", ema: {enabled: true}, self_training: {enabled: true, "
+     "threshold: '0.5, 0.6'}", "", "one value per class"),
+])
+def test_jax_refusals_of_self_training_are_kept(tmp_path, da, extra, match):
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["--config", _da_config(tmp_path, da, extra), "--synthetic",
+                  "--domain_adaptation"])
 
 
 @pytest.mark.parametrize("da,match", [
@@ -242,17 +324,102 @@ def test_grl_refusals_keep_the_jax_messages(tmp_path, da, match):
                   "--domain_adaptation"])
 
 
-@pytest.mark.parametrize("section", [
-    "accumulate_steps: 2", "ema: {enabled: true}",
-    "distillation: {enabled: true}"])
-def test_not_ported_training_options_exit(tmp_path, section):
-    config = _config(tmp_path)
+def _segmentation(tmp_path, section, epochs=1, extra=""):
+    """The CLI config with ``section`` added to training.segmentation."""
+    config = _config(tmp_path, extra)
     text = (tmp_path / "config.yaml").read_text().replace(
         "segmentation: {epochs: 2, do_validation: 1}",
-        f"segmentation: {{epochs: 2, do_validation: 1, {section}}}")
+        f"segmentation: {{epochs: {epochs}, do_validation: 1, {section}}}")
     (tmp_path / "config.yaml").write_text(text)
+    return config
+
+
+@pytest.mark.parametrize("section", [
+    "distillation: {enabled: true, teacher: {checkpoint_dir: t, "
+    "quantize: int8}}"])
+def test_not_ported_training_options_exit(tmp_path, section):
     with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["--config", config, "--synthetic"])
+        cli.main(["--config", _segmentation(tmp_path, section),
+                  "--synthetic"])
+
+
+@pytest.mark.parametrize("section", [
+    "accumulate_steps: 2", "ema: {enabled: true}",
+    "accumulate_steps: 2, ema: {enabled: true, decay: 0.9}"])
+@pytest.mark.usefixtures("drop_checkpoints")
+def test_accumulation_and_ema_runs(tmp_path, section):
+    """GTA5 at batch 4: micro-batches of 2 frames, which BiSeNet needs."""
+    config = _segmentation(tmp_path, section)
+    text = (tmp_path / "config.yaml").read_text().replace(
+        'image_size: "40, 72"\n    batch_size: 2',
+        'image_size: "40, 72"\n    batch_size: 4')
+    (tmp_path / "config.yaml").write_text(text)
+    history = cli.main(["--config", config, "--synthetic", "--dataset",
+                        "gta5"])
+    _check_history(history, [0])
+    saved = torch.load(tmp_path / "ckpt" / "m" / "epoch_0.pt",
+                       weights_only=True)
+    assert ("ema" in saved) == ("ema" in section)
+    # 16 GTA5 frames at batch 4: 4 optimizer steps; with accumulation each
+    # of 2 micro-batches, which batch-normalize one after the other
+    assert saved["model"]["step"] == 4
+    bn = [v for k, v in saved["model"]["model"].items()
+          if k.endswith("num_batches_tracked")]
+    assert {int(v) for v in bn} == {8 if "accumulate" in section else 4}
+
+
+def test_a_micro_batch_of_one_bisenet_frame_is_refused(tmp_path):
+    """GTA5 at batch 2 split in 2: BiSeNet refuses a micro-batch of one
+    frame, and says why."""
+    with pytest.raises(ValueError, match="micro-batches of 1"):
+        cli.main(["--config", _segmentation(tmp_path, "accumulate_steps: 2"),
+                  "--synthetic", "--dataset", "gta5"])
+
+
+@pytest.mark.usefixtures("drop_checkpoints")
+def test_distillation_runs_from_a_teacher_checkpoint(tmp_path, monkeypatch):
+    """A teacher checkpoint of the port (a seeded model saved with an
+    ``ema`` item) distils into BiSeNet; the step's own losses reach the
+    callbacks.  (A DeepLabV2 teacher, the default, is loaded the same way:
+    test_torch_distill.py and chip_smoke.py's distillation phase.)"""
+    teacher = "bisenet"
+    config = _segmentation(
+        tmp_path, f"distillation: {{enabled: true, alpha: 0.5, teacher: "
+                  f"{{model: {teacher}, checkpoint_dir: "
+                  f"'{tmp_path}/teacher'}}}}")
+    model, _ = make_segmentor(load_config(config), teacher, seed=7)
+    CheckpointManager(str(tmp_path / "teacher")).save(
+        0, {"model": TrainState(model, make_optimizer(
+            "SGD", model.parameters(), 0.01)),
+            "ema": EMA(ema_init(model))}, monitor=0.5)
+    seen = []
+    fan_out = loop._fan_out
+
+    def spy(callbacks, method, *args, **kwargs):
+        if method == "on_batch_end":
+            seen.append(args[1])
+        return fan_out(callbacks, method, *args, **kwargs)
+
+    monkeypatch.setattr(loop, "_fan_out", spy)
+    history = cli.main(["--config", config, "--synthetic"])
+    _check_history(history, [0])
+    assert seen and all(np.isfinite(logs["loss_distill"])
+                        and np.isfinite(logs["loss_ce"]) for logs in seen)
+
+
+@pytest.mark.parametrize("section,extra,match", [
+    ("accumulate_steps: 2, distillation: {enabled: true, teacher: "
+     "{checkpoint_dir: t}}", "", "does not compose with accumulate_steps"),
+    ("distillation: {enabled: true}", "", "teacher.checkpoint_dir"),
+    ("distillation: {enabled: true, teacher: {checkpoint_dir: t, "
+     "quantize: int4}}", "", "not supported"),
+    ("accumulate_steps: 3", "", "does not divide into accumulate_steps=3"),
+])
+def test_jax_refusals_of_the_training_extras_are_kept(tmp_path, section,
+                                                      extra, match):
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["--config", _segmentation(tmp_path, section, extra=extra),
+                  "--synthetic"])
 
 
 def test_criterion_other_than_cross_entropy_exits(tmp_path):

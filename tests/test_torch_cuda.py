@@ -67,6 +67,33 @@ def test_hist_kernel_equals_plain(cuda, n, shape, lo, hi, dtype):
     assert torch.equal(got, fast_hist(labels, preds, n))
 
 
+@pytest.mark.parametrize("label_dtype,pred_dtype", chip_smoke.ID_DTYPE_PAIRS)
+def test_hist_kernel_reads_each_id_dtype_as_it_is(cuda, label_dtype,
+                                                  pred_dtype):
+    """Each pair of id dtypes the main paths pass goes to the kernel
+    uncast, and the kernel drops negative ids, ids >= n and int64 ids of
+    2^32 and above as the plain version does."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    labels = chip_smoke.out_of_range_ids(gen, 300_001, label_dtype)
+    preds = chip_smoke.out_of_range_ids(gen, 300_001, pred_dtype)
+    casts = []
+    to = torch.Tensor.to
+
+    def spy(self, *args, **kwargs):
+        casts.append(args)
+        return to(self, *args, **kwargs)
+
+    torch.Tensor.to = spy
+    try:
+        got = fast_hist_cuda(labels, preds, 19)
+    finally:
+        torch.Tensor.to = to
+    torch.cuda.synchronize()
+    assert casts == []
+    want = fast_hist(labels, preds, 19)
+    assert torch.equal(got, want) and int(want.sum()) > 0
+
+
 def test_hist_kernel_on_no_pixels_launches_nothing(cuda):
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     before = fast_hist_cuda.launches
@@ -295,6 +322,31 @@ def test_da_step_on_the_card_matches_the_cpu(cuda, variant, grl_alpha):
     rtol 1e-4 / atol 1e-5, each update of G and D within 1e-3 of its
     tensor's largest update + 1e-6 (the check raises otherwise)."""
     result = chip_smoke.da_step_card_vs_cpu(variant, grl_alpha)
+    assert result["tensors_over_limit"] == 0
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"variant": "v1", "lambda_ent": 0.005, "fda_beta": 0.05},
+    {"variant": "v2", "lambda_ent": 0.005, "fda_beta": 0.05},
+    {"self_training": True}])
+def test_da_extras_on_the_card_match_the_cpu(cuda, kwargs):
+    """MinEnt and FDA in v1 and v2, and the self-training step (ClassMix on
+    CPU-drawn scores, its EMA compared too), one float64 step each, held
+    as chip_smoke.py holds them (the check raises otherwise)."""
+    result = chip_smoke.da_step_card_vs_cpu(**kwargs)
+    assert result["tensors_over_limit"] == 0
+
+
+def test_accumulated_step_on_the_card_matches_the_cpu(cuda):
+    """One float64 K = 2 step at batch 4 (micro-batches of 2), within the
+    supervised step's limits (the check raises otherwise)."""
+    result = chip_smoke.step_card_vs_cpu(torch.float64, 4,
+                                         accumulate_steps=2)
+    assert result["tensors_over_limit"] == 0
+
+
+def test_distill_step_on_the_card_matches_the_cpu(cuda):
+    result = chip_smoke.distill_step_card_vs_cpu()
     assert result["tensors_over_limit"] == 0
 
 

@@ -76,3 +76,41 @@ def test_cuda_wrapper_rejects_bad_input():
         fast_hist_cuda(ids, ids[:4], 19)
     with pytest.raises(TypeError, match="integer"):
         fast_hist_cuda(ids.float(), ids, 19)
+
+
+ID_PAIRS = [(torch.int32, torch.int32), (torch.int32, torch.int64),
+            (torch.uint8, torch.int64), (torch.int64, torch.int64)]
+
+
+def _ids(rng, n, dtype, classes):
+    """Ids in [0, classes) with negatives, ids >= classes and, for int64,
+    ids of 2^32 and above (2^32 + k would wrap to k in 32 bits)."""
+    if dtype == torch.uint8:
+        ids = rng.integers(0, 256, n)
+        ids[:classes] = np.arange(classes)
+        return torch.from_numpy(ids).to(dtype)
+    ids = rng.integers(-3, classes + 5, n)
+    if dtype == torch.int64:
+        wide = rng.random(n) < 0.2
+        ids[wide] = 2 ** 32 + rng.integers(0, classes, int(wide.sum()))
+        ids[:3] = [2 ** 32, -(2 ** 32) + 1, 2 ** 33 + 5]
+    return torch.from_numpy(ids).to(dtype)
+
+
+@pytest.mark.parametrize("label_dtype,pred_dtype", ID_PAIRS)
+def test_plain_hist_drops_out_of_range_ids_of_each_dtype(rng, label_dtype,
+                                                         pred_dtype):
+    """The rule K1 holds to for each pair of id dtypes the main paths pass:
+    an id counts only in [0, n), compared in its own width, so negative ids
+    and int64 ids of 2^32 and above never wrap into range."""
+    n = 19
+    labels = _ids(rng, 5000, label_dtype, n)
+    preds = _ids(rng, 5000, pred_dtype, n)
+    got = fast_hist(labels, preds, n)
+    lab, pre = labels.long().numpy(), preds.long().numpy()
+    keep = (lab >= 0) & (lab < n) & (pre >= 0) & (pre < n)
+    want = np.zeros((n, n), np.int64)
+    np.add.at(want, (lab[keep], pre[keep]), 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < int(got.sum()) < 5000
+    assert torch.equal(fast_hist_cuda(labels, preds, n), got)

@@ -25,9 +25,12 @@ from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
 from rtsds_tpu_torch.ops.cuda import hist as cuda_hist
 from rtsds_tpu_torch.ops.cuda import remap as cuda_remap
 from rtsds_tpu_torch.serve import Predictor
+from rtsds_tpu_torch.ops import fda
+from rtsds_tpu_torch.train import accumulate, distill, ema, self_training
 from rtsds_tpu_torch.train.adversarial import make_adversarial_step
 from rtsds_tpu_torch.train.factory import build_adversarial, build_supervised
 from rtsds_tpu_torch.train.loop import adversarial_fit, supervised_fit
+from rtsds_tpu_torch.train.self_training import make_self_training_step
 from rtsds_tpu_torch.train.supervised import make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,7 +61,10 @@ _IMPORT_ALL = textwrap.dedent("""
 # modules whose import must stay clean by name, beside the walk of them all
 NAMED = ("rtsds_tpu_torch.models.deeplabv2", "rtsds_tpu_torch.eval.sliding",
          "rtsds_tpu_torch.eval.ensemble",
-         "rtsds_tpu_torch.bench.train_bench", "chip_smoke")
+         "rtsds_tpu_torch.bench.train_bench", "chip_smoke",
+         "rtsds_tpu_torch.train.ema", "rtsds_tpu_torch.train.accumulate",
+         "rtsds_tpu_torch.ops.fda", "rtsds_tpu_torch.train.self_training",
+         "rtsds_tpu_torch.train.distill")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
@@ -159,6 +165,42 @@ def test_deeplab_protocols_and_train_bench_refuse_to_fall_back_to_the_cpu(
 
 def test_unported_benches_exit():
     from rtsds_tpu_torch.bench import train_bench
-    for argv in (["--qat"], ["--distill", "deeplab"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            train_bench.main(argv)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        train_bench.main(["--qat"])
+
+
+@pytest.mark.parametrize("module", [ema, accumulate, fda, self_training,
+                                    distill])
+def test_the_da_extras_catch_nothing(module):
+    """The extras' modules catch no exception (a ``try`` there only
+    restores state in its ``finally``): a failed launch or a refused batch
+    inside a step is never swallowed."""
+    tree = ast.parse(inspect.getsource(module))
+    assert not [n for n in ast.walk(tree)
+                if isinstance(n, ast.ExceptHandler)]
+
+
+def test_the_da_extras_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    """The fits with an EMA or the self-training step, and the benches of
+    the extras, raise without a GPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = load_config(overrides={
+        "training": {"segmentation": {"epochs": 1},
+                     "domain_adaptation": {"epochs": 1, "iterations": 1}}})
+    state = build_supervised(config, "bisenet", 1, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        supervised_fit(state, make_train_step(), lambda e: [], lambda e: [],
+                       epochs=1, num_classes=19, ema_decay=0.999)
+    gen, dis = build_adversarial(config, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        adversarial_fit(gen, dis, make_self_training_step(0.1, 1), iter([]),
+                        iter([]), lambda e: [], iterations=1, epochs=1,
+                        num_classes=19, ema_in_step=True)
+    for kwargs in ({"lambda_ent": 0.005, "fda_beta": 0.01},
+                   {"self_training": True, "classmix": True}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            da_step_benchmark(batch_size=2, src_hw=(32, 64),
+                              tgt_hw=(32, 64), **kwargs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        supervised_step_benchmark("bisenet", batch_size=2,
+                                  image_size=(32, 64), distill="deeplab")
