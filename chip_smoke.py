@@ -56,11 +56,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
      mean-teacher step with CBST calibration and ClassMix) and
      distillation (a DeepLabV2-R101 teacher checkpoint with an ``ema``
      item, read back by ``load_teacher``, distilled into BiSeNet);
-  10. train_profile: torch.profiler over a few train steps: the device's
+  10. serving_checkpoint: ema_accumulate's checkpoint served at full
+     width by ``Predictor.from_checkpoint`` (its EMA weights checked),
+     ``predict_iter`` held against ``predict`` and both timed, the HTTP
+     micro-batching server answering raw requests from 4 client threads,
+     each reply held against ``predict``, and ``validate`` of the served
+     model (K1);
+  11. the port's benches, each its own line: latency_sweep (BiSeNet-R18
+     1024x2048 at b1, b8, b64), deeplab_latency, protocol_benches
+     (sliding, ensemble), model_flops, and one_line_bench (``python -m
+     rtsds_tpu_torch.bench`` in a subprocess);
+  12. train_profile: torch.profiler over a few train steps: the device's
      idle share and kernel time by group, and each hand-written kernel's
      device time per launch beside the timer's (run after the kernel
      timings, which the profiler's tracing could slow);
-  11. the ``kernels`` line: each kernel's launches on the main paths (each
+  13. the ``kernels`` line: each kernel's launches on the main paths (each
      counted from zero), its device time as the main path calls it
      (median, min, max), its wrapper's host cost, its plain version's
      time, a one-call library yardstick where one exists, and the card's
@@ -74,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -150,6 +161,14 @@ DEEPLAB_VAL_BATCHES = 2
 DEEPLAB_TRAIN_STEPS = 3   # one epoch
 DEEPLAB_DA_ITERATIONS = 2  # one epoch
 DEEPLAB_BENCH_STEPS = 3   # per timed repeat
+# serving a trained checkpoint, and the port's benches
+SERVER_CLIENTS = 4
+REQUESTS_PER_CLIENT = 4
+STREAM_BATCHES = 10      # per timed predict / predict_iter run
+SWEEP_BATCHES = (1, 8, 64)
+LATENCY_SAMPLES = 100    # per-call samples: p99 needs 100
+PROTOCOL_BENCH_ITERS = 10
+ONE_LINE_ITERS = 10
 # least share of pixels whose bf16 DeepLab mask equals the f32 mask.  The
 # first card run read 0.4563 (PERF.md): bf16 rounding through 101 layers
 # of random weights flips the argmax where the top two logits are close,
@@ -1743,7 +1762,10 @@ def phase_ema_accumulate() -> dict:
     TRAIN_STEPS steps at 720x1280 b8 bf16 on colour-coded labels (K2),
     validated on the EMA at 512x1024 (K1); the saved ``ema`` item restored
     exactly by ``resume``, the step and the EMA update timed, one float64
-    accumulated step at b4 (micro 2) on the card held against the CPU's."""
+    accumulated step at b4 (micro 2) on the card held against the CPU's.
+    Returns the launches and the run's checkpoint directory (``tmp``, a
+    ``TemporaryDirectory`` the caller cleans up), which the
+    serving_checkpoint phase serves."""
     from rtsds_tpu_torch.train.accumulate import (
         make_accumulating_train_step, split_microbatches)
     from rtsds_tpu_torch.train.ema import ema_update, setup_ema
@@ -1807,7 +1829,6 @@ def phase_ema_accumulate() -> dict:
                                         compute_dtype=torch.bfloat16),
                          fresh.model, template), device=dev)
     del fresh, template, saved
-    tmp.cleanup()
 
     host_images, host_rgb = next(iter(loader))
     images, labels = transform(torch.from_numpy(host_images).to(dev),
@@ -1837,7 +1858,8 @@ def phase_ema_accumulate() -> dict:
     emit(result)
     if abs(miou_restored - history[0]["validation_mIoU"]) > 1e-3:
         raise AssertionError("the restored EMA validates differently")
-    return {"launches": launches}
+    return {"launches": launches, "tmp": tmp,
+            "checkpoint": checkpoint.manager.save_dir}
 
 
 def _da_fit(config, make_step, seed: int, iterations: int = DA_ITERATIONS,
@@ -2078,6 +2100,234 @@ def phase_distillation() -> dict:
     return launches
 
 
+def _post_raw(url: str, frame: np.ndarray) -> np.ndarray:
+    """POST one frame's raw bytes to the server; its mask back.  A reply
+    other than 200 raises (``urlopen`` raises on 4xx and 5xx)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=frame.tobytes(),
+        headers={"Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=120) as reply:
+        if reply.status != 200:
+            raise AssertionError(f"server replied {reply.status}")
+        body = reply.read()
+    return np.frombuffer(body, np.uint8).reshape(frame.shape[:2])
+
+
+def _get(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as reply:
+        if reply.status != 200:
+            raise AssertionError(f"{url}: {reply.status}")
+        return reply.read()
+
+
+def serve_over_http(predictor: Predictor, frames: np.ndarray) -> dict:
+    """The port's HTTP server (``serve_server.py``) on 127.0.0.1 at an
+    ephemeral port, in a thread, over ``predictor``: SERVER_CLIENTS client
+    threads each POST REQUESTS_PER_CLIENT raw frames, one after another.
+    Every reply is held against ``predict`` of its frame; ``/healthz`` and
+    ``/stats`` are read; the server shuts down with nothing in flight."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rtsds_tpu_torch.serve_server import MicroBatcher, make_http_server
+
+    batcher = MicroBatcher(predictor, max_batch=BATCH, max_wait_ms=5.0)
+    server = make_http_server(batcher, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    replies, client_ms = {}, []
+
+    def client(c):
+        for j in range(REQUESTS_PER_CLIENT):
+            i = (c * REQUESTS_PER_CLIENT + j) % len(frames)
+            t0 = time.perf_counter()
+            replies[c, j] = (i, _post_raw(f"{base}/predict", frames[i]))
+            client_ms.append((time.perf_counter() - t0) * 1e3)
+
+    try:
+        if _get(f"{base}/healthz") != b"ok":
+            raise AssertionError("/healthz did not answer ok")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVER_CLIENTS) as pool:
+            for fut in [pool.submit(client, c)
+                        for c in range(SERVER_CLIENTS)]:
+                fut.result(timeout=600)
+        wall_s = time.perf_counter() - t0
+        stats = json.loads(_get(f"{base}/stats"))
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=60)
+    n = SERVER_CLIENTS * REQUESTS_PER_CLIENT
+    wrong = [key for key, (i, mask) in replies.items()
+             if not np.array_equal(mask, predictor.predict(frames[i]))]
+    result = {"clients": SERVER_CLIENTS,
+              "requests_per_client": REQUESTS_PER_CLIENT,
+              "replies": len(replies), "replies_not_equal_predict": wrong,
+              "requests_per_s": n / wall_s,
+              "client_p50_ms": statistics.median(client_ms),
+              "client_max_ms": max(client_ms), "stats": stats,
+              "server_thread_alive": thread.is_alive()}
+    if len(replies) != n or wrong:
+        raise AssertionError(f"server replies: {result}")
+    if (stats["requests"] != n or stats["errors"] or stats["queued"]
+            or stats["latency_p50_ms"] is None
+            or not 1 <= stats["batches"] < n):
+        raise AssertionError(f"server stats: {stats}")
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+    return result
+
+
+def phase_serving_checkpoint(ckpt_dir: str, frames: np.ndarray) -> dict:
+    """Serving a trained checkpoint, as a user would: the ema_accumulate
+    phase's checkpoint (BiSeNet-R18 trained on colour-coded labels through
+    K2, with an ``ema`` item) served by ``Predictor.from_checkpoint`` at
+    1024x2048 b8 bf16; the served weights held against ``load_teacher``'s
+    EMA tensors (and away from the raw ones); ``predict_iter`` over 3
+    batches (the last one short) held exactly against ``predict`` and both
+    timed per batch; the HTTP server answering 16 raw requests from 4
+    client threads (:func:`serve_over_http`); and ``validate`` of the
+    served model at 512x1024 (K1).  Returns the path's launches."""
+    from rtsds_tpu_torch.train.distill import load_teacher
+
+    def run():
+        predictor = Predictor.from_checkpoint(
+            ckpt_dir, image_size=SIZE, batch_size=BATCH,
+            device="cuda").warmup()
+        ema, raw = load_teacher(ckpt_dir), load_teacher(ckpt_dir,
+                                                        use_ema=False)
+        served = predictor.model.state_dict()
+        if set(served) != set(ema):
+            raise AssertionError("served and checkpoint keys differ")
+        off = [k for k, v in served.items()
+               if not torch.equal(v.cpu(), ema[k].to(v.dtype))]
+        from_raw = sum(not torch.equal(v.cpu(), raw[k].to(v.dtype))
+                       for k, v in served.items())
+        if off or not from_raw:
+            raise AssertionError(f"served weights are not the EMA's: "
+                                 f"{off[:4]}, {from_raw} differ from raw")
+
+        batches = [frames[:BATCH], frames[BATCH:2 * BATCH], frames[:5]]
+        want = [predictor.predict(b) for b in batches]
+        got = list(predictor.predict_iter(iter(batches)))
+        if len(got) != 3 or not all(np.array_equal(g, w)
+                                    for g, w in zip(got, want)):
+            raise AssertionError("predict_iter != predict")
+        stream = [batches[i % 2] for i in range(STREAM_BATCHES)]
+        per_batch = {"predict": [], "predict_iter": []}
+        for name in ("predict", "predict_iter", "predict_iter", "predict"):
+            t0 = time.perf_counter()
+            if name == "predict":
+                for b in stream:
+                    predictor.predict(b)
+            else:
+                for _ in predictor.predict_iter(stream):
+                    pass
+            per_batch[name].append(
+                (time.perf_counter() - t0) / len(stream) * 1e3)
+
+        http = serve_over_http(predictor, frames)
+
+        val = _synthetic_batches(TRAIN_VAL_BATCHES, TRAIN_VAL_SIZE,
+                                 seed=SEED + 30)
+        step_ms = []
+        miou, per_class = validate(
+            predictor.model, iter(val), CLASSES, class_names=CLASS_NAMES,
+            eval_step=checked_eval_step(make_eval_step(
+                predictor.model, CLASSES, return_preds=True), step_ms),
+            device="cuda")
+        if not 0.0 <= miou <= 1.0 or len(per_class) != CLASSES:
+            raise AssertionError(f"mIoU {miou}, {len(per_class)} classes")
+        return {"served_tensors": len(served),
+                "tensors_differing_from_raw": from_raw,
+                "predict_iter_equals_predict": True,
+                "stream_batches": STREAM_BATCHES,
+                "predict_ms_per_batch": per_batch["predict"],
+                "predict_iter_ms_per_batch": per_batch["predict_iter"],
+                "http": http, "validation_image_size": list(TRAIN_VAL_SIZE),
+                "validation_mIoU": miou, "eval_step_ms": step_ms}
+
+    out, launches, _ = on_main_path(run)
+    torch.cuda.empty_cache()
+    emit({"phase": "serving_checkpoint", "model": "bisenet-resnet18",
+          "checkpoint": "ema_accumulate's (ema item)",
+          "image_size": list(SIZE), "batch": BATCH, "dtype": "bfloat16",
+          **out, "launches": launches})
+    return launches
+
+
+def phase_benches() -> None:
+    """The port's benches on the card, each printing its own line: the
+    latency sweep of BiSeNet-R18 serving at 1024x2048 over SWEEP_BATCHES
+    and DeepLabV2-R101 at 512x1024 b8 (LATENCY_SAMPLES per-call samples
+    each, inputs on the card), the sliding and ensemble benches at their
+    defaults, ``model_flops`` of both models, and the one-line bench run
+    as ``python -m rtsds_tpu_torch.bench`` in a subprocess with few
+    iterations."""
+    from rtsds_tpu_torch.bench.ensemble_bench import bench_ensemble
+    from rtsds_tpu_torch.bench.flops import model_flops
+    from rtsds_tpu_torch.bench.latency import (
+        bisenet_inference_benchmark, deeplab_inference_benchmark)
+    from rtsds_tpu_torch.bench.sliding_bench import bench_sliding
+
+    keys = ("batch_size", "samples", "mean_ms", "p50_ms", "p99_ms", "fps",
+            "flops_per_image", "mfu")
+    sweep = []
+    for batch in SWEEP_BATCHES:
+        stats = bisenet_inference_benchmark(
+            SIZE, batch, iterations=LATENCY_SAMPLES)
+        sweep.append({k: stats[k] for k in keys})
+        torch.cuda.empty_cache()
+    emit({"phase": "latency_sweep", "model": "bisenet-resnet18",
+          "image_size": list(SIZE), "dtype": "bfloat16",
+          "mode": "masks (forward + argmax, inputs on the card)",
+          "sweep": sweep})
+    dl = deeplab_inference_benchmark(DEEPLAB_SIZE, BATCH,
+                                     iterations=LATENCY_SAMPLES)
+    torch.cuda.empty_cache()
+    emit({"phase": "deeplab_latency", "model": "deeplabv2-resnet101",
+          "image_size": list(DEEPLAB_SIZE), "dtype": "bfloat16",
+          **{k: dl[k] for k in keys}})
+    sliding = bench_sliding(iterations=PROTOCOL_BENCH_ITERS)
+    torch.cuda.empty_cache()
+    ensemble = bench_ensemble(iterations=PROTOCOL_BENCH_ITERS)
+    torch.cuda.empty_cache()
+    emit({"phase": "protocol_benches", "sliding": sliding,
+          "ensemble": ensemble})
+    emit({"phase": "model_flops",
+          "bisenet_1x1024x2048": model_flops(
+              BiSeNet(num_classes=CLASSES), (1, *SIZE, 3)),
+          "deeplab_1x512x1024": model_flops(
+              DeepLabV2(num_classes=CLASSES), (1, *DEEPLAB_SIZE, 3))})
+    env = {**os.environ, "BENCH_ITERS": str(ONE_LINE_ITERS),
+           "BENCH_REPEATS": "1", "BENCH_DA_STEPS": "2"}
+    proc = subprocess.run([sys.executable, "-m", "rtsds_tpu_torch.bench"],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the one-line bench exited "
+                             f"{proc.returncode}: {proc.stderr[-4000:]}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    missing = {"metric", "value", "unit", "p50_ms", "p50_ms_per_image",
+               "p99_ms", "batch_size", "dtype", "flops_per_image", "mfu",
+               "device", "da_training", "models"} - set(record)
+    if missing or any(k.startswith("vs_baseline") for k in record):
+        raise AssertionError(f"one-line bench keys: missing {missing}, "
+                             f"got {sorted(record)}")
+    if not record["value"] > 0:
+        raise AssertionError(f"one-line bench: {record}")
+    emit({"phase": "one_line_bench", "env": {
+        k: env[k] for k in ("BENCH_ITERS", "BENCH_REPEATS",
+                            "BENCH_DA_STEPS")}, "record": record})
+
+
 def timed_entry(kernel, plain, library, nbytes: int) -> dict:
     """The measured keys of a ``kernels`` entry: the kernel's device time
     (median, min, max), its wrapper's host cost, the plain version's and
@@ -2284,7 +2534,15 @@ def main() -> int:
 
     # main paths 9-13: the DA extras (counts reset inside each, just
     # before)
-    extras = {"ema_accumulate": phase_ema_accumulate()["launches"]}
+    ema = phase_ema_accumulate()
+    extras = {"ema_accumulate": ema["launches"]}
+    torch.cuda.empty_cache()
+    # main path 14: serving the checkpoint that ema_accumulate trained
+    # (its K2 launches) and validating the served model (K1; counts reset
+    # inside, just before); then the benches
+    serve_ckpt = phase_serving_checkpoint(ema["checkpoint"], frames)
+    ema["tmp"].cleanup()
+    phase_benches()
     torch.cuda.empty_cache()
     for variant, n in phase_da_minent_fda().items():
         extras[f"da_minent_fda_{variant}"] = n
@@ -2301,26 +2559,35 @@ def main() -> int:
                   "deeplab_training": dl_train["launches"]["fast_hist_cuda"],
                   "deeplab_da": dl_da["launches"]["fast_hist_cuda"],
                   **{f"bisenet_{k}": n["fast_hist_cuda"]
-                     for k, n in extras.items()}}
+                     for k, n in extras.items()},
+                  "bisenet_serving_checkpoint": serve_ckpt["fast_hist_cuda"]}
     remap_paths = {
         "bisenet_training": train_launches["rgb_to_train_ids_cuda"],
         "bisenet_da": da_launches["rgb_to_train_ids_cuda"],
         "deeplab_training": dl_train["launches"]["rgb_to_train_ids_cuda"],
         "deeplab_da": dl_da["launches"]["rgb_to_train_ids_cuda"],
         **{f"bisenet_{k}": n["rgb_to_train_ids_cuda"]
-           for k, n in extras.items()}}
+           for k, n in extras.items()},
+        # the training that wrote the served checkpoint: the same launches
+        # as bisenet_ema_accumulate's, counted once in the total
+        "bisenet_serving_checkpoint": ema["launches"]["rgb_to_train_ids_cuda"]}
+    if serve_ckpt["rgb_to_train_ids_cuda"]:
+        raise AssertionError("serving launched K2")
     for kernel, paths in (("K1", hist_paths), ("K2", remap_paths)):
         missed = [p for p, n in paths.items() if n < 1]
         if missed:
             raise AssertionError(f"{kernel} never launched on {missed}")
+    shared = {"bisenet_serving_checkpoint": "bisenet_ema_accumulate"}
 
     # the eval step's own int32 labels and int64 argmax, as it passes them
     kernels = [
         {**kernel_timing(labels, preds, sum(hist_paths.values()), hist_err),
          "launches_by_path": hist_paths},
-        {**remap_timing(trained["rgb"], sum(remap_paths.values()),
+        {**remap_timing(trained["rgb"], sum(remap_paths.values())
+                        - remap_paths["bisenet_serving_checkpoint"],
                         remap_err),
-         "launches_by_path": remap_paths}]
+         "launches_by_path": remap_paths,
+         "launches_shared_by_paths": shared}]
     # last: the profiler's tracing may slow what runs after it
     traced = profile_kernels({
         "hist_kernel": lambda: fast_hist_cuda(labels, preds, CLASSES),

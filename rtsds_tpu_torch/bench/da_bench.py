@@ -19,7 +19,8 @@ prints one JSON line for batch 8, a 720x1280 source and a 512x1024 target
 in bf16.  ``--lambda-ent`` adds MinEnt and ``--fda-beta`` FDA to the step;
 ``--self-training`` benches the mean-teacher pseudo-label step (v1, a
 threshold of 0.9, the EMA updated in the step), ``--classmix`` with
-ClassMix.  Without a GPU it raises.
+ClassMix.  Without a GPU it raises; ``device="cpu"`` runs it on the CPU
+(the tests), timed by the host clock.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import statistics
 
 import torch
 
+from rtsds_tpu_torch.bench.latency import Clock, device_name
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2, frozen_bn_parameters
@@ -49,11 +51,6 @@ EPOCHS = 50
 WARMUP_STEPS = 2
 
 
-def _events():
-    return (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
-
-
 def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
                       tgt_hw=(512, 1024), steps: int = 5, repeats: int = 3,
                       dtype: torch.dtype = torch.bfloat16,
@@ -61,21 +58,24 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
                       seed: int = 0, generator: str = "bisenet",
                       lambda_ent: float = 0.0, fda_beta: float = 0.0,
                       self_training: bool = False,
-                      classmix: bool = False) -> dict:
+                      classmix: bool = False, device=None) -> dict:
     """``ms_per_step`` is the median over ``repeats`` of the mean step time
     of ``steps`` chained steps; ``split_ms`` (the plain v1 step) the
     median generator and discriminator phase times over the same number of
     steps; ``fda_ms`` (``fda_beta > 0``) the median time of the FDA of one
     source batch; ``max_memory_gb`` the peak of the allocated device memory
     during the run, ``memory_at_start_gb`` what was allocated before
-    it."""
+    it (both None on the CPU)."""
     if self_training and (variant != "v1" or grl_alpha):
         raise ValueError("the self-training step composes with v1 only")
     if classmix and not self_training:
         raise ValueError("classmix is a self-training option")
-    device = resolve_device(None)
-    torch.cuda.reset_peak_memory_stats()
-    at_start = torch.cuda.memory_allocated()
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    clock = Clock(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated() if cuda else None
     compute = None if dtype == torch.float32 else dtype
     gen_name = generator
     with torch.random.fork_rng(devices=[]):
@@ -122,13 +122,10 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
     float(metrics["loss_gen_source"])
     times = []
     for _ in range(repeats):
-        start, end = _events()
-        start.record()
+        start = clock.mark()
         for _ in range(steps):
             metrics = step(gen, dis, src, labels, tgt)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / steps)
+        times.append(clock.ms(start, clock.mark()) / steps)
     last_loss = float(metrics["loss_gen_source"])
 
     split = None
@@ -136,28 +133,23 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
     if variant == "v1" and plain_v1:
         phases = {"generator": [], "discriminator": []}
         for _ in range(steps):
-            (start, mid), (_, end) = _events(), _events()
-            start.record()
+            start = clock.mark()
             src_main, tgt_main, *_ = v1_generator_update(
                 gen, dis, src, labels, tgt, LAMBDA, ITERATIONS)
-            mid.record()
+            mid = clock.mark()
             v1_discriminator_update(dis, src_main, tgt_main, ITERATIONS)
-            end.record()
-            end.synchronize()
-            phases["generator"].append(start.elapsed_time(mid))
-            phases["discriminator"].append(mid.elapsed_time(end))
+            end = clock.mark()
+            phases["generator"].append(clock.ms(start, mid))
+            phases["discriminator"].append(clock.ms(mid, end))
         split = {k: statistics.median(v) for k, v in phases.items()}
 
     fda_ms = None
     if fda_beta:
         fda_times = []
         for _ in range(steps):
-            start, end = _events()
-            start.record()
+            start = clock.mark()
             fda_source_to_target(src, tgt, fda_beta)
-            end.record()
-            end.synchronize()
-            fda_times.append(start.elapsed_time(end))
+            fda_times.append(clock.ms(start, clock.mark()))
         fda_ms = statistics.median(fda_times)
 
     ms = statistics.median(times)
@@ -170,9 +162,10 @@ def da_step_benchmark(batch_size: int = 8, src_hw=(720, 1280),
             "generator": gen_name, "variant": variant,
             "grl_alpha": grl_alpha, "steps": steps,
             "repeats": repeats, "last_loss_gen_source": last_loss,
-            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "memory_at_start_gb": at_start / 1e9,
-            "device": torch.cuda.get_device_name(device)}
+            "max_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else None),
+            "memory_at_start_gb": at_start / 1e9 if cuda else None,
+            "device": device_name(device)}
 
 
 def main(argv=None):

@@ -88,6 +88,12 @@ class CheckpointManager:
         return torch.load(self._path(step), map_location="cpu",
                           weights_only=True)
 
+    def items(self, step: int) -> list[str]:
+        """The names of the states saved as epoch ``step``, sorted.  The
+        file is memory-mapped, so no tensor's bytes are read."""
+        return sorted(torch.load(self._path(step), map_location="cpu",
+                                 weights_only=True, mmap=True))
+
     def restore(self, states: dict, step: int | None = None,
                 optional: tuple[str, ...] = ()) -> frozenset:
         """Load epoch ``step`` (default: the latest) into ``states`` in

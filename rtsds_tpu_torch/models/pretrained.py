@@ -8,9 +8,9 @@ its conv kernels are HWIO where torch's are OIHW, and its BN leaves are
 
 :func:`load_deeplab_pretrained` ingests an external DeepLab checkpoint (a
 torch state dict) the way the reference does.  :func:`ema_from_flax` maps a
-Flax ``params`` tree (an EMA) to the port's EMA dict, and
-:func:`state_dict_from_reference` reads back what the JAX package's
-``export_torch`` writes.
+Flax ``params`` tree (an EMA) to the port's EMA dict,
+:func:`state_dict_from_reference` reads back what ``export_torch`` writes,
+and :func:`state_dict_to_reference` writes it.
 """
 
 from __future__ import annotations
@@ -150,6 +150,28 @@ def state_dict_from_reference(state: Mapping) -> dict[str, torch.Tensor]:
         head, _, rest = k.partition(".")
         out[".".join([REFERENCE_BISENET_NAMES.get(head, head), rest])] = v
     return out
+
+
+def state_dict_to_reference(state: Mapping, bisenet: bool = False,
+                            prefix: str = "") -> dict[str, torch.Tensor]:
+    """The inverse of :func:`state_dict_from_reference`: the port's state
+    dict in the layout the JAX package's ``export_torch`` writes.  With
+    ``bisenet`` the port's module names become the reference BiSeNet's and
+    every ``context_path.*`` tensor gains its ``context_path.features.*``
+    alias (a ``load_state_dict(strict=True)`` into the reference model
+    demands both); ``prefix`` is prepended to every key (``"Scale."`` for
+    MSCOCO-style DeepLab checkpoints).  Tensors go to the CPU."""
+    to_reference = {v: k for k, v in REFERENCE_BISENET_NAMES.items()}
+    out = {}
+    for k, v in state.items():
+        head, _, rest = k.partition(".")
+        if bisenet:
+            head = to_reference.get(head, head)
+        out[f"{head}.{rest}"] = v.detach().cpu()
+    if bisenet:
+        for k in [k for k in out if k.startswith("context_path.")]:
+            out["context_path.features." + k[len("context_path."):]] = out[k]
+    return {prefix + k: v for k, v in out.items()}
 
 
 def load_deeplab_pretrained(module: nn.Module, source) -> dict:

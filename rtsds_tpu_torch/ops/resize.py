@@ -25,6 +25,11 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
     if x.ndim != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
     shrinks = size[0] < x.shape[-2] or size[1] < x.shape[-1]
+    if x.shape[0] * x.shape[1] * size[0] * size[1] >= 2 ** 31 - 1:
+        # ATen's channels-last bilinear kernel refuses an output of 2^31
+        # elements or more (BiSeNet's logits at b64, 1024x2048); its NCHW
+        # kernel takes it
+        x = x.contiguous()
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=False, antialias=antialias and shrinks)
 

@@ -7,23 +7,21 @@ divergence of the student's main output from the teacher's, over every
 pixel.  The teacher (typically DeepLabV2-R101, distilled into BiSeNet) runs
 in eval mode without gradients.
 
-:func:`load_teacher` reads a teacher's weights from the port's own
-checkpoints or from a state dict that ``python -m rtsds_tpu.export_torch``
-wrote from a JAX-trained checkpoint.
+:func:`load_teacher` (:func:`rtsds_tpu_torch.serve.load_checkpoint_state`)
+reads a teacher's weights from the port's own checkpoints or from a state
+dict that ``export_torch`` wrote.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rtsds_tpu_torch.callbacks.checkpoint import CheckpointManager
-from rtsds_tpu_torch.models.pretrained import state_dict_from_reference
 from rtsds_tpu_torch.ops.losses import segmentation_loss
+from rtsds_tpu_torch.serve import load_checkpoint_state
 from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.train.supervised import check_batch
 from rtsds_tpu_torch.utils.dtypes import at_least_f32
@@ -82,42 +80,6 @@ def make_distill_step(teacher: nn.Module, ignore_index: int | None = 19, *,
     return train_step
 
 
-def load_teacher(source: str, use_ema: bool = True
-                 ) -> dict[str, torch.Tensor]:
-    """A trained segmentor's state dict (parameters and BN buffers), on the
-    CPU, from ``source``:
-
-    * a directory of the port's checkpoints (``callbacks/checkpoint.py``):
-      the best epoch, else the latest; the ``model`` item (a supervised
-      run), else ``generator`` (domain adaptation); its parameters replaced
-      by the ``ema`` item's when ``use_ema`` and the checkpoint holds one;
-    * a file written by ``python -m rtsds_tpu.export_torch`` (any of its
-      ``--model`` layouts; ``--prefix`` stripped), which already holds the
-      EMA weights unless it was exported with ``--no-ema``.
-
-    Load the result into the model with
-    :func:`rtsds_tpu_torch.models.pretrained.load_segmentor_state`.
-    """
-    if os.path.isfile(source):
-        state = torch.load(source, map_location="cpu", weights_only=True)
-        return state_dict_from_reference(state)
-    if not os.path.isdir(source):
-        raise FileNotFoundError(f"distillation teacher: no checkpoint "
-                                f"directory or file at {source}")
-    mgr = CheckpointManager(source)
-    step = mgr.best_step()
-    if step is None:
-        step = mgr.latest_step()
-    if step is None:
-        raise FileNotFoundError(
-            f"distillation teacher: no checkpoints in {source}")
-    payload = mgr.load(step)
-    item = payload.get("model", payload.get("generator"))
-    if item is None:
-        raise KeyError(f"distillation teacher: epoch {step} under {source} "
-                       f"holds {sorted(payload)}, neither 'model' nor "
-                       f"'generator'")
-    state = dict(item["model"])
-    if use_ema and "ema" in payload:
-        state.update(payload["ema"]["params"])
-    return state
+# a teacher's weights are read as served weights are: the best epoch, else
+# the latest, its ``ema`` item preferred, or an ``export_torch`` file
+load_teacher = load_checkpoint_state

@@ -7,7 +7,8 @@ and no JAX installed:
 
 Its remap edge cases (``EDGE_TABLES``, ``DEFAULT_IDS``, ``edge_pixels``)
 also drive the CPU tests of the kernel's hash table in
-``test_torch_remap.py``.
+``test_torch_remap.py``, and its ``trained_checkpoint`` the CPU tests of
+serving in ``test_torch_serve_checkpoint.py``.
 """
 
 import contextlib
@@ -461,3 +462,109 @@ def test_deeplab_train_bench_on_the_card(cuda):
                                     remat=True)
     assert out["ms_per_step"] > 0 and np.isfinite(out["last_train_loss"])
     assert out["max_memory_gb"] > 0 and out["remat"]
+
+
+def trained_checkpoint(directory) -> str:
+    """A port checkpoint of a seeded BiSeNet-R18 whose BN statistics are
+    moved off the identity, with an ``ema`` item of other weights."""
+    from rtsds_tpu_torch.callbacks.checkpoint import CheckpointManager
+    from rtsds_tpu_torch.models.bisenet import BiSeNet
+    from rtsds_tpu_torch.train.ema import EMA, ema_init
+
+    gen = torch.Generator().manual_seed(4)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        model = BiSeNet()
+    # BN statistics of real frames (random ones blow the logits up), as
+    # chip_smoke.calibrate_batch_stats sets them
+    frames = np.stack([SyntheticSegDataset(4, (64, 128), seed=5)[i][0]
+                       for i in range(4)])
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None
+    with torch.no_grad():
+        model.train()(normalize(torch.from_numpy(frames)).permute(0, 3, 1, 2))
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
+    ema = {k: v + 0.01 * torch.randn(v.shape, generator=gen)
+           for k, v in ema_init(model).items()}
+    CheckpointManager(str(directory)).save(0, {
+        "model": TrainState(model, make_optimizer(
+            "SGD", model.parameters(), 0.01)), "ema": EMA(ema)},
+        monitor=0.5)
+    return str(directory)
+
+
+def test_from_checkpoint_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The served checkpoint's float32 logits on the card, TF32 off, within
+    1e-3 of the CPU's largest logit (chip_smoke.py's serving limit), and
+    its masks the same wherever the top two logits are twice that apart."""
+    path = trained_checkpoint(tmp_path / "ckpt")
+    kwargs = dict(image_size=(64, 128), batch_size=2, dtype=torch.float32)
+    card = Predictor.from_checkpoint(path, **kwargs)
+    cpu = Predictor.from_checkpoint(path, device="cpu", **kwargs)
+    x = normalize(torch.from_numpy(np.stack(
+        [SyntheticSegDataset(2, (64, 128), seed=7)[i][0] for i in range(2)]
+    ))).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad(), _no_tf32():
+        got = card.model(x.to(cuda)).cpu()
+        want = cpu.model(x)
+    limit = 1e-3 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= limit
+    top2 = want.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * limit
+    assert clear.float().mean() > 0.9
+    assert torch.equal(got.argmax(1)[clear], want.argmax(1)[clear])
+
+
+def test_resize_of_an_output_past_int_max_on_the_card(cuda):
+    """BiSeNet's logits at b64 1024x2048 have 2^31 elements or more, which
+    ATen's channels-last bilinear kernel refuses; ``resize_bilinear`` runs
+    them through the NCHW kernel, and each frame's resize is the one that
+    kernel gives it alone."""
+    from rtsds_tpu_torch.ops.resize import resize_bilinear
+
+    x = torch.randn((64, 19, 128, 256), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda, dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    out = resize_bilinear(x, (1024, 2048))
+    assert out.shape == (64, 19, 1024, 2048)
+    for i in (0, 63):
+        alone = resize_bilinear(x[i:i + 1].contiguous(), (1024, 2048))
+        assert torch.equal(out[i:i + 1], alone)
+
+
+def test_predict_iter_on_the_card_equals_predict(cuda, tmp_path):
+    predictor = Predictor.from_checkpoint(
+        trained_checkpoint(tmp_path / "ckpt"), image_size=(64, 128),
+        batch_size=4)
+    ds = SyntheticSegDataset(10, (64, 128), seed=8)
+    frames = np.stack([ds[i][0] for i in range(10)])
+    batches = [frames[:4], frames[4:8], frames[8:], frames[0]]
+    got = list(predictor.predict_iter(iter(batches)))
+    assert len(got) == 4
+    for g, b in zip(got, batches):
+        b = b if b.ndim == 4 else b[None]
+        assert g.dtype == np.int32 and g.shape == (len(b), 64, 128)
+        np.testing.assert_array_equal(g, predictor.predict(b))
+
+
+def test_octet_stream_server_on_the_card(cuda):
+    """The HTTP server over a predictor on the card: each raw reply is
+    ``predict`` of its frame, and the statistics count every request."""
+    predictor = Predictor(image_size=(64, 128), batch_size=8)
+    ds = SyntheticSegDataset(16, (64, 128), seed=9)
+    frames = np.stack([ds[i][0] for i in range(16)])
+    out = chip_smoke.serve_over_http(predictor, frames)
+    assert out["replies"] == 16 and out["stats"]["errors"] == 0
+
+
+def test_latency_benchmark_on_the_card_takes_100_samples(cuda):
+    from rtsds_tpu_torch.bench.latency import bisenet_inference_benchmark
+
+    out = bisenet_inference_benchmark((64, 128), batch_size=2)
+    assert out["samples"] >= 100 and out["device"] != "cpu"
+    assert 0 < out["p50_ms"] <= out["p99_ms"]
+    assert out["fps"] > 0 and out["flops_per_image"] > 0

@@ -11,7 +11,11 @@ from pathlib import Path
 import pytest
 import torch
 
-from rtsds_tpu_torch import cli
+from rtsds_tpu_torch import cli, serve_server
+from rtsds_tpu_torch.bench import __main__ as one_line_bench
+from rtsds_tpu_torch.bench import (
+    da_bench, ensemble_bench, flops, io_bench, latency, sliding_bench,
+    train_bench)
 from rtsds_tpu_torch.eval import ensemble, sliding
 from rtsds_tpu_torch.models import deeplabv2
 from rtsds_tpu_torch.bench.da_bench import da_step_benchmark
@@ -64,7 +68,12 @@ NAMED = ("rtsds_tpu_torch.models.deeplabv2", "rtsds_tpu_torch.eval.sliding",
          "rtsds_tpu_torch.bench.train_bench", "chip_smoke",
          "rtsds_tpu_torch.train.ema", "rtsds_tpu_torch.train.accumulate",
          "rtsds_tpu_torch.ops.fda", "rtsds_tpu_torch.train.self_training",
-         "rtsds_tpu_torch.train.distill")
+         "rtsds_tpu_torch.train.distill", "rtsds_tpu_torch.serve_server",
+         "rtsds_tpu_torch.ckpt_info", "rtsds_tpu_torch.export_torch",
+         "rtsds_tpu_torch.utils.profiling", "rtsds_tpu_torch.bench.latency",
+         "rtsds_tpu_torch.bench.flops", "rtsds_tpu_torch.bench.sliding_bench",
+         "rtsds_tpu_torch.bench.ensemble_bench",
+         "rtsds_tpu_torch.bench.io_bench", "rtsds_tpu_torch.bench.__main__")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
@@ -204,3 +213,70 @@ def test_the_da_extras_refuse_to_fall_back_to_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         supervised_step_benchmark("bisenet", batch_size=2,
                                   image_size=(32, 64), distill="deeplab")
+
+
+@pytest.mark.parametrize("module", [latency, flops, sliding_bench,
+                                    ensemble_bench, io_bench, one_line_bench,
+                                    da_bench, train_bench])
+def test_the_benches_catch_nothing(module):
+    """A failed launch inside a bench fails the bench: no ``except``."""
+    tree = ast.parse(inspect.getsource(module))
+    assert not [n for n in ast.walk(tree)
+                if isinstance(n, ast.ExceptHandler)]
+
+
+def _name(node) -> str:
+    return ast.unparse(node) if node is not None else "<bare>"
+
+
+def test_the_server_hides_no_failure():
+    """``serve_server`` catches only what it hands on.  A handler of a
+    specific, expected exception (an empty queue, a future already
+    resolved or cancelled, an overloaded queue, Ctrl-C) is allowed; every
+    broad ``except Exception`` passes the error on: to the clients'
+    futures (``_fail``) in the collector, or as an HTTP error status
+    (``send_error``) in the request handler, whose mapping answers an
+    overload with 503 and anything else with 500.  Nothing is re-raised
+    silently and no handler is bare."""
+    tree = ast.parse(inspect.getsource(serve_server))
+    specific = {"queue.Empty", "InvalidStateError", "Overloaded",
+                "KeyboardInterrupt"}
+    broad = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ExceptHandler):
+            continue
+        name = _name(node.type)
+        if name in specific:
+            continue
+        assert name == "Exception", name
+        calls = {ast.unparse(c.func).split(".")[-1] for c in ast.walk(node)
+                 if isinstance(c, ast.Call)}
+        assert calls & {"_fail", "send_error"}, ast.unparse(node)
+        assert not [n for n in ast.walk(node) if isinstance(n, ast.Raise)]
+        broad.append(node)
+    assert len(broad) == 2
+    statuses = {_name(h.type): [c.args[0].value for c in ast.walk(h)
+                                if isinstance(c, ast.Call)
+                                and ast.unparse(c.func).endswith("send_error")]
+                for node in ast.walk(tree) if isinstance(node, ast.Try)
+                for h in node.handlers
+                if any(ast.unparse(c.func).endswith("send_error")
+                       for c in ast.walk(h) if isinstance(c, ast.Call))}
+    assert statuses == {"Overloaded": [503], "Exception": [500]}
+
+
+def test_the_serving_tools_refuse_to_fall_back_to_the_cpu(monkeypatch,
+                                                          tmp_path):
+    """The server's CLI and ``from_checkpoint`` raise without a GPU."""
+    from rtsds_tpu_torch.callbacks.checkpoint import CheckpointManager
+    from rtsds_tpu_torch.train.optim import make_optimizer
+    from rtsds_tpu_torch.train.state import TrainState
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_server.main(["--size", "32, 64", "--batch", "1"])
+    model = BiSeNet()
+    CheckpointManager(str(tmp_path)).save(0, {"model": TrainState(
+        model, make_optimizer("SGD", model.parameters(), 0.01))})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor.from_checkpoint(str(tmp_path), image_size=(32, 64))

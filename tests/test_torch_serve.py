@@ -117,5 +117,8 @@ def test_cli_writes_masks(tmp_path, frames):
     with pytest.raises(SystemExit):
         main([str(path), "--size", "64, 128", "--checkpoint", "ckpt",
               "--device", "cpu"])
-    with pytest.raises(SystemExit):
-        main([str(path), "--size", "32, 64", "--device", "cpu"])
+    # a frame at another size than --size is resized on the host
+    main([str(path), "--size", "32, 64", "--out", str(tmp_path / "small"),
+          "--device", "cpu"])
+    mask = np.asarray(Image.open(tmp_path / "small" / "frame_mask.png"))
+    assert mask.shape == (32, 64) and mask.max() < 19
