@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # from the repository root, one card
     python3 chip_smoke.py --kernels-only  # build and time K1 and K2 alone
+    python3 chip_smoke.py --int8-only     # the int8 phases alone
 
 Kernels are timed on the device alone with the L2 cold: each timed launch
 follows a write of a 256 MB buffer, as K2 follows the transform's write of
@@ -66,11 +67,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
      1024x2048 at b1, b8, b64), deeplab_latency, protocol_benches
      (sliding, ensemble), model_flops, and one_line_bench (``python -m
      rtsds_tpu_torch.bench`` in a subprocess);
-  12. train_profile: torch.profiler over a few train steps: the device's
+  12. int8 (W8A8, ``ops/quant.py``): int8_ops (every distinct quantized
+     conv of both default policies at full width, and the shapes the int8
+     GEMM pads, held exactly against a float64 conv on the card; the
+     quantizers and the BN fold on the card against the CPU),
+     int8_serving (``Predictor(quantize="int8")`` for BiSeNet-R18 at
+     1024x2048 and DeepLabV2-R101 at 512x1024, b8, calibrated with the max
+     and the percentile statistic, masks against bf16, timed, validated
+     with K1; DeepLab's sliding and ensemble protocols in int8), qat
+     (``qat.finetune`` at its CLI defaults on in-memory frames, the step
+     bench, the export grid, the write-back, the sidecar served by
+     ``from_checkpoint``, one float32 step on the card against the CPU's
+     on the card's activation codes), distillation_int8 (the CLI's int8
+     DeepLab teacher, K2 and K1 on its path, its step against the bf16
+     teacher's), pseudo_label (the sweep's in-memory core in int8 with
+     CBST thresholds) and quant_bench (whole-network int8 against bf16,
+     and DeepLab's 3x3 conv shapes with the im2col and the GEMM apart);
+     ``python3 chip_smoke.py --int8-only`` runs these alone;
+  13. train_profile: torch.profiler over a few train steps: the device's
      idle share and kernel time by group, and each hand-written kernel's
      device time per launch beside the timer's (run after the kernel
      timings, which the profiler's tracing could slow);
-  13. the ``kernels`` line: each kernel's launches on the main paths (each
+  14. the ``kernels`` line: each kernel's launches on the main paths (each
      counted from zero), its device time as the main path calls it
      (median, min, max), its wrapper's host cost, its plain version's
      time, a one-call library yardstick where one exists, and the card's
@@ -110,15 +128,23 @@ from rtsds_tpu_torch.eval.validate import make_eval_step, validate
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.deeplabv2 import STAGES as DEEPLAB_STAGES
 from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
+from rtsds_tpu_torch.models.bisenet_int8 import (
+    bisenet_bf16_apply, bisenet_int8_apply, fold_bisenet)
+from rtsds_tpu_torch.models.deeplab_int8 import deeplab_int8_apply
 from rtsds_tpu_torch.models.pretrained import (
-    load_flax_variables, torch_scope)
-from rtsds_tpu_torch.ops import preprocess
+    load_flax_variables, load_segmentor_state, state_dict_from_flax,
+    torch_scope)
+from rtsds_tpu_torch.ops import preprocess, quant
 from rtsds_tpu_torch.ops.augment import AugmentConfig
 from rtsds_tpu_torch.ops.cuda import _build
 from rtsds_tpu_torch.ops.cuda.hist import fast_hist_cuda
 from rtsds_tpu_torch.ops.cuda.remap import rgb_to_train_ids_cuda
 from rtsds_tpu_torch.ops.losses import segmentation_loss
 from rtsds_tpu_torch.ops.preprocess import make_transform, normalize
+from rtsds_tpu_torch.ops.quant import (
+    QuantizedSegmentor, conv_bf16, conv_int8, fake_quant_act,
+    fake_quant_kernel, fold_bn, folded_on, int8_model_module, quantize_act,
+    quantize_kernel)
 from rtsds_tpu_torch.ops.remap import rgb_to_train_ids
 from rtsds_tpu_torch.serve import Predictor
 from rtsds_tpu_torch.train.adversarial import make_adversarial_step
@@ -126,6 +152,8 @@ from rtsds_tpu_torch.train.factory import (
     build_adversarial, build_supervised, make_discriminator, make_segmentor)
 from rtsds_tpu_torch.train.loop import adversarial_fit, supervised_fit
 from rtsds_tpu_torch.train.optim import make_optimizer
+from rtsds_tpu_torch.train.qat import (
+    create_qat_state, export_int8, load_act_scales, prepare_qat, writeback)
 from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.train.supervised import make_train_step
 from rtsds_tpu_torch.utils.colors import CLASS_NAMES, class_colors_for_remap
@@ -169,6 +197,18 @@ SWEEP_BATCHES = (1, 8, 64)
 LATENCY_SAMPLES = 100    # per-call samples: p99 needs 100
 PROTOCOL_BENCH_ITERS = 10
 ONE_LINE_ITERS = 10
+INT8_CALIB_BATCHES = 2   # calibration batches of the int8 predictors
+QAT_STEPS = 2            # fine-tune steps of the qat phase
+QB_ITERS = 10            # per-call samples of each quant_bench timing
+# a float32 QAT step, card against CPU (the earlier card-vs-CPU steps'
+# update limit): the loss to this relative difference, each parameter's
+# update within this share of its tensor's largest update (+ 1e-6)
+QAT_LOSS_RTOL = 1e-5
+QAT_UPDATE_RTOL = 1e-3
+# the activation codes and ReLU signs that the CPU's QAT step may take from
+# the card's run: each one is an input within f32 rounding of a half step
+# (or of zero), and the first card runs read 3 codes and 0 signs (PERF.md)
+MAX_QAT_REPLAYED_FLIPS = 16
 # least share of pixels whose bf16 DeepLab mask equals the f32 mask.  The
 # first card run read 0.4563 (PERF.md): bf16 rounding through 101 layers
 # of random weights flips the argmax where the top two logits are close,
@@ -190,6 +230,21 @@ KERNEL_TIMING = "device-only, L2 flushed"
 # more pixels than it would with trained weights; a broken bf16 path
 # agrees on about one pixel in CLASSES (PERF.md)
 MIN_BF16_AGREEMENT = 0.85
+# least share of pixels whose int8 mask equals the bf16 mask, per model
+# (plain, both statistics, and DeepLab's protocols).  The first card runs
+# read 0.540-0.712 (BiSeNet) and 0.376-0.720 (DeepLab) on random weights,
+# whose small top-two logit margins near-tie many pixels (PERF.md).  This
+# bound catches only a gross fault: a planted one (every quantized conv's
+# dequantization scale doubled) is measured and printed beside it, and
+# the int8 wiring at full width is held by INT8_WALK_* below
+MIN_INT8_AGREEMENT = {"bisenet": 0.45, "deeplab": 0.30}
+# one full-width frame's float32 int8 walk (TF32 off) on the card against
+# the CPU's on the same quantized tree, as tests/test_torch_cuda.py holds
+# it at 64x128: the logits within this share of their peak, and at least
+# this share of the argmax equal (an activation within f32 rounding of a
+# half step may take the other code on either side)
+INT8_WALK_ATOL_SHARE = 2e-2
+INT8_WALK_MIN_ARGMAX = 0.99
 
 
 def emit(obj: dict) -> None:
@@ -2328,6 +2383,692 @@ def phase_benches() -> None:
                             "BENCH_DA_STEPS")}, "record": record})
 
 
+def quantized_conv_calls(model_name: str, state: dict,
+                         size: tuple[int, int], policy) -> dict:
+    """The distinct convs that ``policy`` quantizes in a forward of
+    ``model_name`` at BATCH x ``size``, traced on the ``meta`` device
+    (shapes only): ``{(input shape, OIHW kernel shape, stride, padding,
+    dilation): [conv names]}``."""
+    q = int8_model_module(model_name)
+    folded = folded_on(q.fold(state), "meta")
+    calls: dict = {}
+
+    def op(name, x, stride, padding, dilation):
+        kernel, bias = folded[name]
+        if policy(name, tuple(kernel.shape)):
+            calls.setdefault((tuple(x.shape), tuple(kernel.shape), stride,
+                              padding, dilation), []).append(name)
+        return conv_bf16(x, kernel, bias, stride, padding, dilation)
+
+    with torch.no_grad():
+        q.make_walk(folded)(op, torch.empty((BATCH, 3, *size), device="meta",
+                                            dtype=torch.bfloat16))
+    return calls
+
+
+def phase_int8_ops(bisenet_state: dict, deeplab_state: dict) -> dict:
+    """The int8 conv (``ops/quant.py:conv_int8``: im2col + ``_int_mm``) on
+    the card against a float64 ``F.conv2d`` on the card, for every distinct
+    quantized conv of both default policies at full width (BiSeNet-R18
+    1024x2048 b8, DeepLabV2-R101 512x1024 b8), plus the shapes that the
+    GEMM's rules make it pad (a pooled gate at 8 rows with K = N = 19, the
+    3-channel stems at K = 27 and 147): the int32 results must be equal.
+    Then ``quantize_kernel``, ``quantize_act``, ``fold_bn`` and the whole
+    BiSeNet fold on the card against the CPU, exactly."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    calls = {}
+    for model_name, state, size in (("bisenet", bisenet_state, SIZE),
+                                    ("deeplab", deeplab_state,
+                                     DEEPLAB_SIZE)):
+        policy = int8_model_module(model_name).default_policy
+        for key, names in quantized_conv_calls(model_name, state, size,
+                                               policy).items():
+            calls.setdefault(key, []).extend(f"{model_name}:{n}"
+                                             for n in names)
+    calls[((BATCH, CLASSES, 1, 1), (CLASSES, CLASSES, 1, 1), 1, 0, 1)] = [
+        "padded: a pooled gate, M=8 K=N=19"]
+    calls[((BATCH, 3, *SIZE), (64, 3, 3, 3), 2, 1, 1)] = [
+        "padded: bisenet:spatial_path/convblock1, K=27"]
+    calls[((BATCH, 3, *SIZE), (64, 3, 7, 7), 2, 3, 1)] = [
+        "padded: bisenet:context_path/conv1, K=147"]
+    rows = []
+    for (xs, ws, stride, padding, dilation), names in calls.items():
+        x_q = torch.randint(-127, 128, xs, generator=gen, device="cuda",
+                            dtype=torch.int8)
+        w_q = torch.randint(-127, 128, ws, generator=gen, device="cuda",
+                            dtype=torch.int8)
+        got = conv_int8(x_q, w_q, stride, padding, dilation)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = F.conv2d(x_q.double(), w_q.double(), None, stride, padding,
+                        dilation)
+        torch.cuda.synchronize()
+        f64_s = time.perf_counter() - t0
+        equal = torch.equal(got.double(), want)
+        rows.append({"input": list(xs), "kernel": list(ws), "stride": stride,
+                     "padding": padding, "dilation": dilation,
+                     "convs": names, "equal": equal,
+                     "int8_ms": cuda_ms(lambda: conv_int8(
+                         x_q, w_q, stride, padding, dilation), reps=5),
+                     "float64_reference_s": f64_s})
+        del x_q, w_q, got, want
+    torch.cuda.empty_cache()
+
+    cpu = torch.Generator().manual_seed(SEED + 41)
+    kernel = (torch.randn((256, 128, 3, 3), generator=cpu)
+              * torch.rand((256, 1, 1, 1), generator=cpu) * 3)
+    x = torch.randn((BATCH, 64, 128, 256), generator=cpu) * 3
+    stats = [torch.rand(256, generator=cpu) + 0.5,
+             torch.randn(256, generator=cpu),
+             0.3 * torch.randn(256, generator=cpu),
+             torch.rand(256, generator=cpu) + 0.5]
+    same = {}
+    wq, ws = quantize_kernel(kernel)
+    wq_c, ws_c = quantize_kernel(kernel.cuda())
+    same["quantize_kernel"] = (torch.equal(wq, wq_c.cpu())
+                               and torch.equal(ws, ws_c.cpu()))
+    same["quantize_act"] = all(
+        torch.equal(quantize_act(x, s), quantize_act(x.cuda(), s).cpu())
+        for s in (0.0123456, 1 / 127, 0.0078125))
+    kf, bf = fold_bn(kernel, None, *stats)
+    kf_c, bf_c = fold_bn(kernel.cuda(), None, *(t.cuda() for t in stats))
+    same["fold_bn"] = (torch.equal(kf, kf_c.cpu())
+                       and torch.equal(bf, bf_c.cpu()))
+    folded = fold_bisenet(bisenet_state)
+    folded_c = fold_bisenet({k: v.cuda() for k, v in bisenet_state.items()})
+    same["fold_bisenet"] = all(
+        torch.equal(k, folded_c[n][0].cpu())
+        and (b is None or torch.equal(b, folded_c[n][1].cpu()))
+        for n, (k, b) in folded.items())
+    emit({"phase": "int8_ops", "route": "torch._int_mm (cuBLASLt int8 "
+          "GEMM) over an int8 im2col", "reference": "float64 F.conv2d on "
+          "the card", "distinct_convs": len(rows),
+          "all_equal": all(r["equal"] for r in rows), "convs": rows,
+          "card_equals_cpu": same})
+    bad = [r for r in rows if not r["equal"]]
+    if bad:
+        raise AssertionError(f"int8 convs differ from float64: {bad[:3]}")
+    if not all(same.values()):
+        raise AssertionError(f"int8 ops on the card != the CPU's: {same}")
+    return {"distinct_convs": len(rows)}
+
+
+def _int8_validation(model: torch.nn.Module, size: tuple[int, int],
+                     seed: int) -> tuple:
+    """``validate`` of an int8 model over TRAIN_VAL_BATCHES synthetic
+    batches at ``size``, each histogram held against the plain one; a
+    main path (K1).  Returns ``(mIoU, eval step ms, K1 launches)``."""
+    val = _synthetic_batches(TRAIN_VAL_BATCHES, size, seed=seed)
+    step_ms = []
+
+    def run():
+        return validate(model, iter(val), CLASSES, class_names=CLASS_NAMES,
+                        eval_step=checked_eval_step(make_eval_step(
+                            model, CLASSES, return_preds=True), step_ms),
+                        device="cuda")
+
+    (miou, per_class), launches, _ = on_main_path(run)
+    if not 0.0 <= miou <= 1.0 or len(per_class) != CLASSES:
+        raise AssertionError(f"int8 mIoU {miou}, {len(per_class)} classes")
+    return miou, step_ms, launches["fast_hist_cuda"]
+
+
+def _tree_on(qtree: dict, device) -> dict:
+    return {kind: {name: tuple(None if t is None else t.to(device)
+                               for t in entry)
+                   for name, entry in qtree[kind].items()}
+            for kind in ("q8", "bf16")}
+
+
+def int8_walk_card_vs_cpu(model_name: str, qtree: dict,
+                          x: torch.Tensor) -> dict:
+    """The float32 int8 walk of ``qtree`` (``*_int8_apply(out_dtype=
+    float32)``) on one full-width frame ``x``, on the card with TF32 off
+    and on the CPU on the same tree: fails unless the logits agree within
+    INT8_WALK_ATOL_SHARE of their peak and the argmax on at least
+    INT8_WALK_MIN_ARGMAX of the pixels.  The CPU's walk is the one the CPU
+    tests hold against the JAX package."""
+    apply = (bisenet_int8_apply if model_name == "bisenet"
+             else deeplab_int8_apply)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+                torch.inference_mode():
+            got = apply(qtree, x, out_dtype=torch.float32).cpu()
+            t0 = time.perf_counter()
+            want = apply(_tree_on(qtree, "cpu"), x.cpu(),
+                         out_dtype=torch.float32)
+            cpu_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    peak = float(want.abs().max())
+    result = {"frame": list(x.shape), "logit_peak": peak,
+              "max_abs_err_over_peak": float((got - want).abs().max()) / peak,
+              "argmax_agreement": float((got.argmax(1) == want.argmax(1))
+                                        .float().mean()),
+              "cpu_walk_s": cpu_s, "atol_share": INT8_WALK_ATOL_SHARE,
+              "min_argmax": INT8_WALK_MIN_ARGMAX}
+    if (not math.isfinite(peak)
+            or result["max_abs_err_over_peak"] > INT8_WALK_ATOL_SHARE
+            or result["argmax_agreement"] < INT8_WALK_MIN_ARGMAX):
+        raise AssertionError(f"{model_name} float32 int8 walk on the card "
+                             f"differs from the CPU's: {result}")
+    return result
+
+
+def planted_fault_agreement(model: QuantizedSegmentor, x: torch.Tensor,
+                            want: np.ndarray) -> float:
+    """The share of pixels where ``model`` with every quantized conv's
+    dequantization scale doubled (a planted wiring fault) still gives the
+    bf16 masks ``want``: what MIN_INT8_AGREEMENT is to stay above."""
+    tree = model.qtree
+    tree["q8"] = {name: (w_q, 2 * w_scale, x_scale, bias)
+                  for name, (w_q, w_scale, x_scale, bias)
+                  in tree["q8"].items()}
+    broken = QuantizedSegmentor(model._walk, tree)
+    with torch.inference_mode():
+        masks = broken(x).argmax(dim=1).to(torch.uint8).cpu().numpy()
+    return float((masks == want).mean())
+
+
+def phase_int8_serving(bisenet_tree: dict, frames: np.ndarray,
+                       deeplab_tree: dict, dl_frames: np.ndarray) -> dict:
+    """``Predictor(quantize="int8")`` for both models at full width, b8:
+    calibrated on INT8_CALIB_BATCHES batches with the max and with the
+    99.9th-percentile statistic (every conv's scale finite and positive,
+    the percentile's at most the max's), masks checked and held against
+    the bf16 predictor's (the share of equal pixels, at least
+    MIN_INT8_AGREEMENT), ``predict`` p50 and forward + argmax with the
+    inputs on the card, int8 against bf16; one frame's float32 int8 walk
+    held against the CPU's (:func:`int8_walk_card_vs_cpu`) and a planted
+    fault's agreement (:func:`planted_fault_agreement`); ``validate`` of
+    each int8 model
+    (K1, a main path each); and DeepLab's sliding (1024x2048 in 512x1024
+    windows) and ensemble (0.75/1/1.25 + flip) protocols in int8 on the
+    same scales, held against their bf16 masks and timed.  Returns the K1
+    launches by path."""
+    out, launches = {}, {}
+    for model_name, tree, size, fr in (
+            ("bisenet", bisenet_tree, SIZE, frames),
+            ("deeplab", deeplab_tree, DEEPLAB_SIZE, dl_frames)):
+        common = {"model_name": model_name, "variables": tree,
+                  "image_size": size, "batch_size": BATCH, "device": "cuda"}
+        calib = fr[:INT8_CALIB_BATCHES * BATCH]
+        batch = fr[:BATCH]
+        bf16 = Predictor(**common).warmup()
+        want = bf16.predict(batch)
+        res = {"calib_frames": len(calib)}
+        preds = {}
+        for stat in ("max", "percentile"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred = Predictor(quantize="int8", calib_frames=calib,
+                             calib_stat=stat, calib_percentile=99.9,
+                             **common)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            scales = pred.act_scales
+            if not all(math.isfinite(v) and v > 0 for v in scales.values()):
+                raise AssertionError(f"{model_name} {stat} scales {scales}")
+            masks = pred.predict(batch)
+            _masks_ok(masks, (BATCH, *size), f"{model_name} int8 {stat}")
+            res[stat] = {"build_and_calibrate_s": build_s,
+                         "quantized_convs": len(pred.model.qtree["q8"]),
+                         "bf16_convs": len(pred.model.qtree["bf16"]),
+                         "int8_vs_bf16_pixel_agreement":
+                             float((masks == want).mean())}
+            preds[stat] = pred
+        over = [n for n, s in preds["percentile"].act_scales.items()
+                if s > preds["max"].act_scales[n]]
+        if over:
+            raise AssertionError(f"{model_name} percentile scales above "
+                                 f"the max's: {over[:4]}")
+        int8 = preds["max"]
+        del preds
+        x = normalize(torch.from_numpy(batch).cuda()).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            res["forward_argmax_ms"] = {
+                "bf16": cuda_ms(lambda: bf16.model(x.to(torch.bfloat16))
+                                .argmax(dim=1), reps=10),
+                "int8": cuda_ms(lambda: int8.model(x).argmax(dim=1),
+                                reps=10)}
+        res["predict_p50_ms"] = {
+            "bf16": cuda_ms(lambda: bf16.predict(batch), reps=10),
+            "int8": cuda_ms(lambda: int8.predict(batch), reps=10)}
+        res["f32_walk_card_vs_cpu"] = int8_walk_card_vs_cpu(
+            model_name, int8.model.qtree, x[:1])
+        res["planted_fault_pixel_agreement"] = planted_fault_agreement(
+            int8.model, x, want)
+        del x, bf16
+        torch.cuda.empty_cache()
+        miou, step_ms, k1 = _int8_validation(int8.model, size,
+                                             SEED + 42)
+        res.update({"validation_mIoU": miou, "eval_step_ms": step_ms})
+        launches[f"{model_name}_int8_validation"] = k1
+        if model_name == "deeplab":
+            res["protocols"] = {}
+            for name, psize, kwargs, pf in (
+                    ("sliding", SIZE, {"window": DEEPLAB_SIZE},
+                     frames[:BATCH]),
+                    ("ensemble", DEEPLAB_SIZE, {"scales": DEEPLAB_SCALES},
+                     batch)):
+                kw = {**common, "image_size": psize, "protocol": name,
+                      "protocol_kwargs": kwargs}
+                ref = Predictor(**kw).predict(pf)
+                torch.cuda.empty_cache()
+                q8 = Predictor(quantize="int8", act_scales=int8.act_scales,
+                               **kw).warmup()
+                masks = q8.predict(pf)
+                _masks_ok(masks, (len(pf), *psize), f"deeplab int8 {name}")
+                ms = cuda_ms(lambda: q8.predict(pf), reps=5, warmup=1)
+                res["protocols"][name] = {
+                    "image_size": list(psize), **kwargs,
+                    "int8_p50_ms_per_batch": ms,
+                    "int8_vs_bf16_pixel_agreement":
+                        float((masks == ref).mean())}
+                del q8
+                torch.cuda.empty_cache()
+        out[model_name] = res
+        del int8
+        torch.cuda.empty_cache()
+    emit({"phase": "int8_serving", "image_sizes": {
+        "bisenet": list(SIZE), "deeplab": list(DEEPLAB_SIZE)},
+        "batch": BATCH, "min_int8_agreement": MIN_INT8_AGREEMENT, **out,
+        "launches": launches})
+    for model_name, res in out.items():
+        worst = min([res[s]["int8_vs_bf16_pixel_agreement"]
+                     for s in ("max", "percentile")]
+                    + [r["int8_vs_bf16_pixel_agreement"]
+                       for r in res.get("protocols", {}).values()])
+        if worst < MIN_INT8_AGREEMENT[model_name]:
+            raise AssertionError(
+                f"{model_name} int8 masks agree with bf16 on {worst:.4%} "
+                f"of pixels, below {MIN_INT8_AGREEMENT[model_name]:.0%}")
+    return launches
+
+
+@contextlib.contextmanager
+def fake_quant_routing(codes: list, replay: bool = False):
+    """``ops/quant.py:fake_quant_act`` records, in call order, the int8
+    codes it rounds each activation to; with ``replay`` it takes the codes
+    ``codes`` recorded instead, so the step sees another run's activation
+    grid.  Yields a dict whose ``flips`` counts the codes that the replay
+    overrode."""
+    plain = quant.fake_quant_act
+    recorded = iter(list(codes)) if replay else None
+    seen = {"flips": 0}
+
+    def routed(x, scale):
+        xf = x.to(torch.float32)
+        s = torch.as_tensor(scale, dtype=torch.float32, device=xf.device)
+        own = torch.clamp(torch.round(xf / s), -127, 127)
+        if recorded is None:
+            codes.append(own.detach().cpu())
+            return plain(x, scale)
+        q = next(recorded).to(xf.device)
+        seen["flips"] += int((own != q).sum())
+        dq = q * s
+        ste = xf + (dq - xf).detach()
+        return torch.where(xf.abs() <= s * 127.0, ste, dq.detach())
+
+    quant.fake_quant_act = routed
+    try:
+        yield seen
+    finally:
+        quant.fake_quant_act = plain
+
+
+def qat_step_card_vs_cpu(state: dict) -> dict:
+    """One float32 QAT step (fake-quant BiSeNet-R18 of ``state``, b2,
+    64x128, SGD) on the card with TF32 off and on the CPU, from one prep
+    (the CPU's fold and scales); fails unless the losses agree to
+    QAT_LOSS_RTOL and every parameter's update to QAT_UPDATE_RTOL of its
+    tensor's largest update + 1e-6.  The fake-quant forward is not
+    continuous: an activation within rounding of a half step takes either
+    code, and a 1e-6 relative change of the input moved the loss by 1% on
+    the CPU.  So the CPU step takes the card's activation codes and ReLU
+    routing (:func:`fake_quant_routing`, :func:`relu_routing`), and fails
+    if it overrode more than MAX_QAT_REPLAYED_FLIPS codes and signs."""
+    ds = SyntheticSegDataset(2, (64, 128), CLASSES, seed=SEED + 43,
+                             fixed_tints=True)
+    images = normalize(torch.from_numpy(np.stack([ds[i][0]
+                                                  for i in range(2)])))
+    labels = torch.from_numpy(np.stack([ds[i][1] for i in range(2)]))
+    prep = prepare_qat("bisenet", state, [images.permute(0, 3, 1, 2)],
+                       device="cpu")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    states, metrics, before = {}, {}, None
+    codes, masks, flips = [], [], {}
+    try:
+        for dev in ("cuda", "cpu"):
+            p = prep._replace(folded=folded_on(prep.folded, dev))
+            states[dev] = create_qat_state(p, 0.01, "SGD")
+            before = {k: v.detach().clone().cpu() for k, v in
+                      states[dev].model.named_parameters()}
+            replay = dev == "cpu"
+            with fake_quant_routing(codes, replay) as fq, \
+                    relu_routing(masks, replay) as relu:
+                metrics[dev] = make_train_step(19)(
+                    states[dev], images.to(dev), labels.to(dev))
+            flips = {"fake_quant_codes": fq["flips"],
+                     "relu_signs": relu["flips"]}
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    loss = {d: float(m["train_loss"]) for d, m in metrics.items()}
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    gpu = dict(states["cuda"].model.named_parameters())
+    worst, over = 0.0, []
+    for k, p in states["cpu"].model.named_parameters():
+        upd = p.detach() - before[k]
+        err = (gpu[k].detach().cpu() - p.detach()).abs().max()
+        limit = QAT_UPDATE_RTOL * upd.abs().max() + 1e-6
+        ratio = float(err / limit)
+        worst = max(worst, ratio)
+        if ratio > 1.0:
+            over.append(k)
+    result = {"losses": loss, "loss_rel_diff": loss_err,
+              "replayed_flips": flips,
+              "worst_update_err_over_limit": worst,
+              "tensors_over_limit": over, "loss_rtol": QAT_LOSS_RTOL,
+              "update_rtol": QAT_UPDATE_RTOL,
+              "max_replayed_flips": MAX_QAT_REPLAYED_FLIPS}
+    if (loss_err > QAT_LOSS_RTOL or over
+            or sum(flips.values()) > MAX_QAT_REPLAYED_FLIPS):
+        raise AssertionError(f"the QAT step on the card differs from the "
+                             f"CPU's: {result}")
+    return result
+
+
+def phase_qat(tree: dict, frames: np.ndarray, labels: np.ndarray) -> dict:
+    """Quantization-aware fine-tuning of BiSeNet-R18 at ``qat.py``'s CLI
+    defaults (1024x2048, b8, lr 1e-5, float32 fake-quant): ``finetune`` on
+    in-memory frames for QAT_STEPS steps, writing the serving checkpoint and
+    its scales sidecar; the step's p50 and peak memory from ``train_bench
+    --qat`` (b4 when b8 does not fit, said in the line); ``export_int8``'s
+    weights equal the fake-quant grid and its activation grid the
+    fake-quant activations'; ``writeback`` re-folds to the tuned tree bit
+    for bit, and cuDNN's eval BN on it equals the folded walk within
+    float32 rounding (TF32 off); the checkpoint served by
+    ``Predictor.from_checkpoint(quantize="int8")`` takes the sidecar's
+    scales; one float32 step on the card held against the CPU's."""
+    from rtsds_tpu_torch.qat import finetune
+
+    state = {k: v for k, v in state_dict_from_flax(tree).items()}
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_qat_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = finetune(state, lambda idx: frames[idx], lambda idx: labels[idx],
+                     len(frames), tmp.name, model_name="bisenet",
+                     batch_size=BATCH, steps=QAT_STEPS, lr=1e-5,
+                     calib_batches=1, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    finetune_s = time.perf_counter() - t0
+    if not math.isfinite(stats["final_loss"]):
+        raise AssertionError(f"QAT fine-tune: {stats}")
+    torch.cuda.empty_cache()
+
+    bench = None
+    for batch in (BATCH, BATCH // 2):
+        try:
+            bench = supervised_step_benchmark(
+                "bisenet", batch_size=batch, image_size=SIZE, steps=3,
+                repeats=3, seed=SEED, qat=True)
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+    if bench is None or not math.isfinite(bench["last_train_loss"]):
+        raise AssertionError(f"QAT step bench: {bench}")
+    torch.cuda.empty_cache()
+
+    x = normalize(torch.from_numpy(frames[:BATCH]).cuda()).permute(0, 3, 1, 2)
+    prep = prepare_qat("bisenet", state, [x], device="cuda")
+    exported = export_int8(prep).qtree["q8"]
+    grid_ok = set(exported) == set(prep.quant_names) and all(
+        torch.equal(w_q.float() * w_s.reshape(-1, 1, 1, 1),
+                    fake_quant_kernel(prep.folded[n][0]))
+        for n, (w_q, w_s, _, _) in exported.items())
+    scale = next(iter(exported.values()))[2]
+    grid_ok &= torch.equal(fake_quant_act(x, scale),
+                           quantize_act(x, scale).float() * scale)
+    written = writeback("bisenet", state, prep.folded)
+    refold = fold_bisenet(written)
+    refold_exact = all(
+        torch.equal(k, prep.folded[n][0].cpu())
+        and (b is None or torch.equal(b, prep.folded[n][1].cpu()))
+        for n, (k, b) in refold.items())
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = load_segmentor_state(BiSeNet(output_f32=False), written)
+        model = model.cuda().eval()
+        with torch.inference_mode():
+            xb = x[:2]
+            bn = model(xb)
+            walk = bisenet_bf16_apply({k: v.cuda() for k, v in
+                                       written.items()}, xb,
+                                      dtype=torch.float32)
+        bn_err = float((bn - walk).abs().max())
+        bn_scale = float(walk.abs().max())
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    del model, bn, walk
+    torch.cuda.empty_cache()
+
+    served = Predictor.from_checkpoint(tmp.name, quantize="int8",
+                                       image_size=SIZE, batch_size=BATCH,
+                                       device="cuda")
+    sidecar = load_act_scales(tmp.name)[0]
+    q8 = served.model.qtree["q8"]
+    sidecar_served = (served.act_scales == sidecar and all(
+        float(entry[2]) == float(np.float32(sidecar[n]))
+        for n, entry in q8.items()))
+    _masks_ok(served.predict(frames[:BATCH]), (BATCH, *SIZE), "QAT served")
+    del served
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    check = qat_step_card_vs_cpu(state)
+    emit({"phase": "qat", "model": "bisenet-resnet18",
+          "image_size": list(SIZE), "dtype": "float32 (fake-quant)",
+          "finetune": {**{k: stats[k] for k in (
+              "steps", "final_loss", "quantized_convs", "bf16_convs",
+              "calib_stat")}, "wall_s": finetune_s},
+          "step_bench": {"batch": bench["batch_size"],
+                         "fits_b8": bench["batch_size"] == BATCH,
+                         "step_p50_ms": bench["ms_per_step"],
+                         "steps_per_sec": bench["steps_per_sec"],
+                         "max_memory_gb": bench["max_memory_gb"]},
+          "export_grid_equals_fake_quant": grid_ok,
+          "writeback_refold_exact": refold_exact,
+          "eval_bn_vs_folded_walk_max_abs_err": bn_err,
+          "folded_walk_logit_max_abs": bn_scale,
+          "from_checkpoint_serves_sidecar_scales": sidecar_served,
+          "step_card_vs_cpu_float32": check})
+    if not (grid_ok and refold_exact and sidecar_served):
+        raise AssertionError("QAT export, write-back or sidecar check "
+                             "failed")
+    if not bn_err <= 1e-4 * max(1.0, bn_scale):
+        raise AssertionError(f"eval BN on the written-back weights differs "
+                             f"from the folded walk by {bn_err}")
+    return {"step_p50_ms": bench["ms_per_step"]}
+
+
+def phase_distillation_int8() -> dict:
+    """The int8 distillation teacher through the CLI's path
+    (``cli.supervised_train_step`` with ``distillation.teacher.quantize:
+    int8``): a DeepLabV2-R101 teacher checkpoint written by the port,
+    quantized by ``quantize_teacher`` after calibration on 2 training
+    batches (K2 in their transform), then the loader rewound; BiSeNet-R18
+    distils from it through ``supervised_fit``, an epoch of TRAIN_STEPS
+    steps at 720x1280 b8 bf16 on colour-coded labels (K2), validated at
+    512x1024 (K1).  The int8-teacher step's p50 beside the bf16 teacher's
+    (``train_bench --distill deeplab [--distill_quant int8]``).  Returns
+    the launches."""
+    import argparse
+
+    from rtsds_tpu_torch import cli
+    from rtsds_tpu_torch.callbacks.checkpoint import CheckpointManager
+    from rtsds_tpu_torch.train import distill
+
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_kd8_")
+    teacher, _ = make_segmentor(train_config(), "deeplab", seed=SEED + 22)
+    CheckpointManager(tmp.name).save(0, {"model": TrainState(
+        teacher, make_optimizer("SGD", teacher.parameters(), 0.01))},
+        monitor=0.5)
+    del teacher
+    config = load_config(overrides={
+        "precision": {"compute_dtype": "bfloat16"},
+        "training": {"segmentation": {
+            "epochs": 1, "do_validation": 1,
+            "distillation": {"enabled": True, "teacher": {
+                "model": "deeplab", "checkpoint_dir": tmp.name,
+                "quantize": "int8", "calib_batches": 2}}}}})
+    args = argparse.Namespace(seed=SEED, model="bisenet",
+                              validate_only=False)
+    loader, transform = _gta5_stream(TRAIN_STEPS * TRAIN_BATCH, SEED + 44)
+    state = build_supervised(config, "bisenet", len(loader), dev, seed=SEED)
+
+    def batches(epoch):
+        return device_batches(loader, transform, dev, seed=SEED, epoch=epoch)
+
+    made = []
+    plain_quantize = distill.quantize_teacher
+
+    def recorded(name, teacher_state, calib, **kwargs):
+        calib = list(calib)
+        module = plain_quantize(name, teacher_state, calib, **kwargs)
+        made.append({"model": name, "calib_batches": len(calib),
+                     "quantized_convs": len(module.qtree["q8"]),
+                     "bf16_convs": len(module.qtree["bf16"])})
+        return module
+
+    losses = []
+
+    class _KD(Callback):
+        def on_batch_end(self, batch, logs=None):
+            losses.append({k: logs[k] for k in ("train_loss", "loss_ce",
+                                                "loss_distill")})
+
+    def run():
+        step = cli.supervised_train_step(
+            args, config, config.training["segmentation"], loader, dev,
+            lambda: batches(0))
+        return supervised_fit(
+            state, step, batches, _val_stream(), epochs=1,
+            num_classes=CLASSES, class_names=CLASS_NAMES, callbacks=[_KD()],
+            device=dev)
+
+    distill.quantize_teacher = recorded
+    try:
+        (_, history), launches, checked = on_main_path(run)
+    finally:
+        distill.quantize_teacher = plain_quantize
+    tmp.cleanup()
+    if len(made) != 1 or made[0]["calib_batches"] != 2:
+        raise AssertionError(f"the CLI made int8 teachers {made}")
+    if len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for row in losses for v in row.values()):
+        raise AssertionError(f"int8-teacher distillation losses {losses}")
+    if checked != TRAIN_STEPS + 2 or len(history) != 1:
+        raise AssertionError(f"{checked} K2 calls checked, {history}")
+    del state
+    torch.cuda.empty_cache()
+    bench = {}
+    for quant in ("int8", None):
+        b = supervised_step_benchmark(
+            "bisenet", batch_size=TRAIN_BATCH, image_size=TRAIN_SIZE,
+            steps=DA_BENCH_STEPS, repeats=3, seed=SEED, distill="deeplab",
+            distill_quant=quant)
+        torch.cuda.empty_cache()
+        if not math.isfinite(b["last_train_loss"]):
+            raise AssertionError(f"distillation bench: {b}")
+        bench[quant or "bf16"] = {k: b[k] for k in (
+            "ms_per_step", "steps_per_sec", "teacher_forward_ms",
+            "max_memory_gb")}
+    emit({"phase": "distillation_int8", "student": "bisenet-resnet18",
+          "teacher": "deeplabv2-resnet101 (int8, default policy)",
+          "image_size": list(TRAIN_SIZE), "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "steps": TRAIN_STEPS, "teacher_made": made[0],
+          "losses": losses, "history": history,
+          "k2_outputs_checked": checked, "launches": launches,
+          "step_p50_ms": {k: v["ms_per_step"] for k, v in bench.items()},
+          "bench": bench})
+    return launches
+
+
+def phase_pseudo_label(tree: dict, frames: np.ndarray) -> dict:
+    """The offline pseudo-label sweep's in-memory core at 1024x2048 b8:
+    the int8 model (``sweep_model(quantize="int8", calibrate=True)``,
+    calibrated on one batch) with CBST per-class thresholds; its uint8
+    masks (``infer_masks``) equal ``pseudo_labels`` applied to the int8
+    forward's logits; timed.  No PNG is written (no PIL on the card's
+    machine)."""
+    from rtsds_tpu_torch.pseudo_label import infer_masks, sweep_model
+    from rtsds_tpu_torch.train.self_training import pseudo_labels
+
+    state = state_dict_from_flax(tree)
+    model, thr = sweep_model("bisenet", state, [frames[:BATCH]],
+                             quantize="int8", calibrate=True, device="cuda")
+    thr = np.asarray(thr)
+    if not (isinstance(model, QuantizedSegmentor) and thr.shape == (CLASSES,)
+            and ((thr > 0) & (thr <= 1)).all()):
+        raise AssertionError(f"pseudo-label model/thresholds: {thr}")
+    x = torch.from_numpy(frames[:BATCH]).cuda()
+    masks = infer_masks(model, x, thr)
+    with torch.inference_mode():
+        logits = model(normalize(x).permute(0, 3, 1, 2))
+        want, coverage = pseudo_labels(logits, thr, 19)
+    equal = bool(torch.equal(masks, want.to(torch.uint8)))
+    ms = cuda_ms(lambda: infer_masks(model, x, thr), reps=10)
+    emit({"phase": "pseudo_label", "model": "bisenet-resnet18 int8",
+          "image_size": list(SIZE), "batch": BATCH,
+          "cbst_thresholds": thr.tolist(), "coverage": float(coverage),
+          "masks_equal_pseudo_labels_of_int8_logits": equal,
+          "masks_dtype": str(masks.dtype), "p50_ms_per_batch": ms})
+    if not equal or masks.dtype != torch.uint8:
+        raise AssertionError("pseudo-label masks != pseudo_labels of the "
+                             "int8 logits")
+    return {"p50_ms": ms}
+
+
+def phase_quant_bench() -> dict:
+    """``bench/quant_bench.py`` on the card: ``bench_e2e`` (DeepLabV2-R101
+    512x1024 b8) and ``bench_e2e_bisenet`` (1024x2048 at the JAX package's
+    b48 and at b8), the default policy against bf16 (and the folded bf16
+    walk), and the per-shape rows of DeepLab's 3x3 convs, with the int8
+    conv's im2col and GEMM apart."""
+    from rtsds_tpu_torch.bench.quant_bench import (
+        DEEPLAB_CONVS, bench_e2e, bench_e2e_bisenet, bench_shape)
+
+    e2e = {"deeplab_b8": bench_e2e(batch=BATCH, image_size=DEEPLAB_SIZE,
+                                   iterations=QB_ITERS)}
+    torch.cuda.empty_cache()
+    for batch in (48, BATCH):
+        e2e[f"bisenet_b{batch}"] = bench_e2e_bisenet(
+            batch=batch, iterations=QB_ITERS)
+        torch.cuda.empty_cache()
+    rows = []
+    for name, count, h, w, cin, cout, k, dil in DEEPLAB_CONVS:
+        if k == 3:
+            rows.append({**bench_shape(name, BATCH, h, w, cin, cout, k, dil,
+                                       iterations=QB_ITERS), "count": count})
+    torch.cuda.empty_cache()
+    emit({"phase": "quant_bench", "iterations": QB_ITERS, "e2e": e2e,
+          "deeplab_3x3_shapes": rows})
+    for r in e2e.values():
+        if not (r["bf16_ms"] > 0 and r["default"]["int8_ms"] > 0):
+            raise AssertionError(f"quant_bench e2e: {r}")
+    return e2e
+
+
 def timed_entry(kernel, plain, library, nbytes: int) -> dict:
     """The measured keys of a ``kernels`` entry: the kernel's device time
     (median, min, max), its wrapper's host cost, the plain version's and
@@ -2475,20 +3216,63 @@ def kernels_only() -> int:
     return 0
 
 
+def serving_data() -> tuple:
+    """The serving frames (and their labels) and the seeded, BN-calibrated
+    weight trees of BiSeNet-R18 at SIZE and DeepLabV2-R101 at
+    DEEPLAB_SIZE: ``(frames, labels, tree, dl_frames, dl_tree)``."""
+    ds = SyntheticSegDataset(SERVE_FRAMES + 2, SIZE, CLASSES, seed=SEED,
+                             fixed_tints=True)
+    frames = np.stack([ds[i][0] for i in range(SERVE_FRAMES)])
+    labels = np.stack([ds[i][1] for i in range(SERVE_FRAMES)])
+    calib = np.stack([ds[SERVE_FRAMES + i][0] for i in range(2)])
+    tree = calibrate_batch_stats(random_flax_bisenet(SEED), calib, "cuda")
+    dl_ds = SyntheticSegDataset(SERVE_FRAMES + 2, DEEPLAB_SIZE, CLASSES,
+                                seed=SEED + 10, fixed_tints=True)
+    dl_frames = np.stack([dl_ds[i][0] for i in range(SERVE_FRAMES)])
+    dl_tree = calibrate_batch_stats(
+        random_flax_deeplab(SEED),
+        np.stack([dl_ds[SERVE_FRAMES + i][0] for i in range(2)]), "cuda",
+        DeepLabV2)
+    return frames, labels, tree, dl_frames, dl_tree
+
+
+def int8_phases(frames, labels, tree, dl_frames, dl_tree) -> dict:
+    """The int8 phases; returns the K1 and K2 launches of their main paths
+    (int8 validation of each model, the int8-teacher distillation)."""
+    phase_int8_ops(state_dict_from_flax(tree), state_dict_from_flax(dl_tree))
+    launches = {"fast_hist_cuda": phase_int8_serving(tree, frames, dl_tree,
+                                                     dl_frames),
+                "rgb_to_train_ids_cuda": {}}
+    torch.cuda.empty_cache()
+    phase_qat(tree, frames, labels)
+    torch.cuda.empty_cache()
+    kd = phase_distillation_int8()
+    for kernel, n in kd.items():
+        launches[kernel]["bisenet_distillation_int8"] = n
+    torch.cuda.empty_cache()
+    phase_pseudo_label(tree, frames)
+    torch.cuda.empty_cache()
+    phase_quant_bench()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:] == ["--kernels-only"]:
         return kernels_only()
+    if sys.argv[1:] == ["--int8-only"]:
+        phase_device()
+        int8_phases(*serving_data())
+        print(gpu_name_and_power_limit(), flush=True)
+        return 0
     if sys.argv[1:]:
-        raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only | "
+                         f"--int8-only]")
     device = phase_device()
     hist_err = phase_hist_check()
     remap_err = phase_remap_check()
 
-    ds = SyntheticSegDataset(SERVE_FRAMES + 2, SIZE, CLASSES, seed=SEED,
-                             fixed_tints=True)
-    frames = np.stack([ds[i][0] for i in range(SERVE_FRAMES)])
-    calib = np.stack([ds[SERVE_FRAMES + i][0] for i in range(2)])
-    tree = calibrate_batch_stats(random_flax_bisenet(SEED), calib, "cuda")
+    frames, frame_labels, tree, dl_frames, dl_tree = serving_data()
 
     # main path 1: serving and validation
     fast_hist_cuda.launches = 0
@@ -2518,15 +3302,7 @@ def main() -> int:
     # main paths 4-8: DeepLabV2-R101 serving (no hand-written kernel on
     # it), validation under each protocol, training, DA (counts reset
     # inside each, just before)
-    dl_ds = SyntheticSegDataset(SERVE_FRAMES + 2, DEEPLAB_SIZE, CLASSES,
-                                seed=SEED + 10, fixed_tints=True)
-    dl_frames = np.stack([dl_ds[i][0] for i in range(SERVE_FRAMES)])
-    dl_tree = calibrate_batch_stats(
-        random_flax_deeplab(SEED),
-        np.stack([dl_ds[SERVE_FRAMES + i][0] for i in range(2)]), "cuda",
-        DeepLabV2)
     phase_deeplab_serving(dl_tree, dl_frames, frames[:BATCH])
-    del dl_frames
     dl_val = phase_deeplab_validation(dl_tree)
     dl_train = phase_deeplab_training()
     dl_da = phase_deeplab_da()
@@ -2551,6 +3327,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     extras["distillation"] = phase_distillation()
     torch.cuda.empty_cache()
+    # main paths 15-17: int8 validation of each model and the int8-teacher
+    # distillation (counts reset inside each, just before)
+    int8 = int8_phases(frames, frame_labels, tree, dl_frames, dl_tree)
 
     hist_paths = {"bisenet_serving_validation": serve_launches,
                   "bisenet_training": train_launches["fast_hist_cuda"],
@@ -2560,7 +3339,8 @@ def main() -> int:
                   "deeplab_da": dl_da["launches"]["fast_hist_cuda"],
                   **{f"bisenet_{k}": n["fast_hist_cuda"]
                      for k, n in extras.items()},
-                  "bisenet_serving_checkpoint": serve_ckpt["fast_hist_cuda"]}
+                  "bisenet_serving_checkpoint": serve_ckpt["fast_hist_cuda"],
+                  **int8["fast_hist_cuda"]}
     remap_paths = {
         "bisenet_training": train_launches["rgb_to_train_ids_cuda"],
         "bisenet_da": da_launches["rgb_to_train_ids_cuda"],
@@ -2570,7 +3350,8 @@ def main() -> int:
            for k, n in extras.items()},
         # the training that wrote the served checkpoint: the same launches
         # as bisenet_ema_accumulate's, counted once in the total
-        "bisenet_serving_checkpoint": ema["launches"]["rgb_to_train_ids_cuda"]}
+        "bisenet_serving_checkpoint": ema["launches"]["rgb_to_train_ids_cuda"],
+        **int8["rgb_to_train_ids_cuda"]}
     if serve_ckpt["rgb_to_train_ids_cuda"]:
         raise AssertionError("serving launched K2")
     for kernel, paths in (("K1", hist_paths), ("K2", remap_paths)):

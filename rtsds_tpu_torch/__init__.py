@@ -25,12 +25,19 @@ Entry points run on the GPU unless the caller asks for the CPU: see
   self-training with CBST and ClassMix, distillation), on raw GTA5 labels
   remapped on the device by the RGB -> trainId CUDA kernel
   (:mod:`rtsds_tpu_torch.ops.cuda.remap`);
+* W8A8 int8 (:mod:`rtsds_tpu_torch.ops.quant`): post-training
+  quantization of BiSeNet and DeepLabV2 with max-abs or percentile
+  calibration, served through ``Predictor(quantize="int8")``, the serve
+  CLI and the server; quantization-aware fine-tuning (``python -m
+  rtsds_tpu_torch.qat``) with its activation-scale sidecar; the int8
+  distillation teacher; the offline pseudo-label sweep (``python -m
+  rtsds_tpu_torch.pseudo_label``);
 * tools: ``ckpt_info`` (what a checkpoint directory holds),
   ``export_torch`` (a checkpoint's weights in the reference models'
   layouts), tracing (:mod:`rtsds_tpu_torch.utils.profiling`), and the
   benches (:mod:`rtsds_tpu_torch.bench`; ``python -m
   rtsds_tpu_torch.bench`` prints the one-line record).
 
-Not ported yet: int8/QAT, multi-device parallelism, AOT serving
-artifacts, and the rest of the training-loop tooling (``ROADMAP.md``).
+Not ported yet: multi-device parallelism, AOT serving artifacts, and the
+rest of the training-loop tooling (``ROADMAP.md``).
 """

@@ -32,6 +32,7 @@ from rtsds_tpu_torch.bench.flops import model_flops, mfu
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
+from rtsds_tpu_torch.ops.quant import quantize_model
 
 # fewest per-call samples each tail percentile is reported from
 MIN_SAMPLES = {"p95_ms": 20, "p99_ms": 100}
@@ -113,6 +114,18 @@ def make_model(model_name: str, device, dtype=torch.bfloat16, seed: int = 0,
         else:
             raise ValueError(f"unknown model {model_name!r}")
     return model.to(device=device, dtype=dtype).eval()
+
+
+def int8_timing(timed, model_name: str, model: torch.nn.Module,
+                x: torch.Tensor, bf16_stats: dict, device) -> dict:
+    """The int8 keys of a protocol bench: ``timed`` (the bench's own
+    predict timer) run on the W8A8 model of ``model``'s weights (default
+    policy, calibrated on ``x``), beside the bf16 run's ``bf16_stats``."""
+    state = {k: v.float() for k, v in model.state_dict().items()}
+    q8 = timed(quantize_model(model_name, state, [x], device=device))
+    return {"int8_ms": q8["mean_ms"], "int8_p50_ms": q8["p50_ms"],
+            "int8_fps": q8["fps"],
+            "speedup": bf16_stats["mean_ms"] / q8["mean_ms"]}
 
 
 def random_input(shape, device, seed: int) -> torch.Tensor:

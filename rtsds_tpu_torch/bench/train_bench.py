@@ -15,7 +15,10 @@ updates in place; after warmup, CUDA events bracket each repeat of
 prints one JSON line (bf16).  ``--distill MODEL`` benches the distillation
 step (``train/distill.py``) with a teacher of that model made from the seed
 + 1, whose eval forward the step runs; the line adds the teacher forward's
-own time.  Without a GPU it raises.  The QAT step is not ported yet.
+own time; ``--distill_quant int8`` makes that teacher the W8A8 int8 model
+(calibrated on the bench input).  ``--qat`` benches the QAT fine-tune step
+(``train/qat.py``: the fake-quant forward over the BN-folded tree, float32
+by design).  Without a GPU it raises.
 """
 
 from __future__ import annotations
@@ -30,9 +33,9 @@ from rtsds_tpu_torch.config import parse_int_list
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2, frozen_bn_parameters
-from rtsds_tpu_torch.train.distill import make_distill_step
-from rtsds_tpu_torch.train.factory import not_ported
+from rtsds_tpu_torch.train.distill import make_distill_step, quantize_teacher
 from rtsds_tpu_torch.train.optim import make_optimizer
+from rtsds_tpu_torch.train.qat import create_qat_state, prepare_qat
 from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.train.supervised import make_train_step
 from rtsds_tpu_torch.utils.schedules import poly_lr_schedule
@@ -47,16 +50,27 @@ def supervised_step_benchmark(model_name: str = "bisenet",
                               dtype: torch.dtype = torch.bfloat16,
                               backbone: str = "resnet18",
                               bn_eval: bool = False, remat: bool = False,
-                              seed: int = 0, distill: str | None = None
-                              ) -> dict:
+                              seed: int = 0, distill: str | None = None,
+                              distill_quant: str | None = None,
+                              qat: bool = False) -> dict:
     """``ms_per_step`` is the median over ``repeats`` of the mean step time
     of ``steps`` chained steps; ``max_memory_gb`` the peak of the allocated
     device memory during the run, ``memory_at_start_gb`` what was
     allocated before it; with ``distill``, ``teacher_forward_ms`` the
-    median time of the teacher's eval forward alone."""
+    median time of the teacher's eval forward alone (``distill_quant=
+    "int8"``: the int8 teacher's).  ``qat`` times the QAT step, float32
+    whatever ``dtype``."""
     if bn_eval and model_name != "deeplab":
         raise ValueError(f"bn_eval is a deeplab knob (model.deeplab.bn_eval); "
                          f"it does not apply to {model_name!r}")
+    if distill_quant not in (None, "int8"):
+        # a mistyped name must not bench the full-precision teacher under
+        # an int8 label
+        raise ValueError(f"distill_quant {distill_quant!r} is not supported "
+                         f"(int8)")
+    if qat and (distill or bn_eval):
+        raise ValueError("qat composes with neither distill nor bn_eval "
+                         "(BN is frozen-folded already)")
     device = resolve_device(None)
     torch.cuda.reset_peak_memory_stats()
     at_start = torch.cuda.memory_allocated()
@@ -85,9 +99,19 @@ def supervised_step_benchmark(model_name: str = "bisenet",
     labels = torch.zeros((batch_size, *image_size), dtype=torch.int32,
                          device=device)
     step = make_train_step(ignore_index=num_classes)
+    if qat:
+        prep = prepare_qat(model_name, model.state_dict(),
+                           [images.permute(0, 3, 1, 2)], device=device)
+        del model, state
+        state = create_qat_state(prep, poly_lr_schedule(1e-4, 5000, 0.9))
+        dtype = torch.float32
     teacher_ms = None
     if distill:
         teacher = make(distill, seed + 1)[0].to(device)
+        if distill_quant:
+            teacher = quantize_teacher(distill, teacher.state_dict(),
+                                       [images.permute(0, 3, 1, 2)],
+                                       device=device)
         step = make_distill_step(teacher, ignore_index=num_classes)
         x = images.permute(0, 3, 1, 2)
         teacher_times = []
@@ -127,6 +151,7 @@ def supervised_step_benchmark(model_name: str = "bisenet",
             "batch_size": batch_size, "image_size": list(image_size),
             "dtype": str(dtype).replace("torch.", ""), "bn_eval": bn_eval,
             "remat": remat, "distill": distill,
+            "distill_quant": distill_quant, "qat": qat,
             "teacher_forward_ms": teacher_ms, "steps": steps,
             "repeats": repeats,
             "last_train_loss": last_loss,
@@ -152,17 +177,18 @@ def main(argv=None):
                         default=None,
                         help="bench the distillation step with a teacher "
                              "of this model")
+    parser.add_argument("--distill_quant", choices=["int8"], default=None,
+                        help="with --distill: the W8A8 int8 teacher")
     parser.add_argument("--qat", action="store_true",
-                        help="not ported yet: the QAT step")
+                        help="bench the QAT fine-tune step (float32)")
     args = parser.parse_args(argv)
-    if args.qat:
-        raise SystemExit(str(not_ported("the QAT step bench")))
     stats = supervised_step_benchmark(
         args.model, batch_size=args.batch,
         image_size=tuple(parse_int_list(args.size)), steps=args.steps,
         backbone=args.backbone, bn_eval=args.bn_eval, remat=args.remat,
-        distill=args.distill)
-    kind = "distill" if args.distill else "supervised"
+        distill=args.distill, distill_quant=args.distill_quant, qat=args.qat)
+    kind = ("qat" if args.qat else "distill_int8" if args.distill_quant
+            else "distill" if args.distill else "supervised")
     print(json.dumps({"metric": f"{args.model}_{kind}_train_step",
                       "value": stats["ms_per_step"], "unit": "ms/step",
                       **stats}))

@@ -10,7 +10,8 @@ Cityscapes) and validates on Cityscapes every
 (``callbacks.model_checkpoint``); ``training.segmentation`` may add
 ``accumulate_steps`` (gradient accumulation), ``ema`` (an exponential
 moving average of the weights, validated on and checkpointed) or
-``distillation`` (a frozen teacher's soft classes).  The second runs
+``distillation`` (a frozen teacher's soft classes; ``teacher.quantize:
+int8`` runs the teacher through the W8A8 int8 path).  The second runs
 adversarial GTA5 -> Cityscapes domain adaptation
 (``training.domain_adaptation``: ``variant`` v1 or v2,
 ``model.adversarial_model.discriminator.grl`` for the gradient-reversal
@@ -30,9 +31,9 @@ trainIds on the device.
 
 The config's ``device`` key picks the device: ``cpu`` is the CPU, anything
 else the GPU, which raises when there is none.  Features of the JAX CLI
-that are not ported yet (an int8 distillation teacher, a mesh of more than
-one device, ``--multihost``, ``--wandb``, ``--debug``,
-``callbacks.history``) exit with a message saying so.
+that are not ported yet (a mesh of more than one device, ``--multihost``,
+``--wandb``, ``--debug``, ``callbacks.history``) exit with a message
+saying so.
 """
 
 from __future__ import annotations
@@ -97,13 +98,15 @@ def _check_supervised(args, config) -> None:
                          f"the supervised step trains with CrossEntropy")
     dist_cfg = config.training["segmentation"].get("distillation")
     if _enabled(dist_cfg):
-        quantize = (dist_cfg.get("teacher") or {}).get("quantize") or None
+        t_cfg = dist_cfg.get("teacher") or {}
+        quantize = t_cfg.get("quantize") or None
         if quantize not in (None, "int8"):
             raise SystemExit(f"distillation.teacher.quantize {quantize!r} is "
                              f"not supported (null or int8)")
-        if quantize:
-            raise _not_ported("training.segmentation.distillation.teacher."
-                              "quantize: int8")
+        n_calib = int(t_cfg.get("calib_batches", 2))
+        if quantize and n_calib < 1:
+            raise SystemExit("distillation.teacher.calib_batches "
+                             f"{n_calib} must be >= 1")
 
 
 def _check_domain_adaptation(config) -> None:
@@ -499,14 +502,18 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     return history
 
 
-def supervised_train_step(args, config, tcfg, train_loader, device):
+def supervised_train_step(args, config, tcfg, train_loader, device,
+                          calib_batches=None):
     """The supervised step of ``training.segmentation``: distillation from a
-    frozen teacher, gradient accumulation over ``accumulate_steps``
-    micro-batches, or the plain step."""
+    frozen teacher (``teacher.quantize: int8`` quantizes it, calibrated on
+    ``teacher.calib_batches`` batches of ``calib_batches()``, the first
+    epoch's training batches), gradient accumulation over
+    ``accumulate_steps`` micro-batches, or the plain step."""
     from rtsds_tpu_torch.models.pretrained import load_segmentor_state
     from rtsds_tpu_torch.train.accumulate import (
         make_accumulating_train_step, split_microbatches)
-    from rtsds_tpu_torch.train.distill import load_teacher, make_distill_step
+    from rtsds_tpu_torch.train.distill import (
+        load_teacher, make_distill_step, quantize_teacher)
     from rtsds_tpu_torch.train.factory import make_segmentor
     from rtsds_tpu_torch.train.supervised import make_train_step
 
@@ -523,10 +530,24 @@ def supervised_train_step(args, config, tcfg, train_loader, device):
             raise SystemExit("distillation needs training.segmentation."
                              "distillation.teacher.checkpoint_dir (a "
                              "trained ModelCheckpoint directory)")
-        teacher, _ = make_segmentor(config, str(t_cfg.get("model", "deeplab")),
-                                    seed=args.seed)
+        teacher_name = str(t_cfg.get("model", "deeplab"))
+        teacher, _ = make_segmentor(config, teacher_name, seed=args.seed)
         load_segmentor_state(teacher, load_teacher(
             t_dir, use_ema=bool(t_cfg.get("use_ema", True))))
+        if t_cfg.get("quantize") and not args.validate_only:
+            # W8A8 the frozen teacher, calibrated on batches as the step
+            # sees them (augmented when augmentation is on); skipped under
+            # --validate_only, where the step never runs
+            calib = []
+            for images, _ in calib_batches():
+                calib.append(images.permute(0, 3, 1, 2))
+                if len(calib) >= int(t_cfg.get("calib_batches", 2)):
+                    break
+            # the calibration started a shuffle pass; rewind, so epoch 0
+            # draws the permutation of an unquantized run
+            train_loader.set_epoch(0)
+            teacher = quantize_teacher(teacher_name, teacher.state_dict(),
+                                       calib, device=device)
         return make_distill_step(
             teacher.to(device), ignore_index=ignore_index,
             temperature=float(dist_cfg.get("temperature", 2.0)),
@@ -584,14 +605,15 @@ def main(argv=None):
     state = build_supervised(config, args.model, len(train_loader), device,
                              seed=args.seed)
     ema_decay = _ema_decay_from(tcfg)
-    train_step = supervised_train_step(args, config, tcfg, train_loader,
-                                       device)
-    eval_step = build_eval_step(config, state, data["cs_size"], num_classes)
 
     def train_batches(epoch):
         return device_batches(train_loader, train_transform, device,
                               seed=args.seed if augment else None,
                               epoch=epoch)
+
+    train_step = supervised_train_step(args, config, tcfg, train_loader,
+                                       device, lambda: train_batches(0))
+    eval_step = build_eval_step(config, state, data["cs_size"], num_classes)
 
     def val_batches(_epoch):
         return device_batches(data["cs_val"], data["cs_transform"], device)

@@ -17,6 +17,7 @@ from torch import nn
 
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.ops.cuda.hist import fast_hist_cuda
+from rtsds_tpu_torch.utils.dtypes import model_dtype
 from rtsds_tpu_torch.utils.metrics import per_class_iou
 
 
@@ -47,7 +48,7 @@ def make_eval_step(model: nn.Module, num_classes: int,
     ids: :func:`plain_predict` by default, or a protocol's
     (``eval/sliding.py``, ``eval/ensemble.py``).
     """
-    dtype = next(model.parameters()).dtype
+    dtype = model_dtype(model)
     autocast = compute_dtype not in (None, dtype)
     if predict is None:
         predict = plain_predict(model)

@@ -10,9 +10,10 @@ checkpoint (its ``ema`` item when it holds one), and
 :meth:`Predictor.predict_iter` streams batches with one in flight.
 
 ``python -m rtsds_tpu_torch.serve img.png [--checkpoint DIR] [--model
-deeplab] [--protocol sliding] [--out DIR] [--colored]`` decodes PNG frames,
-resizes them to ``--size`` and serves them; without ``--checkpoint`` it runs
-from random init.
+deeplab] [--protocol sliding] [--quantize int8] [--out DIR] [--colored]``
+decodes PNG frames, resizes them to ``--size`` and serves them; without
+``--checkpoint`` it runs from random init.  ``quantize="int8"`` serves the
+W8A8 quantized model (``ops/quant.py``), under any protocol.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
 from rtsds_tpu_torch.models.pretrained import (
     load_flax_variables, load_segmentor_state, state_dict_from_reference)
 from rtsds_tpu_torch.ops.preprocess import normalize
+from rtsds_tpu_torch.ops.quant import QuantizedSegmentor, quantize_model
 from rtsds_tpu_torch.utils.colors import apply_color_map
 
 
@@ -161,6 +163,23 @@ class Predictor:
         overlapping windows (``eval/ensemble.py``, ``eval/sliding.py``).
       protocol_kwargs: the protocol's options: ``scales`` and ``flip``, or
         ``window``, ``stride`` and ``window_chunk``.
+      quantize: ``"int8"`` serves through the W8A8 post-training quantized
+        path (``ops/quant.py``, ``models/bisenet_int8.py``,
+        ``models/deeplab_int8.py``: BN folded, the policy's convs as int8
+        GEMMs with int32 accumulation, the rest in bf16).  Needs
+        ``calib_frames`` or ``act_scales``.
+      calib_frames: (N, H, W, 3) uint8 frames, used once at construction to
+        calibrate the static activation scales; they go through the
+        production preprocess, in chunks of ``batch_size`` (the last chunk
+        wraps around to the first frames).
+      calib_stat: the activation-scale statistic, ``"max"`` (max-abs) or
+        ``"percentile"`` (outlier-robust; ``ops/quant.py:calibrate_net``).
+      calib_percentile: the percentile of ``calib_stat="percentile"``.
+      act_scales: precomputed ``{conv_name: scale}`` activation scales (a
+        QAT run's ``qat_act_scales.json``, which :meth:`from_checkpoint`
+        reads); no calibration then.  They must name exactly the model's
+        convs: an unknown or missing name raises, so no conv is ever served
+        in bf16 by accident.
       device: ``None`` serves on the GPU and raises without one; pass
         ``"cpu"`` to serve on the CPU.
     """
@@ -174,13 +193,21 @@ class Predictor:
                  correct_preprocessing: bool = False,
                  protocol: str = "plain",
                  protocol_kwargs: dict | None = None,
-                 quantize: str | None = None, mesh=None, device=None):
+                 quantize: str | None = None, calib_frames=None,
+                 calib_stat: str = "max", calib_percentile: float = 99.9,
+                 act_scales: dict | None = None, mesh=None, device=None):
         if model_name not in ("bisenet", "deeplab"):
             raise ValueError(model_name)
         if protocol not in ("plain", "ensemble", "sliding"):
             raise ValueError(f"unknown serving protocol {protocol!r}")
-        if quantize is not None:
-            raise _not_ported("int8 serving")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r} "
+                             f"(supported: 'int8')")
+        if quantize and calib_frames is None and act_scales is None:
+            raise ValueError(
+                "quantize='int8' needs calib_frames (a few representative "
+                "(N, H, W, 3) uint8 frames to calibrate the static "
+                "activation scales) or precomputed act_scales")
         if mesh is not None:
             raise _not_ported("multi-device serving")
         if variables is not None and state is not None:
@@ -209,7 +236,13 @@ class Predictor:
             load_flax_variables(model, variables)
         if state is not None:
             load_segmentor_state(model, state)
-        self.model = model.to(device=self.device, dtype=dtype).eval()
+        self.quantize = quantize
+        if quantize:
+            self.model = self._quantized(model_name, model.state_dict(),
+                                         calib_frames, calib_stat,
+                                         calib_percentile, act_scales)
+        else:
+            self.model = model.to(device=self.device, dtype=dtype).eval()
 
         def forward(x):
             return self.model(x.to(self.dtype))
@@ -222,13 +255,45 @@ class Predictor:
             self._protocol = make_sliding_predict(
                 forward, self.image_size, **(protocol_kwargs or {}))
 
+    def _normalized(self, frames: np.ndarray) -> torch.Tensor:
+        """(N, H, W, 3) uint8 host frames -> normalized float32 (N, 3, H,
+        W) on the device."""
+        x = torch.from_numpy(frames).to(self.device)
+        return normalize(x, self.correct_preprocessing).permute(0, 3, 1, 2)
+
+    def _quantized(self, model_name: str, state: dict, calib_frames,
+                   calib_stat: str, calib_percentile: float,
+                   act_scales: dict | None) -> QuantizedSegmentor:
+        """The int8 model of ``state`` on the device
+        (``ops/quant.py:quantize_model``), its scales ``act_scales`` or
+        calibrated on ``calib_frames`` in chunks of the serving batch; the
+        scales served are kept as ``act_scales``."""
+        chunks = []
+        if act_scales is None:
+            calib = np.asarray(calib_frames, dtype=np.uint8)
+            if calib.ndim == 3:
+                calib = calib[None]
+            # the tail wraps around: repeated frames cannot change a max,
+            # and barely reweight a percentile
+            if calib.shape[0] > self.batch_size:
+                pad = (-calib.shape[0]) % self.batch_size
+                if pad:
+                    calib = np.concatenate([calib, calib[:pad]])
+            chunks = [calib[i:i + self.batch_size]
+                      for i in range(0, calib.shape[0], self.batch_size)]
+        model = quantize_model(
+            model_name, state, (self._normalized(c) for c in chunks),
+            calib_stat=calib_stat, calib_percentile=calib_percentile,
+            device=self.device, act_scales=act_scales)
+        self.act_scales = model.act_scales
+        return model
+
     @torch.inference_mode()
     def _predict(self, frames: np.ndarray) -> torch.Tensor:
         """(N, H, W, 3) uint8 host frames -> (N, H, W) uint8 device masks.
         A protocol resizes and slices the float32 frames and casts each
         forward's input to the model's dtype."""
-        x = torch.from_numpy(frames).to(self.device)
-        x = normalize(x, self.correct_preprocessing).permute(0, 3, 1, 2)
+        x = self._normalized(frames)
         if self._protocol is not None:
             return self._protocol(x).to(torch.uint8)
         logits = self.model(x.to(self.dtype))
@@ -300,13 +365,33 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, use_ema: bool = True,
+                        use_qat_scales: bool = True,
                         **kwargs) -> "Predictor":
         """A predictor of the weights at ``path``: a port checkpoint
         directory (best epoch, else latest; the ``model`` or ``generator``
         item; the ``ema`` item's weights unless ``use_ema=False``) or an
         ``export_torch`` file, read by :func:`load_checkpoint_state`.
         ``kwargs`` are the constructor's (``model_name``, ``image_size``,
-        ``batch_size``, ...); the model must match the weights."""
+        ``batch_size``, ...); the model must match the weights.
+
+        A QAT write-back checkpoint (``python -m rtsds_tpu_torch.qat``)
+        carries a ``qat_act_scales.json`` sidecar; with ``quantize='int8'``
+        its scales are served, so the deployed grid is the one the weights
+        were tuned for.  The sidecar takes precedence over ``calib_frames``
+        and ``calib_stat``; ``use_qat_scales=False`` (the CLI's
+        ``--recalibrate``) ignores it, and an explicit ``act_scales``
+        serves another grid."""
+        if (use_qat_scales and kwargs.get("quantize")
+                and "act_scales" not in kwargs):
+            from rtsds_tpu_torch.train.qat import load_act_scales
+
+            sidecar = load_act_scales(path) if os.path.isdir(path) else None
+            if sidecar is not None:
+                scales, meta = sidecar
+                kwargs["act_scales"] = scales
+                print(f"serving the QAT activation scales from {path} "
+                      f"({meta.get('calib_stat')} calibration, "
+                      f"{len(scales)} convs)")
         return cls(state=load_checkpoint_state(path, use_ema=use_ema),
                    **kwargs)
 
@@ -363,15 +448,35 @@ def main(argv=None):
                              "in one forward")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the GPU)")
-    for flag in ("--export", "--artifact", "--mesh", "--quantize"):
+    parser.add_argument("--quantize", type=str, default=None,
+                        choices=["int8"],
+                        help="serve through the W8A8 post-training "
+                             "quantized path (activation scales are "
+                             "calibrated on the given input images)")
+    parser.add_argument("--calib_stat", type=str, default="max",
+                        choices=["max", "percentile"],
+                        help="activation-scale statistic for --quantize: "
+                             "max-abs or an outlier-robust percentile")
+    parser.add_argument("--calib_percentile", type=float, default=99.9,
+                        help="percentile for --calib_stat percentile")
+    parser.add_argument("--recalibrate", action="store_true",
+                        help="ignore a QAT act-scales sidecar in the "
+                             "checkpoint and recalibrate from the input "
+                             "images (otherwise the sidecar takes "
+                             "precedence over --calib_stat/"
+                             "--calib_percentile)")
+    for flag in ("--export", "--artifact", "--mesh"):
         parser.add_argument(flag, type=str, default=None,
                             help="not yet ported")
     args = parser.parse_args(argv)
 
-    for flag in ("export", "artifact", "mesh", "quantize"):
+    for flag in ("export", "artifact", "mesh"):
         if getattr(args, flag) is not None:
             parser.error(f"--{flag} is not yet ported to rtsds_tpu_torch")
     if not args.images:
+        if args.quantize:
+            parser.error("--quantize needs input images to calibrate the "
+                         "activation scales")
         parser.error("no input images given")
     if args.checkpoint is not None and not os.path.exists(args.checkpoint):
         parser.error(f"--checkpoint {args.checkpoint} does not exist")
@@ -388,6 +493,13 @@ def main(argv=None):
             args.protocol, args.scales, args.window, args.stride,
             args.window_chunk),
         device=args.device)
+    if args.quantize:
+        kwargs.update(quantize=args.quantize, calib_frames=frames,
+                      calib_stat=args.calib_stat,
+                      calib_percentile=args.calib_percentile)
+        if args.recalibrate and args.checkpoint:
+            # without a checkpoint there is no sidecar to ignore
+            kwargs["use_qat_scales"] = False
     if args.checkpoint:
         predictor = Predictor.from_checkpoint(args.checkpoint, **kwargs)
     else:

@@ -16,7 +16,9 @@ Two layers:
   mask) or, as ``application/octet-stream``, the raw H*W*3 uint8 bytes of
   a frame at the served size (-> H*W uint8 mask bytes); ``GET /healthz``
   and ``GET /stats``.  PIL is imported only to decode and encode PNGs, so
-  the raw path serves where PIL is not installed.
+  the raw path serves where PIL is not installed.  ``--quantize int8``
+  serves the W8A8 model, its activation scales calibrated on
+  ``--calib_images`` (PNGs) or read from a QAT checkpoint's sidecar.
 
 The forward runs under ``torch.inference_mode``, which is thread-local:
 :meth:`rtsds_tpu_torch.serve.Predictor._predict` enters it itself, on
@@ -361,13 +363,41 @@ def main(argv=None):
                              "0 = all windows in one batched forward")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU)")
-    for flag in ("--artifact", "--mesh", "--quantize"):
+    parser.add_argument("--quantize", default=None, choices=["int8"],
+                        help="serve through the W8A8 quantized path "
+                             "(needs --calib_images)")
+    parser.add_argument("--calib_images", nargs="*", default=None,
+                        metavar="PNG",
+                        help="representative frames to calibrate the int8 "
+                             "activation scales (resized to --size)")
+    parser.add_argument("--calib_stat", default="max",
+                        choices=["max", "percentile"],
+                        help="activation-scale statistic: max-abs or an "
+                             "outlier-robust percentile")
+    parser.add_argument("--calib_percentile", type=float, default=99.9,
+                        help="percentile for --calib_stat percentile")
+    parser.add_argument("--recalibrate", action="store_true",
+                        help="ignore a QAT act-scales sidecar in the "
+                             "checkpoint and recalibrate from "
+                             "--calib_images (otherwise the sidecar takes "
+                             "precedence over --calib_stat/"
+                             "--calib_percentile)")
+    for flag in ("--artifact", "--mesh"):
         parser.add_argument(flag, default=None, help="not yet ported")
     args = parser.parse_args(argv)
 
-    for flag in ("artifact", "mesh", "quantize"):
+    for flag in ("artifact", "mesh"):
         if getattr(args, flag) is not None:
             parser.error(f"--{flag} is not yet ported to rtsds_tpu_torch")
+    if args.quantize and not args.calib_images:
+        if args.recalibrate:
+            parser.error("--recalibrate needs --calib_images to calibrate "
+                         "from")
+        # a QAT write-back checkpoint may carry its own scales sidecar;
+        # without one, Predictor.from_checkpoint refuses
+        if not args.checkpoint:
+            parser.error("--quantize needs --calib_images (or a QAT "
+                         "checkpoint carrying qat_act_scales.json)")
 
     kwargs = dict(model_name=args.model,
                   image_size=tuple(parse_int_list(args.size)),
@@ -377,6 +407,17 @@ def main(argv=None):
                       args.protocol, args.scales, args.window, args.stride,
                       args.window_chunk),
                   device=args.device)
+    if args.quantize:
+        kwargs.update(quantize=args.quantize, calib_stat=args.calib_stat,
+                      calib_percentile=args.calib_percentile)
+        if args.calib_images:
+            from rtsds_tpu_torch.data.pipeline import decode_image
+
+            kwargs["calib_frames"] = np.stack(
+                [decode_image(p, kwargs["image_size"])
+                 for p in args.calib_images])
+        if args.recalibrate and args.checkpoint:
+            kwargs["use_qat_scales"] = False
     if args.checkpoint:
         predictor = Predictor.from_checkpoint(args.checkpoint, **kwargs)
     else:

@@ -9,7 +9,8 @@ in eval mode without gradients.
 
 :func:`load_teacher` (:func:`rtsds_tpu_torch.serve.load_checkpoint_state`)
 reads a teacher's weights from the port's own checkpoints or from a state
-dict that ``export_torch`` wrote.
+dict that ``export_torch`` wrote; :func:`quantize_teacher` makes the W8A8
+int8 teacher of them.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from rtsds_tpu_torch.ops.losses import segmentation_loss
+from rtsds_tpu_torch.ops.quant import quantize_model
 from rtsds_tpu_torch.serve import load_checkpoint_state
 from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.train.supervised import check_batch
-from rtsds_tpu_torch.utils.dtypes import at_least_f32
+from rtsds_tpu_torch.utils.dtypes import at_least_f32, model_dtype
 
 
 def distillation_kl(student_logits: torch.Tensor,
@@ -47,7 +49,10 @@ def make_distill_step(teacher: nn.Module, ignore_index: int | None = 19, *,
     the student's train-mode forward, ``alpha * CE + (1 - alpha) * KL_T``
     on the main head, backward, one optimizer step.  The metrics:
     ``train_loss``, ``loss_ce``, ``loss_distill``, ``correct``, ``total``.
-    ``alpha = 1`` is the supervised step."""
+    ``alpha = 1`` is the supervised step.  The teacher's input is cast to
+    its ``compute_dtype`` when it declares one (the int8 teacher of
+    :func:`quantize_teacher`, whose walk runs outside autocast in bf16),
+    else to its first parameter's dtype."""
     teacher.eval()
     for p in teacher.parameters():
         p.requires_grad_(False)
@@ -57,7 +62,7 @@ def make_distill_step(teacher: nn.Module, ignore_index: int | None = 19, *,
         check_batch(state.model, images)
         x = images.permute(0, 3, 1, 2)
         with torch.no_grad(), state.autocast():
-            t_out = teacher(x.to(next(teacher.parameters()).dtype))
+            t_out = teacher(x.to(model_dtype(teacher)))
         if isinstance(t_out, (tuple, list)):
             t_out = t_out[0]
         model = state.model.train()
@@ -78,6 +83,22 @@ def make_distill_step(teacher: nn.Module, ignore_index: int | None = 19, *,
                 "total": labels.numel()}
 
     return train_step
+
+
+def quantize_teacher(teacher_name: str, teacher_state, calib_batches,
+                     policy=None, device=None):
+    """W8A8-quantize the frozen distillation teacher.
+
+    The teacher's forward is a pure eval-mode inference run every step,
+    the serving profile of the PTQ pipeline (``ops/quant.py``), while the
+    student stays full precision.  ``teacher_state``: the teacher's float32
+    state dict; ``calib_batches``: (N, 3, H, W) image batches after the
+    production preprocess, on ``device`` (the distribution the teacher will
+    see in the step).  Returns the
+    :class:`~rtsds_tpu_torch.ops.quant.QuantizedSegmentor`, a drop-in
+    ``teacher`` for :func:`make_distill_step`."""
+    return quantize_model(teacher_name, teacher_state, calib_batches,
+                          policy=policy, device=device)
 
 
 # a teacher's weights are read as served weights are: the best epoch, else

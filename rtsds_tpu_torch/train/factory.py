@@ -28,11 +28,6 @@ from rtsds_tpu_torch.utils.schedules import (
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet to "
-                               f"rtsds_tpu_torch; use rtsds_tpu for it")
-
-
 def compute_dtype_from_config(config) -> torch.dtype | None:
     name = str(config.get("precision", {}).get("compute_dtype", "float32"))
     if name not in COMPUTE_DTYPES:

@@ -35,7 +35,7 @@ from rtsds_tpu_torch.train.adversarial import (
     _accuracy, _check_batches, _forward, _frozen, _with_entropy,
     v1_discriminator_update)
 from rtsds_tpu_torch.train.ema import ema_update, ema_weights
-from rtsds_tpu_torch.utils.dtypes import at_least_f32
+from rtsds_tpu_torch.utils.dtypes import at_least_f32, model_dtype
 
 
 def pseudo_labels(logits: torch.Tensor, threshold, ignore_index: int = 19
@@ -111,7 +111,7 @@ def calibrate_class_thresholds(model: nn.Module, batches: Iterable,
     """
     was_training = model.training
     model.eval()
-    dtype = next(model.parameters()).dtype
+    dtype = model_dtype(model)
     hist = None
     try:
         for batch in batches:

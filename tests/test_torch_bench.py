@@ -177,12 +177,21 @@ def test_protocol_benches_run_on_the_cpu():
 @pytest.mark.parametrize("module,env", [(sliding_bench, "SL_INT8"),
                                         (ensemble_bench, "ENS_INT8")])
 def test_unported_int8_benches_exit(monkeypatch, module, env):
+    """The int8 variants are ported: on the CPU the function times both
+    models, and ``main`` (the card's full size) refuses to run without a
+    card instead of dropping to the CPU."""
     monkeypatch.setenv(env, "1")
-    with pytest.raises(SystemExit, match="not ported yet"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        (module.bench_sliding if module is sliding_bench
-         else module.bench_ensemble)(include_int8=True, device="cpu")
+    if module is sliding_bench:
+        out = module.bench_sliding(SIZE, (32, 64), iterations=1,
+                                   include_int8=True, device="cpu")
+    else:
+        out = module.bench_ensemble(SIZE, iterations=1, include_int8=True,
+                                    device="cpu")
+    assert out["int8_ms"] > 0 and out["bf16_ms"] > 0
+    assert out["speedup"] == pytest.approx(out["bf16_ms"] / out["int8_ms"])
 
 
 def test_one_line_record_keys_on_the_cpu():

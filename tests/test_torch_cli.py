@@ -336,9 +336,11 @@ def _segmentation(tmp_path, section, epochs=1, extra=""):
 
 @pytest.mark.parametrize("section", [
     "distillation: {enabled: true, teacher: {checkpoint_dir: t, "
-    "quantize: int8}}"])
+    "quantize: int8, calib_batches: 0}}"])
 def test_not_ported_training_options_exit(tmp_path, section):
-    with pytest.raises(SystemExit, match="not ported yet"):
+    """The int8 teacher is ported (test_torch_distill_int8.py trains with
+    it); its calibration needs at least one batch, as in JAX."""
+    with pytest.raises(SystemExit, match="calib_batches 0 must be >= 1"):
         cli.main(["--config", _segmentation(tmp_path, section),
                   "--synthetic"])
 

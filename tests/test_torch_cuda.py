@@ -568,3 +568,84 @@ def test_latency_benchmark_on_the_card_takes_100_samples(cuda):
     assert out["samples"] >= 100 and out["device"] != "cpu"
     assert 0 < out["p50_ms"] <= out["p99_ms"]
     assert out["fps"] > 0 and out["flops_per_image"] > 0
+
+
+# int8 conv shapes, (n, cin, h, w, cout, k, stride, padding, dilation), that
+# the GEMM takes as they are or padded (K = 27 or 147, N = 19, 8 rows); the
+# CPU tests hold the same shapes against the JAX package's conv
+CONV_SHAPES = [
+    (2, 16, 9, 13, 24, 1, 1, 0, 1),    # 1x1
+    (2, 16, 9, 13, 24, 1, 2, 0, 1),    # strided 1x1 (a projection)
+    (2, 16, 9, 13, 32, 3, 1, 1, 1),    # 3x3
+    (2, 16, 9, 13, 32, 3, 2, 1, 1),    # strided 3x3
+    (2, 8, 17, 15, 16, 3, 1, 2, 2),    # dilated 3x3
+    (1, 8, 21, 23, 8, 3, 1, 4, 4),     # dilation 4
+    (2, 3, 17, 19, 16, 7, 2, 3, 1),    # the 3-channel 7x7 stem: K = 147
+    (2, 3, 16, 16, 64, 3, 2, 1, 1),    # the 3-channel 3x3 stem: K = 27
+    (2, 24, 8, 8, 19, 3, 1, 1, 1),     # 19 outputs (the FFM's)
+    (8, 40, 1, 1, 40, 1, 1, 0, 1),     # a pooled gate: M = 8 rows
+    (2, 12, 6, 10, 19, 3, 1, 6, 6),    # an ASPP branch
+]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_on_the_card_equals_float64(cuda, shape):
+    """``conv_int8`` (im2col + ``torch._int_mm``) on the card, padded to
+    the GEMM's rules where it must be, equals a float64 conv exactly, and
+    its dequantized output equals the CPU's bit for bit."""
+    from rtsds_tpu_torch.ops.quant import conv_int8, conv_w8a8
+
+    n, cin, h, w, cout, k, stride, padding, dilation = shape
+    gen = torch.Generator().manual_seed(0)
+    x_q = torch.randint(-127, 128, (n, cin, h, w), generator=gen,
+                        dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
+                        dtype=torch.int8)
+    got = conv_int8(x_q.to(cuda), w_q.to(cuda), stride, padding, dilation)
+    want = F.conv2d(x_q.to(cuda).double(), w_q.to(cuda).double(), None,
+                    stride, padding, dilation)
+    assert got.dtype == torch.int32 and torch.equal(got.double(), want)
+    w_scale = torch.rand(cout, generator=gen) * 1e-2
+    bias = torch.randn(cout, generator=gen)
+    y = conv_w8a8(x_q.to(cuda), w_q.to(cuda), 0.0213, w_scale.to(cuda),
+                  bias.to(cuda), stride, padding, dilation,
+                  out_dtype=torch.float32)
+    assert torch.equal(y.cpu(), conv_w8a8(x_q, w_q, 0.0213, w_scale, bias,
+                                          stride, padding, dilation,
+                                          out_dtype=torch.float32))
+
+
+def test_int8_predictor_on_the_card_matches_the_cpu(cuda):
+    """The int8 BiSeNet on the same scales: the card's Predictor holds the
+    CPU's quantized tree exactly, and the float32 int8 walk (TF32 off) on
+    the card gives the CPU's logits within 2e-2 of their peak and 99% of
+    the argmax equal (an activation within rounding of a half step may
+    take the other code)."""
+    from rtsds_tpu_torch.models.bisenet_int8 import bisenet_int8_apply
+
+    size = (64, 128)
+    ds = SyntheticSegDataset(2, size, seed=5, fixed_tints=True)
+    frames = np.stack([ds[i][0] for i in range(2)])
+    tree = chip_smoke.calibrate_batch_stats(chip_smoke.random_flax_bisenet(3),
+                                            frames)
+    common = dict(variables=tree, image_size=size, batch_size=2,
+                  quantize="int8")
+    cpu = Predictor(calib_frames=frames, device="cpu", **common)
+    card = Predictor(act_scales=cpu.act_scales, device="cuda", **common)
+    for kind in ("q8", "bf16"):
+        for name, entry in cpu.model.qtree[kind].items():
+            for a, b in zip(card.model.qtree[kind][name], entry):
+                assert (a is None and b is None) or torch.equal(a.cpu(), b)
+    masks = card.predict(frames)
+    assert masks.shape == (2, *size) and masks.max() < 19
+    x = normalize(torch.from_numpy(frames)).permute(0, 3, 1, 2)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+            torch.no_grad():
+        want = bisenet_int8_apply(cpu.model.qtree, x,
+                                  out_dtype=torch.float32)
+        got = bisenet_int8_apply(card.model.qtree, x.to(cuda),
+                                 out_dtype=torch.float32).cpu()
+    peak = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-2 * peak
+    assert (got.argmax(1) == want.argmax(1)).float().mean() >= 0.99

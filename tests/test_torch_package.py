@@ -73,7 +73,11 @@ NAMED = ("rtsds_tpu_torch.models.deeplabv2", "rtsds_tpu_torch.eval.sliding",
          "rtsds_tpu_torch.utils.profiling", "rtsds_tpu_torch.bench.latency",
          "rtsds_tpu_torch.bench.flops", "rtsds_tpu_torch.bench.sliding_bench",
          "rtsds_tpu_torch.bench.ensemble_bench",
-         "rtsds_tpu_torch.bench.io_bench", "rtsds_tpu_torch.bench.__main__")
+         "rtsds_tpu_torch.bench.io_bench", "rtsds_tpu_torch.bench.__main__",
+         "rtsds_tpu_torch.ops.quant", "rtsds_tpu_torch.models.bisenet_int8",
+         "rtsds_tpu_torch.models.deeplab_int8", "rtsds_tpu_torch.train.qat",
+         "rtsds_tpu_torch.qat", "rtsds_tpu_torch.pseudo_label",
+         "rtsds_tpu_torch.bench.quant_bench")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
@@ -172,10 +176,20 @@ def test_deeplab_protocols_and_train_bench_refuse_to_fall_back_to_the_cpu(
                           generator="deeplab")
 
 
-def test_unported_benches_exit():
+def test_unported_benches_exit(monkeypatch):
+    """The QAT step bench is ported; like every bench it refuses to run
+    without a card instead of dropping to the CPU."""
     from rtsds_tpu_torch.bench import train_bench
-    with pytest.raises(SystemExit, match="not ported yet"):
-        train_bench.main(["--qat"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--qat"], ["--distill", "deeplab", "--distill_quant",
+                             "int8"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_bench.main(argv)
+    with pytest.raises(ValueError, match="neither distill"):
+        train_bench.supervised_step_benchmark(qat=True, distill="deeplab")
+    with pytest.raises(ValueError, match="not supported"):
+        train_bench.supervised_step_benchmark(distill="deeplab",
+                                              distill_quant="int4")
 
 
 @pytest.mark.parametrize("module", [ema, accumulate, fda, self_training,
@@ -280,3 +294,36 @@ def test_the_serving_tools_refuse_to_fall_back_to_the_cpu(monkeypatch,
         model, make_optimizer("SGD", model.parameters(), 0.01))})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor.from_checkpoint(str(tmp_path), image_size=(32, 64))
+
+
+@pytest.mark.parametrize("name", ["ops.quant", "models.bisenet_int8",
+                                  "models.deeplab_int8", "train.qat", "qat",
+                                  "pseudo_label", "bench.quant_bench"])
+def test_the_int8_modules_catch_nothing(name):
+    """No ``try`` in the int8 modules: a shape the int8 GEMM refuses, or a
+    failed calibration, raises; nothing falls back to a bf16 conv."""
+    import importlib
+
+    module = importlib.import_module(f"rtsds_tpu_torch.{name}")
+    tree = ast.parse(inspect.getsource(module))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_int8_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    from rtsds_tpu_torch import pseudo_label
+    from rtsds_tpu_torch.ops.quant import quantize_model
+    from rtsds_tpu_torch.qat import finetune
+    from rtsds_tpu_torch.train.qat import prepare_qat
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frames = torch.zeros((1, 64, 128, 3), dtype=torch.uint8).numpy()
+    state = BiSeNet().state_dict()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(image_size=(64, 128), quantize="int8", calib_frames=frames)
+    for call in (lambda: quantize_model("bisenet", state, []),
+                 lambda: prepare_qat("bisenet", state, []),
+                 lambda: pseudo_label.sweep_model("bisenet", state, [frames],
+                                                  quantize="int8"),
+                 lambda: finetune(state, None, None, 1, "unused")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

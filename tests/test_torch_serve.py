@@ -103,6 +103,12 @@ def test_colorize_masks_matches_jax(rng):
                                      "mesh": "spatial"},
                                     {"quantize": "int8"}])
 def test_unported_options_raise(kwargs):
+    """A mesh is not ported; int8 is, and raises without its calibration
+    frames or scales, as the JAX package's does."""
+    if "quantize" in kwargs:
+        with pytest.raises(ValueError, match="calib_frames"):
+            Predictor(image_size=SIZE, device="cpu", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         Predictor(image_size=SIZE, device="cpu", **kwargs)
 

@@ -278,6 +278,12 @@ def test_serve_cli_serves_a_checkpoint_and_resizes(served, frames, tmp_path,
 @pytest.mark.parametrize("flag", ["--export", "--artifact", "--mesh",
                                   "--quantize"])
 def test_serve_cli_refuses_what_is_not_ported(tmp_path, flag, capsys):
+    """``--export``, ``--artifact`` and ``--mesh`` are not ported;
+    ``--quantize`` is, and refuses a mode other than int8."""
     with pytest.raises(SystemExit):
         main([str(tmp_path / "f.png"), flag, "x", "--device", "cpu"])
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flag == "--quantize":
+        assert "invalid choice: 'x'" in err
+    else:
+        assert "not yet ported" in err

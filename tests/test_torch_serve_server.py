@@ -2,7 +2,8 @@
 each behaviour that ``test_serve_server.py`` checks of the JAX package's
 server (request coalescing, per-client routing, errors, refusals,
 cancelled futures, statistics, backpressure, the HTTP surface, SIGTERM),
-except its mesh and int8 cases, which the port refuses; and the port's
+except its mesh cases, which the port refuses (its int8 flags are in
+test_torch_quant_serving.py); and the port's
 server over the port's ``Predictor`` against the JAX package's
 ``MicroBatcher`` over its ``Predictor`` on the same weights and frames."""
 
@@ -326,9 +327,16 @@ def test_stats_is_safe_under_concurrent_mutation():
 
 @pytest.mark.parametrize("flag", ["--artifact", "--mesh", "--quantize"])
 def test_server_main_refuses_what_is_not_ported(flag, capsys):
+    """``--artifact`` and ``--mesh`` are not ported; ``--quantize`` is, and
+    refuses only an int8 server with nothing to calibrate from."""
+    value = "int8" if flag == "--quantize" else "x"
     with pytest.raises(SystemExit):
-        serve_server.main([flag, "x", "--device", "cpu"])
-    assert "not yet ported" in capsys.readouterr().err
+        serve_server.main([flag, value, "--device", "cpu"])
+    err = capsys.readouterr().err
+    if flag == "--quantize":
+        assert "--quantize needs --calib_images" in err
+    else:
+        assert "not yet ported" in err
 
 
 def test_server_main_serves_one_request(monkeypatch, capsys):
