@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # from the repository root, one card
     python3 chip_smoke.py --kernels-only  # build and time K1 and K2 alone
     python3 chip_smoke.py --int8-only     # the int8 phases alone
+    python3 chip_smoke.py --tooling-only  # artifacts, tooling, converter
 
 Kernels are timed on the device alone with the L2 cold: each timed launch
 follows a write of a 256 MB buffer, as K2 follows the transform's write of
@@ -84,11 +85,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
      CBST thresholds) and quant_bench (whole-network int8 against bf16,
      and DeepLab's 3x3 conv shapes with the im2col and the GEMM apart);
      ``python3 chip_smoke.py --int8-only`` runs these alone;
-  13. train_profile: torch.profiler over a few train steps: the device's
+  13. serving_artifact (``serve_export.py``: BiSeNet-R18 at 1024x2048
+     bf16 with a dynamic batch at b8 and b3, DeepLabV2-R101 at 512x1024,
+     the int8 BiSeNet, a sliding BiSeNet with a static batch, each
+     artifact's masks against ``Predictor.predict``, export seconds, MB
+     and ``predict`` p50 beside the predictor's), training_tooling (the
+     CLI trains BiSeNet-R18 at 720x1280 b8 on colour-coded labels with
+     blur + flip + ColorJitter + RandomZoom and the history, image-plot,
+     TensorBoard and W&B-stub callbacks; SIGTERM mid-epoch, the emergency
+     checkpoint, ``--resume`` replaying the epoch from a bit-identical
+     snapshot; one ``--debug`` step stopped by a planted NaN) and
+     convert_gta5 (``convert_labels`` on the card over 8 GTA5-size
+     labels, exactly the host LUT's, frames/s beside the LUT's);
+     ``python3 chip_smoke.py --tooling-only`` runs these alone;
+  14. train_profile: torch.profiler over a few train steps: the device's
      idle share and kernel time by group, and each hand-written kernel's
      device time per launch beside the timer's (run after the kernel
      timings, which the profiler's tracing could slow);
-  14. the ``kernels`` line: each kernel's launches on the main paths (each
+  15. the ``kernels`` line: each kernel's launches on the main paths (each
      counted from zero), its device time as the main path calls it
      (median, min, max), its wrapper's host cost, its plain version's
      time, a one-call library yardstick where one exists, and the card's
@@ -103,6 +117,7 @@ import contextlib
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -3069,6 +3084,542 @@ def phase_quant_bench() -> dict:
     return e2e
 
 
+# ---------------------------------------------------------------------------
+# Serving artifacts, the training tooling and the GTA5 data tools.
+# ---------------------------------------------------------------------------
+
+# the artifact's masks against Predictor.predict's at the same batch: the
+# exported graph runs the eager forward's ops, none decomposed.  At another
+# batch cuDNN may pick other conv algorithms, which moves bf16 rounding
+# (ROADMAP C), so each comparison runs both at one batch
+MIN_ARTIFACT_AGREEMENT = 1.0
+MIN_INT8_ARTIFACT_AGREEMENT = 0.99
+ARTIFACT_TIMING_REPS = 10
+# a dynamic artifact bounded below this many frames (BiSeNet at 1024x2048:
+# 53) is also run one frame past its bound
+CHECKED_BATCH_BOUND = 64
+SLIDING_ARTIFACT_BATCH = 2
+TOOLING_STEPS = 2          # per epoch: 16 synthetic GTA5 frames at b8
+GTA5_LABEL_SIZE = (1052, 1914)
+CONVERT_FRAMES = 8
+
+
+def _agreement(got: np.ndarray, want: np.ndarray, what: str,
+               least: float) -> float:
+    if got.shape != want.shape or got.dtype != np.int32:
+        raise AssertionError(f"{what}: masks {got.shape} {got.dtype}, "
+                             f"want {want.shape}")
+    share = float((got == want).mean())
+    if share < least:
+        raise AssertionError(f"{what}: the artifact agrees with "
+                             f"Predictor.predict on {share} of pixels "
+                             f"(< {least})")
+    return share
+
+
+def _export_and_check(predictor: Predictor, frames: np.ndarray, what: str,
+                      batch="dynamic", least: float = MIN_ARTIFACT_AGREEMENT,
+                      time_it: bool = False) -> dict:
+    """Exports ``predictor`` (``serve_export.export_predictor``), loads the
+    artifact onto the card and holds its masks of ``frames`` (all of
+    them, and 3) against the predictor's at the same batch, and, where
+    the program bounds its batch below CHECKED_BATCH_BOUND, one batch past
+    the bound; with ``time_it``, both ``predict`` calls' p50 at b8, taken
+    in turns."""
+    from rtsds_tpu_torch.serve_export import export_predictor, load_predictor
+
+    with tempfile.TemporaryDirectory(prefix="rtsds_smoke_art_") as tmp:
+        path = os.path.join(tmp, "model.rtsds")
+        t0 = time.perf_counter()
+        export_predictor(predictor, path, batch=batch)
+        export_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        art = load_predictor(path)
+        load_s = time.perf_counter() - t0
+    out = {"batch": art.batch, "max_batch": art.max_batch,
+           "meta": art.meta, "export_s": export_s, "load_s": load_s,
+           "artifact_mb": size_mb, "agreement": {}}
+    for n in sorted({frames.shape[0], 3}):
+        got = art.predict(frames[:n])
+        if art.batch == "dynamic" and n != predictor.batch_size:
+            # the dynamic artifact runs n frames where Predictor.predict
+            # pads them to its batch, and cuDNN picks its conv algorithms
+            # by batch: hold the artifact to the predictor's computation
+            # at n frames, and record the padded call's agreement
+            with torch.inference_mode():
+                want = predictor.masks(torch.from_numpy(
+                    frames[:n]).cuda()).cpu().numpy().astype(np.int32)
+            out["agreement"][f"b{n}_padded_predict"] = float(
+                (got == predictor.predict(frames[:n])).mean())
+        else:
+            want = predictor.predict(frames[:n])
+        out["agreement"][f"b{n}"] = _agreement(got, want, f"{what} b{n}",
+                                               least)
+    if art.batch == "dynamic" and art.max_batch is not None \
+            and art.max_batch < CHECKED_BATCH_BOUND:
+        # a batch past the program's bound runs in chunks of the bound,
+        # each held against the predictor's computation at that batch
+        many = np.concatenate([frames] * (art.max_batch // len(frames) + 1))
+        many = many[:art.max_batch + 1]
+        got = art.predict(many)
+        with torch.inference_mode():
+            want = np.concatenate([
+                predictor.masks(torch.from_numpy(c).cuda()).cpu().numpy()
+                for c in (many[:art.max_batch], many[art.max_batch:])])
+        out["agreement"][f"b{len(many)}_in_chunks"] = _agreement(
+            got, want.astype(np.int32), f"{what} b{len(many)}", least)
+    if time_it:
+        # in turns (artifact, predictor, predictor, artifact), one p50 each
+        b = frames[:BATCH]
+        calls = {"artifact": art.predict, "predictor": predictor.predict}
+        for key in calls:
+            out[f"{key}_predict_p50_ms"] = []
+        for key in ("artifact", "predictor", "predictor", "artifact"):
+            out[f"{key}_predict_p50_ms"].append(cuda_ms(
+                lambda: calls[key](b), reps=ARTIFACT_TIMING_REPS))
+    del art
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving_artifact(tree: dict, frames: np.ndarray, dl_tree: dict,
+                           dl_frames: np.ndarray) -> None:
+    """Serving artifacts at full width (``serve_export.py``): BiSeNet-R18 at
+    1024x2048 bf16 with a dynamic batch, predicting b8 and b3, its
+    ``predict`` p50 at b8 beside ``Predictor.predict``'s; DeepLabV2-R101 at
+    512x1024 bf16; the int8 BiSeNet (>= 0.99 of pixels, JAX's caveat); a
+    sliding-protocol BiSeNet with a static batch.  Each artifact's masks
+    are held against ``Predictor.predict`` on the same frames.  No
+    hand-written kernel runs on this path."""
+    out = {}
+    bisenet = Predictor(variables=tree, image_size=SIZE, batch_size=BATCH,
+                        device="cuda")
+    out["bisenet_bf16"] = _export_and_check(bisenet, frames[:BATCH],
+                                            "bisenet bf16", time_it=True)
+    int8 = Predictor(variables=tree, image_size=SIZE, batch_size=BATCH,
+                     quantize="int8", calib_frames=frames[:BATCH],
+                     device="cuda")
+    out["bisenet_int8"] = _export_and_check(
+        int8, frames[:BATCH], "bisenet int8",
+        least=MIN_INT8_ARTIFACT_AGREEMENT)
+    del int8
+    sliding = Predictor(variables=tree, image_size=SIZE,
+                        batch_size=SLIDING_ARTIFACT_BATCH,
+                        protocol="sliding",
+                        protocol_kwargs={"window": DEEPLAB_SIZE},
+                        device="cuda")
+    out["bisenet_sliding"] = _export_and_check(
+        sliding, frames[:SLIDING_ARTIFACT_BATCH * 2], "bisenet sliding",
+        batch=SLIDING_ARTIFACT_BATCH)
+    del sliding, bisenet
+    torch.cuda.empty_cache()
+    deeplab = Predictor(model_name="deeplab", variables=dl_tree,
+                        image_size=DEEPLAB_SIZE, batch_size=BATCH,
+                        device="cuda")
+    out["deeplab_bf16"] = _export_and_check(deeplab, dl_frames[:BATCH],
+                                            "deeplab bf16", time_it=True)
+    del deeplab
+    torch.cuda.empty_cache()
+    emit({"phase": "serving_artifact", "image_size": list(SIZE),
+          "deeplab_image_size": list(DEEPLAB_SIZE), "dtype": "bfloat16",
+          **out})
+
+
+class _Recorder(Callback):
+    """Each batch's loss; ``at_start()`` called when the run's first epoch
+    begins; and (``sigterm_at``) SIGTERM sent to this process at batch
+    ``sigterm_at[1]`` of epoch ``sigterm_at[0]``, counting epochs from the
+    first this callback sees."""
+
+    def __init__(self, sigterm_at=None, at_start=None):
+        self.losses, self.epochs_done = [], 0
+        self.sigterm_at = sigterm_at
+        self.at_start = at_start
+
+    def on_train_begin(self, logs=None):
+        if self.at_start is not None and not self.losses:
+            self.at_start()
+
+    def on_epoch_end(self, epoch, logs=None):
+        self.epochs_done += 1
+
+    def on_batch_end(self, batch, logs=None):
+        self.losses.append(logs["train_loss"])
+        if self.sigterm_at == (self.epochs_done, batch):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def _fake_wandb():
+    """A stand-in ``wandb`` module recording its calls (W&B is not
+    installed on the card's machine, and a run must not reach the
+    network)."""
+    import types
+
+    calls = []
+
+    class Run:
+        def log(self, payload):
+            calls.append(("log", sorted(payload)))
+
+        def finish(self):
+            calls.append(("finish",))
+
+    module = types.ModuleType("wandb")
+    module.init = lambda **kw: calls.append(("init", kw["project"])) or Run()
+    module.Table = lambda columns, data: {"columns": columns, "data": data}
+    return module, calls
+
+
+def _renderer() -> str | None:
+    for name in ("matplotlib", "PIL"):
+        try:
+            __import__(name)
+            return name
+        except ImportError:
+            pass
+    return None
+
+
+def _tooling_config(root: str, plots: bool) -> str:
+    import yaml
+
+    config = {
+        "data": {
+            "cityscapes": {"image_size": "512, 1024", "batch_size": BATCH,
+                           "num_workers": 4},
+            "gta5_modified": {"image_size": "720, 1280",
+                              "batch_size": TRAIN_BATCH, "num_workers": 4,
+                              "decode_label_colors": True}},
+        "precision": {"compute_dtype": "bfloat16"},
+        "training": {"segmentation": {"epochs": 2, "do_validation": 1}},
+        "augmentation": {
+            "p": 1.0, "GaussianBlur": {"kernel_size": "5, 9",
+                                       "sigma": "0.1, 5"},
+            "RandomHorizontalFlip": {"p": 0.5},
+            "ColorJitter": {"brightness": 0.4, "contrast": 0.4,
+                            "saturation": 0.4, "hue": 0.1},
+            "RandomZoom": {"max": 1.5, "p": 0.5}},
+        "callbacks": {
+            "model_checkpoint": {"save_dir": os.path.join(root, "ckpt"),
+                                 "save_name": "tooling", "save_best": False,
+                                 "save_freq": 1},
+            "early_stopping": None,
+            "history": {"path": os.path.join(root, "history.jsonl")},
+            "images_plots": ({"save_dir": os.path.join(root, "images"),
+                              "number_of_samples": 2} if plots else None),
+            "logging": {"wandb": {"project_name": "smoke",
+                                  "run_name": "tooling", "note": "card"}}}}
+    path = os.path.join(root, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def _state_dicts_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_state_dicts_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_state_dicts_equal, a, b))
+    return a == b
+
+
+def _augment_ms(images: torch.Tensor, labels: torch.Tensor) -> dict:
+    """One batch's augmentation with the gate open and every zoom coin
+    fired: blur + flip, and blur + flip + ColorJitter + RandomZoom."""
+    from rtsds_tpu_torch.ops.augment import AugmentDraws, apply_augment
+
+    n, h, w = labels.shape
+    full = AugmentConfig(color_jitter=(0.4, 0.4, 0.4, 0.1), zoom_max=1.5)
+    draws = AugmentDraws(gate=True, sigma=2.0, flip=True, brightness=1.2,
+                         contrast=0.8, saturation=1.1, hue=0.05,
+                         zoom_scale=(1.3,) * n, zoom_fire=(True,) * n,
+                         zoom_ty=(-0.15 * h,) * n, zoom_tx=(-0.15 * w,) * n)
+    return {"blur_flip_ms": cuda_ms(lambda: apply_augment(
+                AugmentConfig(), draws, images, labels)),
+            "blur_flip_jitter_zoom_ms": cuda_ms(lambda: apply_augment(
+                full, draws, images, labels))}
+
+
+def _snapshot_cost(state) -> dict:
+    """The epoch-start snapshot of ``state`` on the card: its bytes and
+    the time of the copy."""
+    from rtsds_tpu_torch.callbacks.checkpoint import snapshot_states
+
+    states = {"model": state}
+    snap = snapshot_states(states)
+    nbytes = 0
+    stack = [snap["model"].state_dict()]
+    while stack:
+        item = stack.pop()
+        if isinstance(item, torch.Tensor):
+            nbytes += item.numel() * item.element_size()
+        elif isinstance(item, dict):
+            stack.extend(item.values())
+        elif isinstance(item, (list, tuple)):
+            stack.extend(item)
+    del snap
+    return {"snapshot_gb": nbytes / 1e9,
+            "snapshot_ms": cuda_ms(lambda: snapshot_states(states), reps=5,
+                                   warmup=1)}
+
+
+def phase_training_tooling() -> dict:
+    """The training tooling through the port's CLI on the card: BiSeNet-R18
+    on 16 synthetic GTA5 frames at 720x1280 b8 bf16 with colour-coded
+    labels (K2 in the transform), augmented with blur + flip + ColorJitter +
+    RandomZoom, validated at 512x1024 b8 (K1), with the history, image-plot
+    (where matplotlib or PIL imports), TensorBoard and W&B (a stub module)
+    callbacks.  A callback sends SIGTERM to this process in epoch 1: the
+    emergency checkpoint must be the epoch-start state bit for bit and
+    reported by ``ckpt_info``; ``--resume`` replays epoch 1 from it (the
+    restored tensors equal to it bit for bit).  Then one ``--debug`` step
+    with a NaN planted in one conv: it must raise, naming that conv.
+    Returns the path's launches."""
+    from rtsds_tpu_torch import ckpt_info, cli
+    from rtsds_tpu_torch.callbacks.checkpoint import CheckpointManager
+    from rtsds_tpu_torch.callbacks.history import read_history
+    from rtsds_tpu_torch.callbacks.logging import TensorBoardCallback
+    from rtsds_tpu_torch.callbacks.plots import ImagePlotsCallback
+    from rtsds_tpu_torch.train import factory
+
+    renderer = _renderer()
+    print(f"training_tooling: image plots rendered with {renderer}"
+          if renderer else "training_tooling: neither matplotlib nor PIL "
+          "imports; the plot callback collects without rendering",
+          flush=True)
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_tool_")
+    config = _tooling_config(tmp.name, plots=renderer is not None)
+    wandb, wandb_calls = _fake_wandb()
+    seen = {"states": [], "samples": [], "emergency_s": []}
+    plain = {"build_callbacks": cli.build_callbacks,
+             "build_supervised": factory.build_supervised,
+             "wandb": sys.modules.get("wandb")}
+
+    def recording_build(*args, **kwargs):
+        state = plain["build_supervised"](*args, **kwargs)
+        seen["states"].append(state)
+        return state
+
+    def build_callbacks(*args, sigterm_at=None, **kwargs):
+        callbacks, checkpoint = plain["build_callbacks"](*args, **kwargs)
+        plot = next((cb for cb in callbacks
+                     if isinstance(cb, ImagePlotsCallback)), None)
+        if plot is None:   # no renderer: collect only
+            plot = ImagePlotsCallback(number_of_samples=2)
+            plot.on_validation_end = lambda logs=None, data=None: None
+            callbacks.append(plot)
+        add = plot.add_sample
+
+        def add_sample(*arrays):
+            seen["samples"].append(arrays)
+            add(*arrays)
+        plot.add_sample = add_sample
+        save = checkpoint.save_emergency
+
+        def save_emergency():
+            t0 = time.perf_counter()
+            ok = save()
+            seen["emergency_s"].append(time.perf_counter() - t0)
+            return ok
+        checkpoint.save_emergency = save_emergency
+        recorder = _Recorder(sigterm_at, at_start=lambda: seen.setdefault(
+            "resumed", _copy_state(seen["states"][-1])))
+        seen["recorder"] = recorder
+        return [*callbacks, recorder,
+                TensorBoardCallback(os.path.join(tmp.name, "tb"))], \
+            checkpoint
+
+    def _copy_state(state):
+        return {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+                for k, v in state.model.state_dict().items()}
+
+    argv = ["--config", config, "--synthetic", "--dataset", "gta5",
+            "--augmented", "--wandb"]
+    out = {}
+
+    def run():
+        factory.build_supervised = recording_build
+        sys.modules["wandb"] = wandb
+        try:
+            cli.build_callbacks = lambda *a, **k: build_callbacks(
+                *a, sigterm_at=(1, 0), **k)
+            if cli.main(argv) is not None:
+                raise AssertionError("the preempted run did not stop")
+            out["preempted_losses"] = seen["recorder"].losses
+            out["ckpt_info"] = ckpt_info.describe_checkpoint(run_dir)
+            mgr = CheckpointManager(run_dir)
+            out["snapshot"] = mgr.load(1)
+            # the emergency save is epoch 1's start: the state saved
+            # after epoch 0
+            if (out["ckpt_info"]["emergency_step"] != 1
+                    or not _state_dicts_equal(out["snapshot"], mgr.load(0))):
+                raise AssertionError(f"emergency checkpoint: "
+                                     f"{out['ckpt_info']}")
+            seen.pop("resumed", None)
+            cli.build_callbacks = build_callbacks
+            out["resumed_history"] = cli.main(argv + ["--resume"])
+            out["resumed_losses"] = seen["recorder"].losses
+        finally:
+            cli.build_callbacks = plain["build_callbacks"]
+            factory.build_supervised = plain["build_supervised"]
+            if plain["wandb"] is None:
+                sys.modules.pop("wandb", None)
+            else:
+                sys.modules["wandb"] = plain["wandb"]
+
+    run_dir = os.path.join(tmp.name, "ckpt", "tooling")
+    t0 = time.perf_counter()
+    _, launches, checked = on_main_path(run)
+    cli_s = time.perf_counter() - t0
+    if ckpt_info.describe_checkpoint(run_dir)["emergency_step"] is not None:
+        raise AssertionError("the replayed epoch left the EMERGENCY marker")
+    if [h["epoch"] for h in out["resumed_history"]] != [1]:
+        raise AssertionError(f"resumed history {out['resumed_history']}")
+    # the resumed model, as epoch 1 begins again, is the snapshot
+    if not _state_dicts_equal(seen["resumed"],
+                              out["snapshot"]["model"]["model"]):
+        raise AssertionError("the resumed model is not the epoch-start "
+                             "snapshot")
+    losses = out["preempted_losses"] + out["resumed_losses"]
+    if len(out["resumed_losses"]) != TOOLING_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    events = read_history(os.path.join(tmp.name, "history.jsonl"))
+    epochs = [r["epoch"] for r in events if r["event"] == "epoch"]
+    if epochs != [0, 1]:
+        raise AssertionError(f"history epochs {epochs}")
+    final = seen["states"][-1]
+    eval_step = cli.build_eval_step(load_config(config), final, (512, 1024),
+                                    CLASSES, return_preds=True)
+    images, labels, preds = seen["samples"][-1]
+    if preds.shape != (BATCH, 512, 1024):
+        raise AssertionError(f"plot samples {preds.shape}")
+    final.model.eval()
+    hist = torch.zeros((CLASSES, CLASSES), dtype=torch.int32, device="cuda")
+    _, want = eval_step(torch.from_numpy(images).cuda(),
+                        torch.from_numpy(labels).cuda(), hist)
+    plot_agreement = float((want.cpu().numpy() == preds).mean())
+    if plot_agreement != 1.0:
+        raise AssertionError(f"plotted predictions agree with the eval "
+                             f"step's argmax on {plot_agreement}")
+    if not wandb_calls or wandb_calls[0] != ("init", "smoke") \
+            or wandb_calls[-1] != ("finish",):
+        raise AssertionError(f"W&B calls {wandb_calls[:3]}")
+    images_written = (sorted(os.listdir(os.path.join(tmp.name, "images")))
+                      if renderer else [])
+    tb_dir = os.path.join(tmp.name, "tb")
+    tb_written = sorted(os.listdir(tb_dir)) if os.path.isdir(tb_dir) else []
+
+    # the ColorJitter + RandomZoom batch against blur + flip alone
+    loader, transform = _gta5_stream(TRAIN_BATCH, SEED + 60)
+    host_images, host_rgb = next(iter(loader))
+    images_dev = torch.from_numpy(host_images).cuda().float()
+    ids = rgb_to_train_ids(torch.from_numpy(host_rgb).cuda())
+    augment = _augment_ms(images_dev, ids)
+    snapshot = {"bisenet_r18_adam": _snapshot_cost(final)}
+    del final, seen["states"][:]
+    # DeepLabV2-R101 with Adam's moments: one step at a small size first
+    deeplab = build_supervised(load_config(overrides={
+        "precision": {"compute_dtype": "bfloat16"}}), "deeplab", 1,
+        torch.device("cuda"), seed=SEED)
+    make_train_step(19)(deeplab, torch.zeros(2, 128, 256, 3, device="cuda"),
+                        torch.zeros(2, 128, 256, dtype=torch.int32,
+                                    device="cuda"))
+    snapshot["deeplab_r101_adam"] = _snapshot_cost(deeplab)
+    del deeplab
+    torch.cuda.empty_cache()
+
+    # --debug: a NaN planted in one conv stops the first forward
+    debug_dir = tempfile.TemporaryDirectory(prefix="rtsds_smoke_dbg_")
+    debug_config = _tooling_config(debug_dir.name, plots=False)
+
+    def planted(*args, **kwargs):
+        state = plain["build_supervised"](*args, **kwargs)
+        with torch.no_grad():
+            state.model.ffm.conv1.weight[0, 0] = float("nan")
+        return state
+
+    factory.build_supervised = planted
+    try:
+        cli.main(["--config", debug_config, "--synthetic", "--dataset",
+                  "gta5", "--debug"])
+        raise AssertionError("--debug did not stop at the planted NaN")
+    except FloatingPointError as e:
+        debug_message = str(e)
+    finally:
+        factory.build_supervised = plain["build_supervised"]
+        debug_dir.cleanup()
+    if "'ffm.conv1'" not in debug_message or torch.is_anomaly_enabled():
+        raise AssertionError(f"--debug: {debug_message}")
+    tmp.cleanup()
+    emit({"phase": "training_tooling", "model": "bisenet-resnet18",
+          "image_size": list(TRAIN_SIZE), "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "augmentation": "blur+flip+ColorJitter+"
+          "RandomZoom", "steps_per_epoch": TOOLING_STEPS,
+          "preempted_losses": out["preempted_losses"],
+          "resumed_losses": out["resumed_losses"],
+          "resumed_history": out["resumed_history"],
+          "emergency_save_s": seen["emergency_s"],
+          "resumed_equals_snapshot": True, "history_epochs": epochs,
+          "plot_samples": len(seen["samples"]),
+          "plot_preds_equal_eval_argmax": plot_agreement,
+          "renderer": renderer, "images_written": images_written,
+          "tensorboard_files": len(tb_written),
+          "wandb_calls": len(wandb_calls), "debug": debug_message,
+          "k2_outputs_checked": checked, "cli_s": cli_s,
+          "ckpt_info_after_sigterm": out["ckpt_info"],
+          "augment_ms_gate_open": augment, "epoch_start_snapshot": snapshot,
+          "launches": launches})
+    return launches
+
+
+def phase_convert_gta5() -> dict:
+    """``data/convert_gta5.convert_labels`` on the card (K2) over
+    CONVERT_FRAMES GTA5-size (1052x1914) colour-coded labels made from the
+    colour table (5% of pixels another colour), each held exactly against
+    the host LUT (``build_lut``); frames/s with the host-device transfers
+    counted, beside the LUT's on the host.  Returns the path's
+    launches."""
+    from rtsds_tpu_torch.data.convert_gta5 import build_lut, convert_labels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    frames = [gta5_label_batch(gen, GTA5_LABEL_SIZE).cpu().numpy()
+              for _ in range(CONVERT_FRAMES)]
+    lut = build_lut()
+
+    def host(rgb):
+        packed = ((rgb[..., 0].astype(np.uint32) << 16)
+                  | (rgb[..., 1].astype(np.uint32) << 8) | rgb[..., 2])
+        return lut[packed]
+
+    def run():
+        convert_labels(frames[0], "cuda")   # warm-up
+        t0 = time.perf_counter()
+        got = [convert_labels(f, "cuda") for f in frames]
+        return got, time.perf_counter() - t0
+
+    (got, card_s), launches, _ = on_main_path(run)
+    t0 = time.perf_counter()
+    want = [host(f) for f in frames]
+    host_s = time.perf_counter() - t0
+    for g, w in zip(got, want):
+        if g.dtype != np.uint8 or not np.array_equal(g, w):
+            raise AssertionError("convert_labels on the card != host LUT")
+    void = float(np.mean([(w == 255).mean() for w in want]))
+    emit({"phase": "convert_gta5", "frames": CONVERT_FRAMES,
+          "label_size": list(GTA5_LABEL_SIZE), "equal_to_host_lut": True,
+          "void_fraction": void,
+          "card_frames_per_s_with_transfers": CONVERT_FRAMES / card_s,
+          "host_lut_frames_per_s": CONVERT_FRAMES / host_s,
+          "launches": launches})
+    return launches
+
+
 def timed_entry(kernel, plain, library, nbytes: int) -> dict:
     """The measured keys of a ``kernels`` entry: the kernel's device time
     (median, min, max), its wrapper's host cost, the plain version's and
@@ -3257,17 +3808,38 @@ def int8_phases(frames, labels, tree, dl_frames, dl_tree) -> dict:
     return launches
 
 
+def tooling_phases(frames, tree, dl_frames, dl_tree) -> dict:
+    """The serving artifacts, the training tooling and the GTA5 converter;
+    returns the K1 and K2 launches of their main paths."""
+    phase_serving_artifact(tree, frames, dl_tree, dl_frames)
+    torch.cuda.empty_cache()
+    tooling = phase_training_tooling()
+    torch.cuda.empty_cache()
+    convert = phase_convert_gta5()
+    if convert["fast_hist_cuda"]:
+        raise AssertionError("the converter launched K1")
+    return {"fast_hist_cuda": {
+                "bisenet_training_tooling": tooling["fast_hist_cuda"]},
+            "rgb_to_train_ids_cuda": {
+                "bisenet_training_tooling": tooling["rgb_to_train_ids_cuda"],
+                "convert_gta5": convert["rgb_to_train_ids_cuda"]}}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--kernels-only"]:
         return kernels_only()
-    if sys.argv[1:] == ["--int8-only"]:
+    if sys.argv[1:] in (["--int8-only"], ["--tooling-only"]):
         phase_device()
-        int8_phases(*serving_data())
+        frames, labels, tree, dl_frames, dl_tree = serving_data()
+        if sys.argv[1] == "--int8-only":
+            int8_phases(frames, labels, tree, dl_frames, dl_tree)
+        else:
+            tooling_phases(frames, tree, dl_frames, dl_tree)
         print(gpu_name_and_power_limit(), flush=True)
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only | "
-                         f"--int8-only]")
+                         f"--int8-only | --tooling-only]")
     device = phase_device()
     hist_err = phase_hist_check()
     remap_err = phase_remap_check()
@@ -3330,6 +3902,10 @@ def main() -> int:
     # main paths 15-17: int8 validation of each model and the int8-teacher
     # distillation (counts reset inside each, just before)
     int8 = int8_phases(frames, frame_labels, tree, dl_frames, dl_tree)
+    # main paths 18-19: the training tooling through the CLI (K1, K2) and
+    # the GTA5 converter (K2); the serving artifacts run no hand-written
+    # kernel (counts reset inside each, just before)
+    tools = tooling_phases(frames, tree, dl_frames, dl_tree)
 
     hist_paths = {"bisenet_serving_validation": serve_launches,
                   "bisenet_training": train_launches["fast_hist_cuda"],
@@ -3340,7 +3916,7 @@ def main() -> int:
                   **{f"bisenet_{k}": n["fast_hist_cuda"]
                      for k, n in extras.items()},
                   "bisenet_serving_checkpoint": serve_ckpt["fast_hist_cuda"],
-                  **int8["fast_hist_cuda"]}
+                  **int8["fast_hist_cuda"], **tools["fast_hist_cuda"]}
     remap_paths = {
         "bisenet_training": train_launches["rgb_to_train_ids_cuda"],
         "bisenet_da": da_launches["rgb_to_train_ids_cuda"],
@@ -3351,7 +3927,7 @@ def main() -> int:
         # the training that wrote the served checkpoint: the same launches
         # as bisenet_ema_accumulate's, counted once in the total
         "bisenet_serving_checkpoint": ema["launches"]["rgb_to_train_ids_cuda"],
-        **int8["rgb_to_train_ids_cuda"]}
+        **int8["rgb_to_train_ids_cuda"], **tools["rgb_to_train_ids_cuda"]}
     if serve_ckpt["rgb_to_train_ids_cuda"]:
         raise AssertionError("serving launched K2")
     for kernel, paths in (("K1", hist_paths), ("K2", remap_paths)):

@@ -7,6 +7,12 @@ each saved epoch N and ``metrics.json``, the monitored value of each saved
 epoch.  ``save_best`` saves an epoch only when its monitored metric beats
 the best so far, across epochs; otherwise every ``save_freq``-th epoch is
 saved.  The last ``max_to_keep`` epochs are kept, and the best one always.
+
+When training dies (an exception, or SIGTERM turned into
+``utils/preemption.Preempted``), the loops call
+:meth:`ModelCheckpoint.save_emergency`: it saves the epoch-start snapshot
+of the interrupted epoch as that epoch and writes an ``EMERGENCY`` marker
+holding its number, so that ``resume`` replays the epoch from its start.
 """
 
 from __future__ import annotations
@@ -19,6 +25,20 @@ import numpy as np
 import torch
 
 from rtsds_tpu_torch.callbacks.base import Callback
+
+
+# the file that marks a directory's latest save as a mid-epoch snapshot;
+# it holds that epoch's number
+EMERGENCY = "EMERGENCY"
+
+
+def emergency_step(save_dir: str) -> int | None:
+    """The epoch of ``save_dir``'s emergency snapshot, or None."""
+    try:
+        with open(os.path.join(save_dir, EMERGENCY)) as f:
+            return int(f.read().strip())
+    except (OSError, ValueError):
+        return None
 
 
 class CheckpointManager:
@@ -125,6 +145,23 @@ class CheckpointManager:
         return frozenset(names)
 
 
+class Snapshot:
+    """A frozen copy of a state's ``state_dict()`` (its tensors cloned on
+    their devices), itself a checkpoint item."""
+
+    def __init__(self, state):
+        self._state = _copy(state.state_dict())
+
+    def state_dict(self) -> dict:
+        return self._state
+
+
+def snapshot_states(states: dict) -> dict:
+    """``{name: Snapshot}`` of ``{name: state}``: the emergency provider
+    the loops attach at each epoch's start."""
+    return {name: Snapshot(state) for name, state in states.items()}
+
+
 def _copy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().clone()
@@ -156,6 +193,7 @@ class ModelCheckpoint(Callback):
         self.best: float | None = None
         self.best_step: int | None = None
         self._get_states: Callable[[], dict] | None = None
+        self._get_emergency: Callable[[], dict] | None = None
         self._max_to_keep = max_to_keep
         self._manager: CheckpointManager | None = None
         self._epoch = 0
@@ -168,19 +206,41 @@ class ModelCheckpoint(Callback):
                                               best_mode=self.mode)
         return self._manager
 
-    def attach(self, get_states: Callable[[], dict]) -> "ModelCheckpoint":
+    def attach(self, get_states: Callable[[], dict],
+               get_emergency_states: Callable[[], dict] | None = None
+               ) -> "ModelCheckpoint":
+        """``get_states`` feeds the regular saves, after an epoch;
+        ``get_emergency_states`` feeds :meth:`save_emergency`.  The loops
+        pass the epoch-start snapshot (:func:`snapshot_states`) as the
+        latter: replayed from it, the interrupted epoch trains on the
+        batches of the uninterrupted run, where a mid-epoch state would
+        re-train on batches already consumed."""
         self._get_states = get_states
+        self._get_emergency = get_emergency_states
         return self
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
+
+    @property
+    def emergency_marker(self) -> str:
+        return os.path.join(self.save_dir, EMERGENCY)
+
+    def _save(self, states: dict, monitor: float | None = None) -> None:
+        """A regular save of epoch ``self._epoch``; it supersedes an
+        emergency snapshot, so the marker goes."""
+        self.manager.save(self._epoch, states, monitor=monitor)
+        try:
+            os.remove(self.emergency_marker)
+        except OSError:
+            pass
 
     def on_epoch_end(self, epoch, logs=None):
         self._epoch = epoch
         if self._get_states is None:
             return
         if not self.save_best and (epoch + 1) % self.save_freq == 0:
-            self.manager.save(epoch, self._get_states())
+            self._save(self._get_states())
 
     def on_validation_end(self, logs=None, data=None):
         if self._get_states is None or not logs:
@@ -190,21 +250,51 @@ class ModelCheckpoint(Callback):
             return
         value = float(value)
         if not self.save_best:
-            self.manager.save(self._epoch, self._get_states(), monitor=value)
+            self._save(self._get_states(), monitor=value)
         elif _improved(value, self.best, self.mode):
             self.best = value
             self.best_step = self._epoch
-            self.manager.save(self._epoch, self._get_states(), monitor=value)
+            self._save(self._get_states(), monitor=value)
             print(f"Best Model Saved at Epoch {self._epoch}")
+
+    def save_emergency(self) -> bool:
+        """Save the interrupted epoch's snapshot (the emergency provider's,
+        else the live states) as that epoch and mark it mid-epoch; the
+        loops call this before an exception leaves them.  An epoch that is
+        already saved is kept as it is: a post-epoch save lets ``resume``
+        start the next epoch, an earlier emergency snapshot replays this
+        one.  Returns True when the epoch is on disk; never raises, so the
+        original error propagates."""
+        if self._get_states is None:
+            return False
+        try:
+            if self._epoch in self.manager.all_steps():
+                marked = os.path.exists(self.emergency_marker)
+                print(f"Emergency: epoch {self._epoch} already has a "
+                      f"{'mid-epoch' if marked else 'post-epoch'} snapshot;"
+                      f" keeping it ({self.save_dir})")
+                return True
+            provider = self._get_emergency or self._get_states
+            self.manager.save(self._epoch, provider())
+            with open(self.emergency_marker, "w") as f:
+                f.write(str(int(self._epoch)))
+            print(f"Emergency checkpoint saved at epoch {self._epoch} "
+                  f"({self.save_dir})")
+            return True
+        except Exception as e:
+            print(f"emergency checkpoint failed: {e}")
+            return False
 
     def resume(self, states: dict, optional: tuple[str, ...] = ()
                ) -> tuple[dict, int]:
         """Load the latest checkpoint into ``states``; returns ``(restored,
         start_epoch)``: the states restored (all of ``states`` but the
         ``optional`` ones the checkpoint lacks) and the epoch after the
-        saved one; ``(states, 0)`` when nothing was restored.  The best
-        value so far is re-armed from the stored metrics, so save-best
-        cannot regress after a resume."""
+        saved one, or the saved epoch itself when it is an emergency
+        snapshot (the ``EMERGENCY`` marker names it), which then replays
+        from its start; ``(states, 0)`` when nothing was restored.  The
+        best value so far is re-armed from the stored metrics, so
+        save-best cannot regress after a resume."""
         mgr = self.manager
         latest = mgr.latest_step()
         restored = (mgr.restore(states, latest, optional)
@@ -213,6 +303,8 @@ class ModelCheckpoint(Callback):
             return states, 0
         states = {name: states[name] for name in states if name in restored}
         start_epoch = int(latest) + 1
+        if emergency_step(self.save_dir) == int(latest):
+            start_epoch = int(latest)  # replay the interrupted epoch
         best = mgr.best_step()
         if best is not None:
             self.best = mgr.metrics()[best]

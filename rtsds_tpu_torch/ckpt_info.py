@@ -18,7 +18,8 @@ from __future__ import annotations
 import argparse
 import os
 
-from rtsds_tpu_torch.callbacks.checkpoint import CheckpointManager
+from rtsds_tpu_torch.callbacks.checkpoint import (
+    CheckpointManager, emergency_step)
 
 
 def describe_checkpoint(save_dir: str) -> dict:
@@ -26,9 +27,9 @@ def describe_checkpoint(save_dir: str) -> dict:
 
     Returns ``{"steps": [{"step", "items", "monitor"}...], "best_step",
     "latest_step", "emergency_step"}``, steps ascending.
-    ``emergency_step`` (the JAX package's mid-epoch preemption save) is
-    always ``None``: the port writes no emergency checkpoint until
-    preemption is ported.
+    ``emergency_step`` is the epoch of a mid-epoch emergency snapshot
+    (``ModelCheckpoint.save_emergency``, named by the ``EMERGENCY``
+    marker), which ``--resume`` replays from its start; else ``None``.
     """
     # inspection must not create directories (CheckpointManager's
     # constructor makes its save_dir)
@@ -42,7 +43,8 @@ def describe_checkpoint(save_dir: str) -> dict:
                          else float(metrics[step]))}
             for step in mgr.all_steps()]
     return {"steps": rows, "best_step": mgr.best_step(),
-            "latest_step": mgr.latest_step(), "emergency_step": None}
+            "latest_step": mgr.latest_step(),
+            "emergency_step": emergency_step(save_dir)}
 
 
 def _subdirs_with_checkpoints(path: str) -> list[str]:

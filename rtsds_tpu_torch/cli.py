@@ -30,10 +30,15 @@ restores the best (else the latest) one and reports its mIoU;
 trainIds on the device.
 
 The config's ``device`` key picks the device: ``cpu`` is the CPU, anything
-else the GPU, which raises when there is none.  Features of the JAX CLI
-that are not ported yet (a mesh of more than one device, ``--multihost``,
-``--wandb``, ``--debug``, ``callbacks.history``) exit with a message
-saying so.
+else the GPU, which raises when there is none.  Callbacks come from
+``callbacks``: ``model_checkpoint``, ``early_stopping``, ``history`` (a
+JSONL event log), ``images_plots`` (validation figures) and, with
+``--wandb``, ``logging.wandb`` (its API key may come from ``.env``).
+SIGTERM saves an emergency checkpoint of the interrupted epoch's start and
+exits; ``--resume`` replays that epoch.  ``--debug`` stops at the first
+non-finite value (``utils/debug.py``).  Features of the JAX CLI that are
+not ported yet (a mesh of more than one device, ``--multihost``) exit with
+a message saying so.
 """
 
 from __future__ import annotations
@@ -73,9 +78,13 @@ def argument_parser(argv=None):
     parser.add_argument("--domain_adaptation", action="store_true",
                         help="Adversarial GTA5 -> Cityscapes domain "
                              "adaptation instead of supervised training.")
-    for flag in ("--multihost", "--wandb", "--debug"):
-        parser.add_argument(flag, action="store_true",
-                            help="Not ported yet.")
+    parser.add_argument("--wandb", action="store_true",
+                        help="Log to the W&B platform.")
+    parser.add_argument("--debug", action="store_true",
+                        help="Stop at the first non-finite value: anomaly "
+                             "mode and a check of every module's output.")
+    parser.add_argument("--multihost", action="store_true",
+                        help="Not ported yet.")
     return parser.parse_args(argv)
 
 
@@ -133,9 +142,8 @@ def _check_domain_adaptation(config) -> None:
 def check_ported(args, config) -> None:
     """Exit on every flag or config switch the port does not run yet, and
     say what is skipped."""
-    for flag in ("multihost", "wandb", "debug"):
-        if getattr(args, flag):
-            raise _not_ported(f"--{flag}")
+    if args.multihost:
+        raise _not_ported("--multihost")
     if args.domain_adaptation:
         _check_domain_adaptation(config)
     else:
@@ -148,11 +156,6 @@ def check_ported(args, config) -> None:
     if any(int(mesh.get(axis, 1) or 1) > 1
            for axis in ("data", "spatial", "model", "pipe")):
         raise _not_ported(f"mesh {mesh} (the port runs on one device)")
-    if config.callbacks.get("history"):
-        raise _not_ported("callbacks.history")
-    if config.callbacks.get("images_plots"):
-        print("callbacks.images_plots is not ported yet to rtsds_tpu_torch: "
-              "no validation images are written")
     if config.get("compilation_cache"):
         print("compilation_cache is an XLA setting; rtsds_tpu_torch ignores "
               "it")
@@ -231,10 +234,11 @@ def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
 
 
 def build_eval_step(config, state, image_size: tuple[int, int],
-                    num_classes: int):
+                    num_classes: int, return_preds: bool = False):
     """The validation step of ``state``'s model at ``image_size``: the
     ``validation.ensemble`` or ``validation.sliding`` protocol when one is
-    enabled, else the plain forward."""
+    enabled, else the plain forward.  ``return_preds`` must be on when an
+    image-plot callback listens, or it is never handed a sample."""
     from rtsds_tpu_torch.config import parse_float_list
     from rtsds_tpu_torch.eval.ensemble import make_ensemble_eval_step
     from rtsds_tpu_torch.eval.sliding import make_sliding_eval_step
@@ -242,7 +246,8 @@ def build_eval_step(config, state, image_size: tuple[int, int],
 
     vcfg = config.get("validation") or {}
     ens, sld = vcfg.get("ensemble"), vcfg.get("sliding")
-    kwargs = {"compute_dtype": state.compute_dtype}
+    kwargs = {"compute_dtype": state.compute_dtype,
+              "return_preds": return_preds}
     if _enabled(ens):
         return make_ensemble_eval_step(
             state.model, image_size, num_classes,
@@ -259,15 +264,34 @@ def build_eval_step(config, state, image_size: tuple[int, int],
     return make_eval_step(state.model, num_classes, **kwargs)
 
 
-def build_callbacks(config, mode_suffix: str = ""):
+def build_callbacks(config, mode_suffix: str = "", use_wandb: bool = False):
     """(callbacks, checkpoint) from ``config.callbacks``; a section set to
     null is off.  Checkpoints go to ``<save_name><mode_suffix>``, so
-    supervised and domain-adaptation runs of one config keep apart."""
+    supervised and domain-adaptation runs of one config keep apart.
+    ``use_wandb`` (``--wandb``) adds the W&B logger of
+    ``callbacks.logging.wandb``, and exits when that section is null."""
     from rtsds_tpu_torch.callbacks.checkpoint import (
         EarlyStopping, ModelCheckpoint)
+    from rtsds_tpu_torch.callbacks.history import HistoryCallback
+    from rtsds_tpu_torch.callbacks.plots import ImagePlotsCallback
 
     cb_cfg = config.callbacks
     callbacks = []
+    if use_wandb:
+        from rtsds_tpu_torch.callbacks.logging import WandBCallback
+        from rtsds_tpu_torch.utils.dotenv import load_dotenv
+
+        logging_cfg = cb_cfg.get("logging")
+        wb = logging_cfg.get("wandb") if logging_cfg else None
+        if not wb:
+            raise SystemExit(
+                "--wandb passed but callbacks.logging.wandb is disabled "
+                "(null) or missing in the config")
+        load_dotenv()  # WANDB_API_KEY may live in ./.env
+        callbacks.append(WandBCallback(project_name=wb["project_name"],
+                                       run_name=wb["run_name"],
+                                       config=config.to_dict(),
+                                       note=wb["note"]))
     checkpoint = None
     if cb_cfg.get("model_checkpoint"):
         mc = cb_cfg["model_checkpoint"]
@@ -283,7 +307,28 @@ def build_callbacks(config, mode_suffix: str = ""):
             monitor=es.get("monitor", "validation_mIoU"),
             mode=es.get("mode", "max"),
             patience=int(es.get("patience", 5))))
+    if cb_cfg.get("history"):
+        callbacks.append(HistoryCallback(
+            path=cb_cfg["history"].get("path", "history.jsonl")))
+    if cb_cfg.get("images_plots"):
+        ip = cb_cfg["images_plots"]
+        callbacks.append(ImagePlotsCallback(
+            save_dir=ip.get("save_dir", "images"),
+            number_of_samples=int(ip.get("number_of_samples", 4))))
     return callbacks, checkpoint
+
+
+def _plots(callbacks) -> bool:
+    return any(hasattr(cb, "add_sample") for cb in callbacks)
+
+
+def _preempted(e, checkpoint) -> None:
+    if checkpoint is not None:
+        print(f"Preempted ({e}); exiting -- restart with --resume "
+              f"to continue from the last checkpoint.")
+    else:
+        print(f"Preempted ({e}); no checkpoint callback configured, "
+              f"progress NOT saved.")
 
 
 def _ema_decay_from(tcfg) -> float | None:
@@ -400,6 +445,8 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     from rtsds_tpu_torch.train.factory import build_adversarial
     from rtsds_tpu_torch.train.loop import adversarial_fit
     from rtsds_tpu_torch.train.self_training import make_self_training_step
+    from rtsds_tpu_torch.utils.debug import name_modules
+    from rtsds_tpu_torch.utils.preemption import Preempted
 
     tcfg = config.training["domain_adaptation"]
     num_classes = int(tcfg["num_classes"])
@@ -427,9 +474,12 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     fda_beta = float(fda_cfg.get("beta", 0.01)) if _enabled(fda_cfg) else 0.0
 
     gen_state, dis_state = build_adversarial(config, device, seed=args.seed)
+    if args.debug:
+        name_modules(gen_state.model, "generator.")
+        name_modules(dis_state.model, "discriminator.")
     states = {"generator": gen_state, "discriminator": dis_state}
     eval_step = build_eval_step(config, gen_state, data["cs_size"],
-                                num_classes)
+                                num_classes, return_preds=_plots(callbacks))
 
     def val_batches(_epoch):
         return device_batches(data["cs_val"], data["cs_transform"], device)
@@ -495,6 +545,9 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
             start_epoch=start_epoch, device=device, eval_step=eval_step,
             ema_decay=ema_decay, ema_params=resumed_ema,
             ema_in_step=self_training)
+    except Preempted as e:
+        _preempted(e, checkpoint)
+        return None
     finally:
         # stops the loaders' prefetch threads
         source_iter.close()
@@ -568,14 +621,37 @@ def supervised_train_step(args, config, tcfg, train_loader, device,
 
 
 def main(argv=None):
-    """Returns the training history (a list of per-validation dicts), or
-    the mIoU with ``--validate_only``."""
+    """Returns the training history (a list of per-validation dicts), the
+    mIoU with ``--validate_only``, or None when SIGTERM stopped the run.
+
+    SIGTERM becomes :class:`~rtsds_tpu_torch.utils.preemption.Preempted`
+    for the run (an emergency checkpoint, then a clean exit), and
+    ``--debug`` the debug mode; both are undone when the run ends, so a
+    library caller keeps its own signal handlers and settings."""
+    from rtsds_tpu_torch.utils.debug import disable_debug, enable_debug
+    from rtsds_tpu_torch.utils.preemption import (
+        install_preemption_handler, restore_handlers)
+
+    args = argument_parser(argv)
+    previous = install_preemption_handler()
+    if args.debug:
+        enable_debug()
+    try:
+        return _main(args)
+    finally:
+        if args.debug:
+            disable_debug()
+        restore_handlers(previous)
+
+
+def _main(args):
     from rtsds_tpu_torch.data.pipeline import device_batches
     from rtsds_tpu_torch.train.ema import setup_ema
     from rtsds_tpu_torch.train.factory import build_supervised
     from rtsds_tpu_torch.train.loop import supervised_fit
+    from rtsds_tpu_torch.utils.debug import name_modules
+    from rtsds_tpu_torch.utils.preemption import Preempted
 
-    args = argument_parser(argv)
     config = load_config(args.config)
     check_ported(args, config)
     device = device_from_config(config)
@@ -583,7 +659,8 @@ def main(argv=None):
                            synthetic=args.synthetic, seed=args.seed,
                            infinite=args.domain_adaptation)
     callbacks, checkpoint = build_callbacks(
-        config, mode_suffix="_da" if args.domain_adaptation else "")
+        config, mode_suffix="_da" if args.domain_adaptation else "",
+        use_wandb=args.wandb)
     class_names = list(config.meta["class_names"])
 
     if args.domain_adaptation:
@@ -604,6 +681,8 @@ def main(argv=None):
     num_classes = int(tcfg["num_classes"])
     state = build_supervised(config, args.model, len(train_loader), device,
                              seed=args.seed)
+    if args.debug:
+        name_modules(state.model)
     ema_decay = _ema_decay_from(tcfg)
 
     def train_batches(epoch):
@@ -613,7 +692,8 @@ def main(argv=None):
 
     train_step = supervised_train_step(args, config, tcfg, train_loader,
                                        device, lambda: train_batches(0))
-    eval_step = build_eval_step(config, state, data["cs_size"], num_classes)
+    eval_step = build_eval_step(config, state, data["cs_size"], num_classes,
+                                return_preds=_plots(callbacks))
 
     def val_batches(_epoch):
         return device_batches(data["cs_val"], data["cs_transform"], device)
@@ -632,13 +712,17 @@ def main(argv=None):
         # the resumed epochs see the shuffles the uninterrupted run drew
         train_loader.set_epoch(start_epoch)
 
-    _, history = supervised_fit(
-        state, train_step, train_batches, val_batches,
-        epochs=int(tcfg["epochs"]), num_classes=num_classes,
-        class_names=class_names, callbacks=callbacks,
-        do_validation=int(tcfg["do_validation"]), checkpoint=checkpoint,
-        start_epoch=start_epoch, device=device, eval_step=eval_step,
-        ema_decay=ema_decay, ema_params=resumed_ema)
+    try:
+        _, history = supervised_fit(
+            state, train_step, train_batches, val_batches,
+            epochs=int(tcfg["epochs"]), num_classes=num_classes,
+            class_names=class_names, callbacks=callbacks,
+            do_validation=int(tcfg["do_validation"]), checkpoint=checkpoint,
+            start_epoch=start_epoch, device=device, eval_step=eval_step,
+            ema_decay=ema_decay, ema_params=resumed_ema)
+    except Preempted as e:
+        _preempted(e, checkpoint)
+        return None
     return history
 
 

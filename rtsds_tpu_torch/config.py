@@ -85,6 +85,10 @@ class ConfigNode(Mapping):
     def __repr__(self) -> str:
         return f"ConfigNode({self._data!r})"
 
+    def to_dict(self) -> dict:
+        """A deep copy as plain dicts (W&B's run config)."""
+        return copy.deepcopy(self._data)
+
 
 def _wrap(value: Any) -> Any:
     if isinstance(value, dict):

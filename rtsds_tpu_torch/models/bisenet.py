@@ -74,6 +74,12 @@ class BiSeNet(nn.Module):
     ``output_f32=False`` keeps the logits in the compute dtype, for callers
     that only take their argmax.  ``remat`` recomputes the context path's
     residual blocks in the backward instead of keeping their activations.
+    ``with_interpolation=False`` returns the fused 1/8-resolution logits:
+    no final 1x1 ``conv`` (the module has no ``conv.*`` parameters) and no
+    8x upsample.  ``s2d_stem=True`` is accepted for the JAX package's
+    configurations and computes the plain stride-2 stems: its
+    space-to-depth stem is an exact re-layout for the TPU's matrix unit,
+    with the same parameters and results.
     """
 
     # the attention gates batch-normalize a pooled (N, C, 1, 1) map, whose
@@ -82,10 +88,13 @@ class BiSeNet(nn.Module):
 
     def __init__(self, num_classes: int = 19, context_path: str = "resnet18",
                  fast_head: bool = True, output_f32: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, with_interpolation: bool = True,
+                 s2d_stem: bool = False):
         super().__init__()
         c16, c32 = FEATURE_CHANNELS[context_path]
         self.fast_head = fast_head
+        self.with_interpolation = with_interpolation
+        self.s2d_stem = s2d_stem
         self.output_f32 = output_f32
         self.spatial_path = SpatialPath()
         self.context_path = build_contextpath(context_path, remat=remat)
@@ -94,7 +103,8 @@ class BiSeNet(nn.Module):
         self.supervision1 = conv(c16, num_classes, 1)
         self.supervision2 = conv(c32, num_classes, 1)
         self.ffm = FeatureFusionModule(num_classes, 256 + c16 + c32)
-        self.conv = conv(num_classes, num_classes, 1)
+        if with_interpolation:
+            self.conv = conv(num_classes, num_classes, 1)
         for name, child in self.named_children():
             if name != "context_path":
                 kaiming_normal_relu_(child)
@@ -114,10 +124,11 @@ class BiSeNet(nn.Module):
         cx2 = resize_bilinear(cx2, sx.shape[-2:])
 
         result = self.ffm(sx, cx1, cx2)
-        if self.fast_head:
-            result = upsample_bilinear(self.conv(result), 8)
-        else:
-            result = self.conv(upsample_bilinear(result, 8))
+        if self.with_interpolation:
+            if self.fast_head:
+                result = upsample_bilinear(self.conv(result), 8)
+            else:
+                result = self.conv(upsample_bilinear(result, 8))
         if self.output_f32:
             result = at_least_f32(result)
         if not self.training:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.models.layers import BN_EPS
@@ -145,10 +146,18 @@ def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (N, K) int8 transposed -> (M, N) int32, exactly.
 
     Rows, K and N are padded with zeros up to the card's GEMM rules (more
-    than 16 rows, K and N multiples of 8) and the padding sliced off."""
+    than 16 rows, K and N multiples of 8) and the padding sliced off.
+    Under ``torch.export`` with a symbolic batch the row count is symbolic:
+    the rows are padded by ``_MIN_ROWS`` unless they are known to pass the
+    rule for every batch, so that the program holds no guard on the batch
+    (``serve_export.py``)."""
     m, k = a.shape
     n = w.shape[0]
-    pad_m, pad_k, pad_n = max(_MIN_ROWS - m, 0), (-k) % _ALIGN, (-n) % _ALIGN
+    if isinstance(m, torch.SymInt):
+        pad_m = 0 if statically_known_true(m >= _MIN_ROWS) else _MIN_ROWS
+    else:
+        pad_m = max(_MIN_ROWS - m, 0)
+    pad_k, pad_n = (-k) % _ALIGN, (-n) % _ALIGN
     if pad_m or pad_k:
         a = F.pad(a, (0, pad_k, 0, pad_m))
     if pad_k or pad_n:

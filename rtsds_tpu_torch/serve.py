@@ -13,7 +13,9 @@ checkpoint (its ``ema`` item when it holds one), and
 deeplab] [--protocol sliding] [--quantize int8] [--out DIR] [--colored]``
 decodes PNG frames, resizes them to ``--size`` and serves them; without
 ``--checkpoint`` it runs from random init.  ``quantize="int8"`` serves the
-W8A8 quantized model (``ops/quant.py``), under any protocol.
+W8A8 quantized model (``ops/quant.py``), under any protocol.  ``--export
+PATH`` writes the predictor as a serving artifact (``serve_export.py``),
+and ``--artifact PATH`` serves one without the model code.
 """
 
 from __future__ import annotations
@@ -219,6 +221,7 @@ class Predictor:
                 f"num_classes={num_classes} exceeds the uint8 serving wire "
                 f"format (class ids must fit in a byte)")
         self.device = resolve_device(device)
+        self.num_classes = num_classes
         self.image_size = tuple(image_size)
         self.batch_size = batch_size
         self.dtype = dtype
@@ -236,6 +239,7 @@ class Predictor:
             load_flax_variables(model, variables)
         if state is not None:
             load_segmentor_state(model, state)
+        self.model_class = type(model).__name__
         self.quantize = quantize
         if quantize:
             self.model = self._quantized(model_name, model.state_dict(),
@@ -288,16 +292,21 @@ class Predictor:
         self.act_scales = model.act_scales
         return model
 
-    @torch.inference_mode()
-    def _predict(self, frames: np.ndarray) -> torch.Tensor:
-        """(N, H, W, 3) uint8 host frames -> (N, H, W) uint8 device masks.
-        A protocol resizes and slices the float32 frames and casts each
-        forward's input to the model's dtype."""
-        x = self._normalized(frames)
+    def masks(self, frames: torch.Tensor) -> torch.Tensor:
+        """The whole serving computation on the device: (N, H, W, 3) uint8
+        frames -> (N, H, W) uint8 masks.  A protocol resizes and slices the
+        float32 frames and casts each forward's input to the model's dtype.
+        ``serve_export.export_predictor`` captures this method."""
+        x = normalize(frames, self.correct_preprocessing).permute(0, 3, 1, 2)
         if self._protocol is not None:
             return self._protocol(x).to(torch.uint8)
         logits = self.model(x.to(self.dtype))
         return logits.argmax(dim=1).to(torch.uint8)
+
+    @torch.inference_mode()
+    def _predict(self, frames: np.ndarray) -> torch.Tensor:
+        """(N, H, W, 3) uint8 host frames -> (N, H, W) uint8 device masks."""
+        return self.masks(torch.from_numpy(frames).to(self.device))
 
     def warmup(self) -> "Predictor":
         dummy = np.zeros((self.batch_size, *self.image_size, 3), np.uint8)
@@ -407,10 +416,6 @@ def main(argv=None):
     """
     import argparse
 
-    from PIL import Image
-
-    from rtsds_tpu_torch.data.pipeline import decode_image
-
     parser = argparse.ArgumentParser(
         description="RTSDS real-time segmentation inference (PyTorch/CUDA)")
     parser.add_argument("images", nargs="*", help="input image paths (PNG)")
@@ -465,46 +470,87 @@ def main(argv=None):
                              "images (otherwise the sidecar takes "
                              "precedence over --calib_stat/"
                              "--calib_percentile)")
-    for flag in ("--export", "--artifact", "--mesh"):
-        parser.add_argument(flag, type=str, default=None,
-                            help="not yet ported")
+    parser.add_argument("--export", type=str, default=None, metavar="PATH",
+                        help="write a self-contained serving artifact "
+                             "(torch.export program + weights; see "
+                             "serve_export.py) and exit")
+    parser.add_argument("--artifact", type=str, default=None, metavar="PATH",
+                        help="serve from an exported artifact instead of "
+                             "model code + checkpoint")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="not yet ported")
     args = parser.parse_args(argv)
 
-    for flag in ("export", "artifact", "mesh"):
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag} is not yet ported to rtsds_tpu_torch")
-    if not args.images:
-        if args.quantize:
-            parser.error("--quantize needs input images to calibrate the "
-                         "activation scales")
+    # flag checks before any model or artifact work
+    if args.export and args.artifact:
+        parser.error("--export needs a live model, not --artifact")
+    if args.artifact and args.protocol != "plain":
+        parser.error("--protocol is baked into an artifact at export time; "
+                     "export a protocol-enabled predictor instead of "
+                     "passing --protocol with --artifact")
+    if args.mesh and (args.artifact or args.export):
+        parser.error("--mesh is live multi-chip serving; AOT artifacts "
+                     "are single-device programs (export without --mesh)")
+    if args.mesh is not None:
+        parser.error("--mesh is not yet ported to rtsds_tpu_torch")
+    if args.quantize and args.artifact:
+        parser.error("--quantize happens at predictor build time; the "
+                     "artifact is already a compiled program")
+    if args.quantize and not args.images:
+        parser.error("--quantize needs input images to calibrate the "
+                     "activation scales")
+    if not args.images and not args.export:
         parser.error("no input images given")
     if args.checkpoint is not None and not os.path.exists(args.checkpoint):
         parser.error(f"--checkpoint {args.checkpoint} does not exist")
 
-    size = tuple(parse_int_list(args.size))
-    frames = np.stack([decode_image(p, size) for p in args.images])
-    kwargs = dict(
-        model_name=args.model, image_size=size,
-        batch_size=min(len(args.images), 8), num_classes=args.num_classes,
-        backbone=args.backbone,
-        correct_preprocessing=args.correct_preprocessing,
-        protocol=args.protocol,
-        protocol_kwargs=protocol_kwargs_from_flags(
-            args.protocol, args.scales, args.window, args.stride,
-            args.window_chunk),
-        device=args.device)
-    if args.quantize:
-        kwargs.update(quantize=args.quantize, calib_frames=frames,
-                      calib_stat=args.calib_stat,
-                      calib_percentile=args.calib_percentile)
-        if args.recalibrate and args.checkpoint:
-            # without a checkpoint there is no sidecar to ignore
-            kwargs["use_qat_scales"] = False
-    if args.checkpoint:
-        predictor = Predictor.from_checkpoint(args.checkpoint, **kwargs)
+    def decode_frames(size):
+        from rtsds_tpu_torch.data.pipeline import decode_image
+
+        return (np.stack([decode_image(p, size) for p in args.images])
+                if args.images else None)
+
+    if args.artifact:
+        from rtsds_tpu_torch.serve_export import load_predictor
+
+        predictor = load_predictor(args.artifact, device=args.device)
+        # decode at the artifact's size
+        frames = decode_frames(predictor.image_size)
     else:
-        print("serve: no --checkpoint given, running from RANDOM init")
-        predictor = Predictor(**kwargs)
+        size = tuple(parse_int_list(args.size))
+        frames = decode_frames(size)
+        kwargs = dict(
+            model_name=args.model, image_size=size,
+            batch_size=min(max(len(args.images), 1), 8),
+            num_classes=args.num_classes, backbone=args.backbone,
+            correct_preprocessing=args.correct_preprocessing,
+            protocol=args.protocol,
+            protocol_kwargs=protocol_kwargs_from_flags(
+                args.protocol, args.scales, args.window, args.stride,
+                args.window_chunk),
+            device=args.device)
+        if args.quantize:
+            kwargs.update(quantize=args.quantize, calib_frames=frames,
+                          calib_stat=args.calib_stat,
+                          calib_percentile=args.calib_percentile)
+            if args.recalibrate and args.checkpoint:
+                # without a checkpoint there is no sidecar to ignore
+                kwargs["use_qat_scales"] = False
+        if args.checkpoint:
+            predictor = Predictor.from_checkpoint(args.checkpoint, **kwargs)
+        else:
+            print("serve: no --checkpoint given, running from RANDOM init")
+            predictor = Predictor(**kwargs)
+    if args.export:
+        from rtsds_tpu_torch.serve_export import export_predictor
+
+        export_predictor(predictor, args.export)
+        print(f"exported serving artifact to {args.export}")
+        if not args.images:
+            return
+        # images given alongside --export are served too
+    from PIL import Image
+
     os.makedirs(args.out, exist_ok=True)
     outputs = (predictor.predict_colored(frames) if args.colored
                else predictor.predict(frames))

@@ -18,7 +18,8 @@ Two layers:
   and ``GET /stats``.  PIL is imported only to decode and encode PNGs, so
   the raw path serves where PIL is not installed.  ``--quantize int8``
   serves the W8A8 model, its activation scales calibrated on
-  ``--calib_images`` (PNGs) or read from a QAT checkpoint's sidecar.
+  ``--calib_images`` (PNGs) or read from a QAT checkpoint's sidecar;
+  ``--artifact PATH`` serves a program written by ``serve_export.py``.
 
 The forward runs under ``torch.inference_mode``, which is thread-local:
 :meth:`rtsds_tpu_torch.serve.Predictor._predict` enters it itself, on
@@ -324,7 +325,7 @@ def make_http_server(batcher: MicroBatcher, host: str = "127.0.0.1",
 
 def main(argv=None):
     """``python -m rtsds_tpu_torch.serve_server --port 8000 [--checkpoint
-    PATH]``: segmentation as a service on one GPU."""
+    PATH | --artifact PATH]``: segmentation as a service on one GPU."""
     import argparse
 
     from rtsds_tpu_torch.config import parse_int_list
@@ -382,60 +383,77 @@ def main(argv=None):
                              "--calib_images (otherwise the sidecar takes "
                              "precedence over --calib_stat/"
                              "--calib_percentile)")
-    for flag in ("--artifact", "--mesh"):
-        parser.add_argument(flag, default=None, help="not yet ported")
+    parser.add_argument("--artifact", default=None,
+                        help="serve from an exported artifact "
+                             "(serve_export.py)")
+    parser.add_argument("--mesh", default=None, help="not yet ported")
     args = parser.parse_args(argv)
 
-    for flag in ("artifact", "mesh"):
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag} is not yet ported to rtsds_tpu_torch")
-    if args.quantize and not args.calib_images:
-        if args.recalibrate:
-            parser.error("--recalibrate needs --calib_images to calibrate "
-                         "from")
-        # a QAT write-back checkpoint may carry its own scales sidecar;
-        # without one, Predictor.from_checkpoint refuses
-        if not args.checkpoint:
-            parser.error("--quantize needs --calib_images (or a QAT "
-                         "checkpoint carrying qat_act_scales.json)")
-
-    kwargs = dict(model_name=args.model,
-                  image_size=tuple(parse_int_list(args.size)),
-                  batch_size=args.batch, backbone=args.backbone,
-                  protocol=args.protocol,
-                  protocol_kwargs=protocol_kwargs_from_flags(
-                      args.protocol, args.scales, args.window, args.stride,
-                      args.window_chunk),
-                  device=args.device)
     if args.quantize:
-        kwargs.update(quantize=args.quantize, calib_stat=args.calib_stat,
-                      calib_percentile=args.calib_percentile)
-        if args.calib_images:
-            from rtsds_tpu_torch.data.pipeline import decode_image
+        if args.artifact:
+            parser.error("--quantize happens at predictor build time; "
+                         "the artifact is already a compiled program")
+        if not args.calib_images:
+            if args.recalibrate:
+                parser.error("--recalibrate needs --calib_images to "
+                             "calibrate from")
+            # a QAT write-back checkpoint may carry its own scales
+            # sidecar; without one, Predictor.from_checkpoint refuses
+            if not args.checkpoint:
+                parser.error("--quantize needs --calib_images (or a QAT "
+                             "checkpoint carrying qat_act_scales.json)")
+    if args.artifact and args.mesh:
+        parser.error("--mesh is live multi-chip serving; AOT artifacts "
+                     "are single-device programs")
+    if args.mesh is not None:
+        parser.error("--mesh is not yet ported to rtsds_tpu_torch")
 
-            kwargs["calib_frames"] = np.stack(
-                [decode_image(p, kwargs["image_size"])
-                 for p in args.calib_images])
-        if args.recalibrate and args.checkpoint:
-            kwargs["use_qat_scales"] = False
-    if args.checkpoint:
-        predictor = Predictor.from_checkpoint(args.checkpoint, **kwargs)
+    if args.artifact:
+        from rtsds_tpu_torch.serve_export import load_predictor
+
+        predictor = load_predictor(args.artifact, device=args.device)
+        max_batch = (args.batch if predictor.batch == "dynamic"
+                     else int(predictor.batch))
     else:
-        print("serve_server: no --checkpoint, serving RANDOM weights")
-        predictor = Predictor(**kwargs)
-    # the first batch pays cuDNN's and the allocator's set-up; requests
-    # never do
-    print("serve_server: warming up...")
-    predictor.warmup()
+        kwargs = dict(model_name=args.model,
+                      image_size=tuple(parse_int_list(args.size)),
+                      batch_size=args.batch, backbone=args.backbone,
+                      protocol=args.protocol,
+                      protocol_kwargs=protocol_kwargs_from_flags(
+                          args.protocol, args.scales, args.window,
+                          args.stride, args.window_chunk),
+                      device=args.device)
+        if args.quantize:
+            kwargs.update(quantize=args.quantize, calib_stat=args.calib_stat,
+                          calib_percentile=args.calib_percentile)
+            if args.calib_images:
+                from rtsds_tpu_torch.data.pipeline import decode_image
 
-    batcher = MicroBatcher(predictor, max_batch=args.batch,
+                kwargs["calib_frames"] = np.stack(
+                    [decode_image(p, kwargs["image_size"])
+                     for p in args.calib_images])
+            if args.recalibrate and args.checkpoint:
+                kwargs["use_qat_scales"] = False
+        if args.checkpoint:
+            predictor = Predictor.from_checkpoint(args.checkpoint, **kwargs)
+        else:
+            print("serve_server: no --checkpoint, serving RANDOM weights")
+            predictor = Predictor(**kwargs)
+        max_batch = args.batch
+    # the first batch pays cuDNN's and the allocator's set-up, at the
+    # padded shape the batcher uses; requests never do
+    print("serve_server: warming up...")
+    predictor.predict(np.zeros((max_batch, *predictor.image_size, 3),
+                               np.uint8))
+
+    batcher = MicroBatcher(predictor, max_batch=max_batch,
                            max_wait_ms=args.max_wait_ms,
                            max_queue=args.max_queue)
     server = make_http_server(batcher, host=args.host, port=args.port,
                               colored=args.colored)
     restore_sigterm = _install_graceful_shutdown(server)
     print(f"serving on http://{args.host}:{args.port}/predict "
-          f"(micro-batch <= {args.batch}, wait {args.max_wait_ms} ms)")
+          f"(micro-batch <= {max_batch}, wait {args.max_wait_ms} ms)")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -9,6 +9,13 @@ The loops read each step's metrics one step late: they queue the next step
 on the device before they fetch the previous step's losses and counts, so
 the host never waits for the step it has just launched.  The best
 validation metric is tracked across epochs by :class:`ModelCheckpoint`.
+
+At each epoch's start a loop with a checkpoint copies its states on their
+devices (:func:`~rtsds_tpu_torch.callbacks.checkpoint.snapshot_states`:
+the model, the optimizer with its moments and count, the EMA); when an
+exception (``Preempted`` on SIGTERM among them) leaves the loop, that copy
+is saved as the interrupted epoch's emergency checkpoint before the
+exception propagates, and ``--resume`` replays the epoch from it.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Iterable, Iterator
 
+from rtsds_tpu_torch.callbacks.checkpoint import snapshot_states
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.eval.validate import make_eval_step, validate
 from rtsds_tpu_torch.train.ema import ema_update, ema_weights, setup_ema
@@ -119,11 +127,12 @@ def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
             metrics = base_step(st, images, labels)
             ema_update(ema.params, st.model, ema_decay, st.step)
             return metrics
-    if checkpoint is not None:
-        if checkpoint not in callbacks:
-            callbacks.append(checkpoint)
-        checkpoint.attach(lambda: {"model": state} if ema is None
-                          else {"model": state, "ema": ema})
+    def states():
+        return ({"model": state} if ema is None
+                else {"model": state, "ema": ema})
+
+    if checkpoint is not None and checkpoint not in callbacks:
+        callbacks.append(checkpoint)
     if eval_step is None:
         eval_step = make_eval_step(
             state.model, num_classes,
@@ -131,23 +140,41 @@ def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
             compute_dtype=state.compute_dtype)
 
     history = []
-    for epoch in range(start_epoch, epochs):
+    try:
+        for epoch in range(start_epoch, epochs):
+            _epoch_start(checkpoint, epoch, states)
+            train_logs = train_epoch(state, train_step,
+                                     make_train_batches(epoch), epoch,
+                                     callbacks)
+            if do_validation and epoch % do_validation == 0:
+                miou, _ = validate(
+                    state.model, make_val_batches(epoch), num_classes,
+                    class_names=class_names, epoch=epoch,
+                    callbacks=callbacks,
+                    detailed_report=class_names is not None,
+                    eval_step=on_ema(eval_step, state.model, ema),
+                    device=device)
+                history.append({"epoch": epoch, **train_logs,
+                                "validation_mIoU": miou})
+            if any(getattr(cb, "should_stop", False) for cb in callbacks):
+                break
+    except Exception:
         if checkpoint is not None:
-            checkpoint.set_epoch(epoch)
-        train_logs = train_epoch(state, train_step, make_train_batches(epoch),
-                                 epoch, callbacks)
-        if do_validation and epoch % do_validation == 0:
-            miou, _ = validate(
-                state.model, make_val_batches(epoch), num_classes,
-                class_names=class_names, epoch=epoch, callbacks=callbacks,
-                detailed_report=class_names is not None,
-                eval_step=on_ema(eval_step, state.model, ema), device=device)
-            history.append({"epoch": epoch, **train_logs,
-                            "validation_mIoU": miou})
-        if any(getattr(cb, "should_stop", False) for cb in callbacks):
-            break
+            checkpoint.save_emergency()
+        raise
     _fan_out(callbacks, "on_train_end")
     return state, history
+
+
+def _epoch_start(checkpoint, epoch: int, states: Callable[[], dict]) -> None:
+    """Point ``checkpoint`` at ``epoch``, with the live ``states`` for its
+    regular saves and a copy of them as they start the epoch for an
+    emergency save."""
+    if checkpoint is None:
+        return
+    checkpoint.set_epoch(epoch)
+    snapshot = snapshot_states(states())
+    checkpoint.attach(states, lambda: snapshot)
 
 
 # the adversarial steps' losses, in the epoch table's order: self-training
@@ -208,12 +235,12 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
     ema = None
     if ema_in_step or ema_decay is not None:
         ema = setup_ema(gen_state.model, ema_params)
-    if checkpoint is not None:
-        if checkpoint not in callbacks:
-            callbacks.append(checkpoint)
-        checkpoint.attach(lambda: {"generator": gen_state,
-                                   "discriminator": dis_state,
-                                   **({} if ema is None else {"ema": ema})})
+    def states():
+        return {"generator": gen_state, "discriminator": dis_state,
+                **({} if ema is None else {"ema": ema})}
+
+    if checkpoint is not None and checkpoint not in callbacks:
+        callbacks.append(checkpoint)
     if eval_step is None:
         eval_step = make_eval_step(
             gen_state.model, num_classes,
@@ -221,67 +248,71 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
             compute_dtype=gen_state.compute_dtype)
 
     history = []
-    for epoch in range(start_epoch, epochs):
-        if checkpoint is not None:
-            checkpoint.set_epoch(epoch)
-        _fan_out(callbacks, "on_train_begin")
-        running = {}
-        counts = {"correct": 0, "total": 0}
-        pending = None  # (step index, metrics) of the previous step
+    try:
+        for epoch in range(start_epoch, epochs):
+            _epoch_start(checkpoint, epoch, states)
+            _fan_out(callbacks, "on_train_begin")
+            running = {}
+            counts = {"correct": 0, "total": 0}
+            pending = None  # (step index, metrics) of the previous step
 
-        def consume(item):
-            i, metrics = item
-            logs = {k: float(metrics[k]) for k in DA_LOSS_KEYS
-                    if k in metrics}
-            for k, v in logs.items():
-                running[k] = running.get(k, 0.0) + v
-            counts["correct"] += int(metrics["correct"])
-            counts["total"] += int(metrics["total"])
-            _fan_out(callbacks, "on_batch_end", i, logs)
-            if when_print > 0 and (i + 1) % when_print == 0:
-                print(f"  iter {i + 1}/{iterations}: " + ", ".join(
-                    f"{k}={v:.4f}" for k, v in logs.items()))
+            def consume(item):
+                i, metrics = item
+                logs = {k: float(metrics[k]) for k in DA_LOSS_KEYS
+                        if k in metrics}
+                for k, v in logs.items():
+                    running[k] = running.get(k, 0.0) + v
+                counts["correct"] += int(metrics["correct"])
+                counts["total"] += int(metrics["total"])
+                _fan_out(callbacks, "on_batch_end", i, logs)
+                if when_print > 0 and (i + 1) % when_print == 0:
+                    print(f"  iter {i + 1}/{iterations}: " + ", ".join(
+                        f"{k}={v:.4f}" for k, v in logs.items()))
 
-        t0 = time.perf_counter()
-        for i in range(iterations):
-            src_images, src_labels = next(source_iter)
-            tgt_images, _ = next(target_iter)
-            if ema_in_step:
-                metrics = da_step(gen_state, dis_state, ema.params,
-                                  src_images, src_labels, tgt_images)
-            else:
-                metrics = da_step(gen_state, dis_state, src_images,
-                                  src_labels, tgt_images)
-                if ema is not None:
-                    ema_update(ema.params, gen_state.model, ema_decay,
-                               gen_state.step)
+            t0 = time.perf_counter()
+            for i in range(iterations):
+                src_images, src_labels = next(source_iter)
+                tgt_images, _ = next(target_iter)
+                if ema_in_step:
+                    metrics = da_step(gen_state, dis_state, ema.params,
+                                      src_images, src_labels, tgt_images)
+                else:
+                    metrics = da_step(gen_state, dis_state, src_images,
+                                      src_labels, tgt_images)
+                    if ema is not None:
+                        ema_update(ema.params, gen_state.model, ema_decay,
+                                   gen_state.step)
+                if pending is not None:
+                    consume(pending)
+                pending = (i, metrics)
             if pending is not None:
                 consume(pending)
-            pending = (i, metrics)
-        if pending is not None:
-            consume(pending)
-        dt = time.perf_counter() - t0
+            dt = time.perf_counter() - t0
 
-        summary = {k: v / iterations for k, v in running.items()}
-        summary["Generator Accuracy"] = (100.0 * counts["correct"]
-                                         / max(counts["total"], 1))
-        summary["steps_per_sec"] = iterations / dt
-        print(f"Epoch Results {epoch}")
-        tabular_print(summary)
-        _fan_out(callbacks, "on_epoch_end", epoch, summary)
+            summary = {k: v / iterations for k, v in running.items()}
+            summary["Generator Accuracy"] = (100.0 * counts["correct"]
+                                             / max(counts["total"], 1))
+            summary["steps_per_sec"] = iterations / dt
+            print(f"Epoch Results {epoch}")
+            tabular_print(summary)
+            _fan_out(callbacks, "on_epoch_end", epoch, summary)
 
-        if do_validation and epoch % do_validation == 0:
-            print("-" * 50, "Validation", "-" * 50)
-            miou, _ = validate(
-                gen_state.model, make_val_batches(epoch), num_classes,
-                class_names=class_names, epoch=epoch, callbacks=callbacks,
-                detailed_report=class_names is not None,
-                eval_step=on_ema(eval_step, gen_state.model, ema),
-                device=device)
-            print("-" * 100)
-            history.append({"epoch": epoch, **summary,
-                            "validation_mIoU": miou})
-        if any(getattr(cb, "should_stop", False) for cb in callbacks):
-            break
+            if do_validation and epoch % do_validation == 0:
+                print("-" * 50, "Validation", "-" * 50)
+                miou, _ = validate(
+                    gen_state.model, make_val_batches(epoch), num_classes,
+                    class_names=class_names, epoch=epoch, callbacks=callbacks,
+                    detailed_report=class_names is not None,
+                    eval_step=on_ema(eval_step, gen_state.model, ema),
+                    device=device)
+                print("-" * 100)
+                history.append({"epoch": epoch, **summary,
+                                "validation_mIoU": miou})
+            if any(getattr(cb, "should_stop", False) for cb in callbacks):
+                break
+    except Exception:
+        if checkpoint is not None:
+            checkpoint.save_emergency()
+        raise
     _fan_out(callbacks, "on_train_end")
     return gen_state, dis_state, history

@@ -150,11 +150,10 @@ def test_validate_only_without_a_checkpoint_exits(tmp_path):
 
 @pytest.mark.parametrize("argv,extra,match", [
     (["--multihost"], "", "--multihost"),
-    (["--wandb"], "", "--wandb"),
-    (["--model", "deeplab", "--debug"], "", "--debug"),
-    ([], "callbacks: {history: {path: h.jsonl}}", "callbacks.history"),
 ])
 def test_not_ported_switches_exit(tmp_path, argv, extra, match):
+    """Only ``--multihost`` is left (``--wandb``, ``--debug`` and
+    ``callbacks.history`` run: test_torch_tooling.py)."""
     with pytest.raises(SystemExit, match=match) as info:
         cli.main(["--config", _config(tmp_path, extra), "--synthetic",
                   *argv])
@@ -430,11 +429,16 @@ def test_criterion_other_than_cross_entropy_exits(tmp_path):
         cli.main(["--config", config, "--synthetic"])
 
 
-def test_colour_jitter_is_refused(tmp_path):
-    config = _config(tmp_path, "augmentation: {ColorJitter: {hue: 0.1}}")
-    with pytest.raises(NotImplementedError, match="ColorJitter"):
-        cli.main(["--config", config, "--synthetic", "--dataset", "gta5",
-                  "--augmented"])
+def test_colour_jitter_and_zoom_train(tmp_path):
+    """ColorJitter and RandomZoom are ported (test_torch_augment.py holds
+    them to JAX): an augmented GTA5 run with both trains, its labels
+    colour-coded and remapped first."""
+    config = _config(tmp_path, "augmentation: {p: 1.0, ColorJitter: "
+                               "{brightness: 0.3, hue: 0.1}, RandomZoom: "
+                               "{max: 1.5, p: 1.0}}")
+    history = cli.main(["--config", config, "--synthetic", "--dataset",
+                        "gta5", "--augmented"])
+    _check_history(history, [0, 1])
 
 
 class _State:

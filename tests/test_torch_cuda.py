@@ -649,3 +649,56 @@ def test_int8_predictor_on_the_card_matches_the_cpu(cuda):
     peak = float(want.abs().max())
     assert float((got - want).abs().max()) <= 2e-2 * peak
     assert (got.argmax(1) == want.argmax(1)).float().mean() >= 0.99
+
+
+def test_serving_artifact_on_the_card_is_exact(cuda, tmp_path):
+    """A bf16 BiSeNet artifact exported and served on the card: its masks
+    equal the predictor's computation at the same batch, dynamic and
+    static; an artifact of the card refuses the CPU."""
+    from rtsds_tpu_torch.serve_export import export_predictor, load_predictor
+
+    size = (64, 128)
+    ds = SyntheticSegDataset(3, size, seed=6, fixed_tints=True)
+    frames = np.stack([ds[i][0] for i in range(3)])
+    p = Predictor(image_size=size, batch_size=3, device="cuda")
+    for batch in ("dynamic", 3):
+        path = export_predictor(p, str(tmp_path / f"{batch}.rtsds"),
+                                batch=batch)
+        art = load_predictor(path)
+        np.testing.assert_array_equal(art.predict(frames),
+                                      p.predict(frames))
+    with pytest.raises(ValueError, match="not for 'cpu'"):
+        load_predictor(path, device="cpu")
+
+
+def test_jitter_and_zoom_on_the_card_match_the_cpu(cuda):
+    """ColorJitter and RandomZoom on the card against the CPU on the same
+    draws: images within 1e-3 on the 0..255 range, labels exact."""
+    from rtsds_tpu_torch.ops.augment import (
+        AugmentConfig, apply_augment, draw)
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.uniform(0, 255, (4, 72, 128, 3))
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 19, (4, 72, 128)).astype(np.int32))
+    cfg = AugmentConfig(apply_p=1.0, color_jitter=(0.4, 0.4, 0.4, 0.1),
+                        zoom_max=1.8, zoom_p=0.5)
+    draws = draw(cfg, torch.Generator().manual_seed(3), tuple(y.shape))
+    want_x, want_y = apply_augment(cfg, draws, x, y)
+    got_x, got_y = apply_augment(cfg, draws, x.to(cuda), y.to(cuda))
+    torch.testing.assert_close(got_x.cpu(), want_x, rtol=1e-5, atol=1e-3)
+    assert torch.equal(got_y.cpu(), want_y)
+
+
+def test_convert_labels_on_the_card_equals_the_host_lut(cuda):
+    from rtsds_tpu_torch.data.convert_gta5 import build_lut, convert_labels
+
+    table = class_colors_for_remap()
+    rng = np.random.default_rng(8)
+    rgb = table[rng.integers(0, len(table), (2, 33, 47))].astype(np.uint8)
+    rgb[:, ::5] = rng.integers(0, 256, (2, 7, 47, 3))
+    packed = ((rgb[..., 0].astype(np.uint32) << 16)
+              | (rgb[..., 1].astype(np.uint32) << 8) | rgb[..., 2])
+    launches = rgb_to_train_ids_cuda.launches
+    np.testing.assert_array_equal(convert_labels(rgb), build_lut()[packed])
+    assert rgb_to_train_ids_cuda.launches == launches + 1

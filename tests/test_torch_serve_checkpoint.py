@@ -275,11 +275,11 @@ def test_serve_cli_serves_a_checkpoint_and_resizes(served, frames, tmp_path,
               "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag", ["--export", "--artifact", "--mesh",
-                                  "--quantize"])
+@pytest.mark.parametrize("flag", ["--mesh", "--quantize"])
 def test_serve_cli_refuses_what_is_not_ported(tmp_path, flag, capsys):
-    """``--export``, ``--artifact`` and ``--mesh`` are not ported;
-    ``--quantize`` is, and refuses a mode other than int8."""
+    """``--mesh`` is not ported; ``--quantize`` is, and refuses a mode
+    other than int8 (``--export`` and ``--artifact`` are ported:
+    test_torch_serve_export.py)."""
     with pytest.raises(SystemExit):
         main([str(tmp_path / "f.png"), flag, "x", "--device", "cpu"])
     err = capsys.readouterr().err

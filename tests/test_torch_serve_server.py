@@ -325,10 +325,11 @@ def test_stats_is_safe_under_concurrent_mutation():
     assert mb.stats()["requests"] == 400
 
 
-@pytest.mark.parametrize("flag", ["--artifact", "--mesh", "--quantize"])
+@pytest.mark.parametrize("flag", ["--mesh", "--quantize"])
 def test_server_main_refuses_what_is_not_ported(flag, capsys):
-    """``--artifact`` and ``--mesh`` are not ported; ``--quantize`` is, and
-    refuses only an int8 server with nothing to calibrate from."""
+    """``--mesh`` is not ported; ``--quantize`` is, and refuses only an
+    int8 server with nothing to calibrate from (``--artifact`` is served:
+    test_torch_serve_export.py)."""
     value = "int8" if flag == "--quantize" else "x"
     with pytest.raises(SystemExit):
         serve_server.main([flag, value, "--device", "cpu"])
