@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only  # build and time K1 and K2 alone
     python3 chip_smoke.py --int8-only     # the int8 phases alone
     python3 chip_smoke.py --tooling-only  # artifacts, tooling, converter
+    python3 chip_smoke.py --parallel-only # data axis, batch mesh, pipe
 
 Kernels are timed on the device alone with the L2 cold: each timed launch
 follows a write of a 256 MB buffer, as K2 follows the transform's write of
@@ -98,11 +99,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
      convert_gta5 (``convert_labels`` on the card over 8 GTA5-size
      labels, exactly the host LUT's, frames/s beside the LUT's);
      ``python3 chip_smoke.py --tooling-only`` runs these alone;
-  14. train_profile: torch.profiler over a few train steps: the device's
+  14. parallel (``python3 chip_smoke.py --parallel-only`` runs it alone):
+     parallel_shared_card (two ranks spawned on cuda:0 under gloo, CUDA
+     tensors: one float64 BiSeNet-R18 supervised step and one DA v1 step,
+     b2 per rank with uneven void pixels, held against one process's step
+     on the global batch at the card-vs-CPU limits; then bf16 at full
+     width, global b8, 720x1280 (DA target 512x1024), 2 x 4 steps of each
+     through ``supervised_fit``/``adversarial_fit`` on MultiHostDataLoader
+     shards, K2 in the transforms and K1 in the validations, every rank
+     matrix summing to the all-reduced one, the ranks' metrics equal and
+     their parameters bit-identical; not a scaling figure),
+     parallel_nccl_world1 (the CLI's ``--multihost`` under NCCL at world
+     size 1, 2 steps and a validation, rank 0's checkpoint, its step's
+     p50 beside the plain step's; the global-batch BN, a gradient
+     all-reduce and a metrics reduction forced on under NCCL, and a full
+     step with every BN synchronized, timed), parallel_serving (a batch
+     mesh of two replicas on cuda:0, BiSeNet-R18 1024x2048 b8: exactly
+     one device's masks at b4 in bf16 and f32, >= 0.999 of f32 b8's, and
+     the HTTP server over it) and parallel_pipe (DeepLabV2-R101, pipe 2 on
+     cuda:0, M = 2: a float64 step against the accumulating step, then
+     bf16 at 720x1280 b8 through ``supervised_fit`` with K2 and K1,
+     timed beside the accumulating step);
+  15. train_profile: torch.profiler over a few train steps: the device's
      idle share and kernel time by group, and each hand-written kernel's
      device time per launch beside the timer's (run after the kernel
      timings, which the profiler's tracing could slow);
-  15. the ``kernels`` line: each kernel's launches on the main paths (each
+  16. the ``kernels`` line: each kernel's launches on the main paths (each
      counted from zero), its device time as the main path calls it
      (median, min, max), its wrapper's host cost, its plain version's
      time, a one-call library yardstick where one exists, and the card's
@@ -2194,6 +2216,25 @@ def _get(url: str) -> bytes:
         return reply.read()
 
 
+def stream_ms(predictor: Predictor, batches: list) -> dict:
+    """``predict`` and ``predict_iter`` over a stream of STREAM_BATCHES of
+    ``batches`` in turn, each run twice in turns (predict, predict_iter,
+    predict_iter, predict): host-clock ms a batch."""
+    stream = [batches[i % len(batches)] for i in range(STREAM_BATCHES)]
+    per_batch = {"predict": [], "predict_iter": []}
+    for name in ("predict", "predict_iter", "predict_iter", "predict"):
+        t0 = time.perf_counter()
+        if name == "predict":
+            for b in stream:
+                predictor.predict(b)
+        else:
+            for _ in predictor.predict_iter(stream):
+                pass
+        per_batch[name].append((time.perf_counter() - t0) / len(stream)
+                               * 1e3)
+    return per_batch
+
+
 def serve_over_http(predictor: Predictor, frames: np.ndarray) -> dict:
     """The port's HTTP server (``serve_server.py``) on 127.0.0.1 at an
     ephemeral port, in a thread, over ``predictor``: SERVER_CLIENTS client
@@ -2290,18 +2331,7 @@ def phase_serving_checkpoint(ckpt_dir: str, frames: np.ndarray) -> dict:
         if len(got) != 3 or not all(np.array_equal(g, w)
                                     for g, w in zip(got, want)):
             raise AssertionError("predict_iter != predict")
-        stream = [batches[i % 2] for i in range(STREAM_BATCHES)]
-        per_batch = {"predict": [], "predict_iter": []}
-        for name in ("predict", "predict_iter", "predict_iter", "predict"):
-            t0 = time.perf_counter()
-            if name == "predict":
-                for b in stream:
-                    predictor.predict(b)
-            else:
-                for _ in predictor.predict_iter(stream):
-                    pass
-            per_batch[name].append(
-                (time.perf_counter() - t0) / len(stream) * 1e3)
+        per_batch = stream_ms(predictor, batches[:2])
 
         http = serve_over_http(predictor, frames)
 
@@ -3620,6 +3650,655 @@ def phase_convert_gta5() -> dict:
     return launches
 
 
+# --- the parallel phase: the data axis over processes, the batch mesh and
+# the pipe -------------------------------------------------------------------
+
+PAR_WORLD = 2
+PAR_F64_SIZE = (64, 128)   # the float64 checks: b2 per rank
+PAR_STEPS = 4              # per epoch, 2 epochs, global b8
+PAR_TIMEOUT_S = 240        # each spawn of the two ranks
+PIPE_F64_SIZE = (64, 96)   # the pipelined float64 check: b4, M = 2
+PIPE_STEPS = 3             # the bf16 pipelined run, one epoch
+
+
+def _par_f64_inputs() -> tuple:
+    """The float64 checks' global batch 4 at PAR_F64_SIZE: frames, labels
+    (shard 0, frames 0-1, with half its pixels void; shard 1 none) and
+    target frames."""
+    ds = SyntheticSegDataset(8, PAR_F64_SIZE, CLASSES, seed=SEED + 80,
+                             fixed_tints=True)
+    frames = np.stack([ds[i][0] for i in range(8)])
+    images = normalize(torch.from_numpy(frames[:4])).double()
+    labels = torch.from_numpy(np.stack([ds[i][1] for i in range(4)])).long()
+    labels[:2, :, : PAR_F64_SIZE[1] // 2] = 19
+    target = normalize(torch.from_numpy(frames[4:])).double()
+    return images, labels, target
+
+
+def _par_f64_steps(rank: int, world: int) -> dict:
+    """One float64 supervised step of BiSeNet-R18 and one DA v1 step (the
+    Tiny discriminator) on this rank's shard of :func:`_par_f64_inputs`,
+    on the card; with ``world`` 1, the whole global batch.  Returns the
+    losses, the states before and after (CPU tensors)."""
+    from rtsds_tpu_torch.parallel.distributed import replicate
+
+    images, labels, target = _par_f64_inputs()
+    n = images.shape[0] // world
+    part = slice(rank * n, (rank + 1) * n)
+    x, y, t = (a[part].cuda() for a in (images, labels, target))
+    config = load_config()
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        model, _ = make_segmentor(config, "bisenet", seed=SEED)
+        model.to("cuda", torch.float64)
+        replicate(model)
+        state = TrainState(model, make_optimizer(
+            "SGD", model.parameters(), 0.01, momentum=0.9))
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.named_parameters()}
+        loss = float(make_train_step(19)(state, x, y)["train_loss"])
+        out["supervised"] = {
+            "losses": {"train_loss": loss}, "before": [before],
+            "after": [{k: v.detach().cpu() for k, v in
+                       model.state_dict().items()}]}
+        gen, _ = make_segmentor(config, "bisenet", seed=SEED)
+        gen.to("cuda", torch.float64)
+        dis = make_discriminator(
+            config.model["adversarial_model"]["discriminator"],
+            seed=SEED + 1).to("cuda", torch.float64)
+        replicate(gen, dis)
+        g = TrainState(gen, make_optimizer("SGD", gen.parameters(), 0.01,
+                                           momentum=0.0))
+        d = TrainState(dis, make_optimizer("SGD", dis.parameters(), 0.02,
+                                           momentum=0.0))
+        before = [{k: v.detach().cpu().clone() for k, v in
+                   m.named_parameters()} for m in (gen, dis)]
+        metrics = make_adversarial_step(0.1, DA_ITERATIONS, DA_EPOCHS, 19,
+                                        "v1")(g, d, x, y, t)
+        out["da_v1"] = {
+            "losses": {k: float(v) for k, v in metrics.items()
+                       if k.startswith("loss_")},
+            "before": before,
+            "after": [{k: v.detach().cpu() for k, v in
+                       m.state_dict().items()} for m in (gen, dis)]}
+    return out
+
+
+def _held_to(got: dict, want: dict) -> dict:
+    """Two runs of one float64 step held to the card-vs-CPU limits: each
+    loss within 1e-4 relative, the BN running statistics within rtol 1e-4 /
+    atol 1e-5, each parameter's update within 1e-3 of its largest update +
+    1e-6.  Returns the worst of each over its limit."""
+    loss_err = max(abs(got["losses"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in want["losses"].items())
+    stats_err, ratios = 0.0, {}
+    for i, (g, w, start) in enumerate(zip(got["after"], want["after"],
+                                          want["before"])):
+        stats_err = max([stats_err] + [
+            float(((g[k] - v).abs() / (1e-5 + 1e-4 * v.abs())).max())
+            for k, v in w.items() if "running_" in k])
+        ratios.update(_update_ratios({k: (w[k], g[k]) for k in start},
+                                     start, "GD"[i]))
+    result = {"loss_rel_diff": loss_err, "bn_stats_err_over_limit": stats_err,
+              "tensors_over_limit": sum(r > 1.0 for r in ratios.values()),
+              "worst_update_err_over_limit": max(ratios.values())}
+    if loss_err > 1e-4 or stats_err > 1.0 or result["tensors_over_limit"]:
+        raise AssertionError(f"2 ranks differ from one process: {result}")
+    return result
+
+
+def _par_loader(n: int, size: tuple, seed: int, colour: bool,
+                infinite: bool = False, shuffle: bool = True,
+                drop_last: bool = True):
+    """This rank's MultiHostDataLoader (global batch TRAIN_BATCH) over ``n``
+    synthetic frames at ``size`` (colour-coded labels with ``colour``)."""
+    from rtsds_tpu_torch.data.multihost import MultiHostDataLoader
+
+    ds = SyntheticSegDataset(n, size, CLASSES, seed=seed, fixed_tints=True)
+    if colour:
+        ds = ColorCodedLabels(ds, class_colors_for_remap(),
+                              unmatched=UNMATCHED, seed=SEED)
+    return MultiHostDataLoader(ds, TRAIN_BATCH, shuffle=shuffle,
+                               num_workers=4, seed=SEED, infinite=infinite,
+                               drop_last=drop_last)
+
+
+class _StepClock(Callback):
+    """Each step's loss logs and the host time between steps (the loops
+    read a step's metrics after launching the next one, so in steady
+    state that is one step's time)."""
+
+    def __init__(self):
+        self.logs, self.stamps = [], []
+
+    def on_batch_end(self, batch, logs=None):
+        self.logs.append(dict(logs))
+        self.stamps.append(time.perf_counter())
+
+    def step_ms(self) -> float:
+        gaps = [(b - a) * 1e3 for a, b in zip(self.stamps, self.stamps[1:])]
+        return statistics.median(gaps[1:] or gaps)
+
+
+def _par_validation_spy():
+    """Records each validation's own (this rank's) K1 matrix and the
+    all-reduced one ``validate`` reads."""
+    from rtsds_tpu_torch.eval import validate as val_mod
+
+    seen, reduce = [], val_mod.global_sum
+
+    def spy(hist):
+        total = reduce(hist)
+        seen.append((hist.cpu().numpy().copy(), total.cpu().numpy().copy()))
+        return total
+    return val_mod, reduce, spy, seen
+
+
+def _param_bits(*models) -> torch.Tensor:
+    """Per parameter, the sum of its float32 bit patterns as int64: equal on
+    two ranks when their parameters are bit-identical."""
+    return torch.stack([p.detach().float().contiguous().view(torch.int32)
+                        .long().sum() for m in models
+                        for p in m.parameters()])
+
+
+def _par_rank(rank: int, world: int) -> dict:
+    """One rank of the shared-card phase (gloo on CUDA tensors): the
+    float64 steps, then bf16 at full width through the trainers on this
+    rank's shards of global b8: supervised (GTA5 720x1280, colour-coded
+    labels, K2) and DA v1 (target 512x1024), each 2 epochs of PAR_STEPS
+    steps validated at 512x1024 (K1), with every K1 matrix recorded, the
+    launches counted and the parameters' bit checksum compared across the
+    ranks."""
+    import torch.distributed as dist
+
+    from rtsds_tpu_torch.parallel.distributed import data_group, replicate
+
+    torch.cuda.set_device(0)
+    _build.load()
+    out = {"f64": _par_f64_steps(rank, world)}
+    dev = torch.device("cuda")
+    val_mod, reduce, spy, seen = _par_validation_spy()
+    val_mod.global_sum = spy
+    val_loader = _par_loader(TRAIN_VAL_BATCHES * TRAIN_BATCH, TRAIN_VAL_SIZE,
+                             SEED + 5, False, shuffle=False,
+                             drop_last=False)
+    val_tf = make_transform(TRAIN_VAL_SIZE, CLASSES, antialias=True)
+
+    def val_batches(epoch):
+        return device_batches(val_loader, val_tf, dev)
+
+    aug = AugmentConfig.from_config(load_config())
+    src_tf = make_transform(TRAIN_SIZE, CLASSES, antialias=False,
+                            augment_cfg=aug, decode_label_colors=True)
+    try:
+        # supervised
+        config = train_config()
+        loader = _par_loader(PAR_STEPS * TRAIN_BATCH, TRAIN_SIZE, SEED + 81,
+                             True)
+        state = build_supervised(config, "bisenet", len(loader), dev,
+                                 seed=SEED)
+        replicate(state.model)
+        clock = _StepClock()
+        fast_hist_cuda.launches = rgb_to_train_ids_cuda.launches = 0
+        _, history = supervised_fit(
+            state, make_train_step(19),
+            lambda epoch: device_batches(loader, src_tf, dev, seed=SEED,
+                                         epoch=epoch),
+            val_batches, epochs=TRAIN_EPOCHS, num_classes=CLASSES,
+            callbacks=[clock], device=dev)
+        torch.cuda.synchronize()
+        out["supervised"] = {
+            "losses": [e["train_loss"] for e in clock.logs],
+            "miou": [h["validation_mIoU"] for h in history],
+            "step_ms": clock.step_ms(),
+            "launches": {"fast_hist_cuda": fast_hist_cuda.launches,
+                         "rgb_to_train_ids_cuda":
+                             rgb_to_train_ids_cuda.launches}}
+        bits = [_param_bits(state.model)]
+        del state
+        # DA v1
+        config = da_config()
+        tcfg = config.training["domain_adaptation"]
+        src = _par_loader(PAR_STEPS * TRAIN_BATCH, TRAIN_SIZE, SEED + 82,
+                          True, infinite=True)
+        tgt = _par_loader(PAR_STEPS * TRAIN_BATCH, DA_TGT_SIZE, SEED + 83,
+                          False, infinite=True)
+        tgt_tf = make_transform(DA_TGT_SIZE, CLASSES, antialias=True)
+        gen, dis = build_adversarial(config, dev, seed=SEED)
+        replicate(gen.model, dis.model)
+        clock = _StepClock()
+        source_iter = device_batches(src, src_tf, dev, seed=SEED)
+        target_iter = device_batches(tgt, tgt_tf, dev)
+        fast_hist_cuda.launches = rgb_to_train_ids_cuda.launches = 0
+        with contextlib.closing(source_iter), \
+                contextlib.closing(target_iter):
+            _, _, history = adversarial_fit(
+                gen, dis, make_adversarial_step(
+                    float(tcfg["lambda"]), PAR_STEPS, DA_EPOCHS, 19, "v1"),
+                source_iter, target_iter, val_batches, iterations=PAR_STEPS,
+                epochs=DA_EPOCHS, num_classes=CLASSES, callbacks=[clock],
+                device=dev)
+        torch.cuda.synchronize()
+        out["da"] = {
+            "losses": clock.logs,
+            "miou": [h["validation_mIoU"] for h in history],
+            "step_ms": clock.step_ms(),
+            "launches": {"fast_hist_cuda": fast_hist_cuda.launches,
+                         "rgb_to_train_ids_cuda":
+                             rgb_to_train_ids_cuda.launches}}
+        bits.append(_param_bits(gen.model, dis.model))
+    finally:
+        val_mod.global_sum = reduce
+    # bit-identical parameters on every rank: the checksums' max == min
+    flat = torch.cat(bits)
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=data_group())
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=data_group())
+    out["params_bit_identical"] = bool(torch.equal(hi, lo))
+    out["validations"] = seen
+    return out
+
+
+def phase_parallel_shared_card() -> dict:
+    """(a) Two ranks share the card under gloo (CUDA tensors on cuda:0):
+    the float64 supervised and DA v1 steps held against one process's step
+    on the global batch, then bf16 at full width (global b8) through the
+    trainers; returns the K1/K2 launches of each path, summed over the
+    ranks."""
+    from rtsds_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(_par_rank, PAR_WORLD, timeout_s=PAR_TIMEOUT_S,
+                      threads=None)
+    ranks_s = time.perf_counter() - t0
+    one = _par_f64_steps(0, 1)
+    held = {name: _held_to(ranks[0]["f64"][name], one[name])
+            for name in ("supervised", "da_v1")}
+    for name in held:  # the ranks' own results agree exactly
+        for a, b in zip(ranks[0]["f64"][name]["after"],
+                        ranks[1]["f64"][name]["after"]):
+            if any(not torch.equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"{name}: the ranks' states differ")
+    launches = {}
+    for path in ("supervised", "da"):
+        runs = [r[path] for r in ranks]
+        losses = [v for r in runs for e in r["losses"]
+                  for v in ([e] if isinstance(e, float) else
+                            [e[k] for k in e if k.startswith("loss_")])]
+        if len(runs[0]["losses"]) != TRAIN_EPOCHS * PAR_STEPS or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"{path}: losses {runs[0]['losses']}")
+        if runs[0]["losses"] != runs[1]["losses"] or \
+                runs[0]["miou"] != runs[1]["miou"]:
+            raise AssertionError(f"{path}: the ranks report different "
+                                 f"metrics")
+        launches[path] = {k: sum(r["launches"][k] for r in runs)
+                          for k in runs[0]["launches"]}
+    if not all(r["params_bit_identical"] for r in ranks):
+        raise AssertionError("the ranks' parameters are not bit-identical")
+    checked = 0
+    for v0, v1 in zip(ranks[0]["validations"], ranks[1]["validations"]):
+        if not (np.array_equal(v0[0] + v1[0], v0[1])
+                and np.array_equal(v0[1], v1[1])
+                and not np.array_equal(v0[0], v1[0])):
+            raise AssertionError("a validation's rank matrices do not sum "
+                                 "to the all-reduced one")
+        checked += 1
+    emit({"phase": "parallel_shared_card", "ranks": PAR_WORLD,
+          "backend": "gloo on CUDA tensors, both ranks on cuda:0",
+          "float64_vs_one_process": held,
+          "bf16": {"image_size": list(TRAIN_SIZE),
+                   "target_size": list(DA_TGT_SIZE),
+                   "global_batch": TRAIN_BATCH,
+                   "steps": TRAIN_EPOCHS * PAR_STEPS},
+          "supervised_losses": ranks[0]["supervised"]["losses"],
+          "supervised_miou": ranks[0]["supervised"]["miou"],
+          "da_miou": ranks[0]["da"]["miou"],
+          "params_bit_identical_across_ranks": True,
+          "validations_checked": checked,
+          "shared_card_step_ms_not_a_scaling_figure": {
+              "supervised": [r["supervised"]["step_ms"] for r in ranks],
+              "da_v1": [r["da"]["step_ms"] for r in ranks]},
+          "ranks_s": ranks_s, "launches": launches})
+    return launches
+
+
+@contextlib.contextmanager
+def forced_data_axis():
+    """The data axis forced on at world size 1, where every collective of
+    ``parallel/distributed.py`` would skip itself: ``data_parallel`` (as
+    ``cli.main --multihost`` enters it) names the whole process group
+    whatever its size.  Yields the count of each collective called."""
+    import torch.distributed as dist
+
+    from rtsds_tpu_torch.parallel import distributed
+
+    calls = {"all_reduce": 0, "broadcast": 0, "barrier": 0}
+    plain = {name: getattr(dist, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return plain[name](*args, **kwargs)
+        return call
+
+    @contextlib.contextmanager
+    def forced(group=None):
+        previous = distributed._GROUP
+        distributed._GROUP = group if group is not None else dist.group.WORLD
+        try:
+            yield
+        finally:
+            distributed._GROUP = previous
+
+    plain_context = distributed.data_parallel
+    distributed.data_parallel = forced
+    for name in calls:
+        setattr(dist, name, counted(name))
+    try:
+        yield calls
+    finally:
+        distributed.data_parallel = plain_context
+        for name, fn in plain.items():
+            setattr(dist, name, fn)
+
+
+def _nccl_forced_sync_check() -> dict:
+    """NCCL at world size 1 with the data axis forced on (the collectives
+    skip themselves at one rank otherwise): the global-batch BN's output,
+    statistics and gradients against ``nn.BatchNorm2d`` on the card in
+    float64, a gradient all-reduce and a metrics reduction, and one bf16
+    step of BiSeNet-R18 at 720x1280 b8 with every collective of the data
+    axis (global-batch BN, the gradient all-reduce, the metrics
+    reduction), timed beside the plain step (cuDNN's BN, no collective)."""
+    import torch.distributed as dist
+
+    from rtsds_tpu_torch.parallel import distributed
+    from rtsds_tpu_torch.parallel.mesh import initialize_multihost
+
+    os.environ["RTSDS_NUM_PROCESSES"] = "1"
+    initialize_multihost(device_type="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        distributed._GROUP = dist.group.WORLD
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.randn(4, 8, 9, 11, device="cuda", dtype=torch.float64,
+                        generator=gen)
+        dy = torch.randn(x.shape, device="cuda", dtype=torch.float64,
+                         generator=gen)
+        plain = torch.nn.BatchNorm2d(8).cuda().double()
+        synced = distributed.convert_global_batchnorm(
+            torch.nn.Sequential(torch.nn.BatchNorm2d(8))).cuda().double()
+        errs = {}
+        xs = [x.clone().requires_grad_(True) for _ in range(2)]
+        ys = [plain(xs[0]), synced(xs[1])]
+        for y in ys:
+            (y * dy).sum().backward()
+        pairs = {"y": (ys[1], ys[0]), "x_grad": (xs[1].grad, xs[0].grad),
+                 "running_var": (synced[0].running_var, plain.running_var),
+                 "weight_grad": (synced[0].weight.grad, plain.weight.grad)}
+        for k, (a, b) in pairs.items():
+            errs[k] = float((a - b).detach().abs().max())
+            if not torch.allclose(a, b, rtol=1e-9, atol=1e-12):
+                raise AssertionError(f"global BN under NCCL: {k} {errs[k]}")
+        p = torch.nn.Parameter(torch.ones(3, device="cuda"))
+        p.grad = torch.full((3,), 2.0, device="cuda")
+        distributed.all_reduce_gradients([p])
+        reduced = distributed.reduce_metrics(
+            {"train_loss": torch.tensor(1.5, device="cuda"), "total": 4})
+        if not (torch.equal(p.grad, torch.full((3,), 2.0, device="cuda"))
+                and float(reduced["train_loss"]) == 1.5
+                and reduced["total"] == 4):
+            raise AssertionError("NCCL all-reduces at world size 1")
+        config = train_config()
+        batch = _full_size_batch()
+        times = {}
+        for name, sync in (("plain", False), ("data_axis_forced", True)):
+            state = build_supervised(config, "bisenet", 1, "cuda",
+                                     seed=SEED)
+            if sync:
+                distributed.convert_global_batchnorm(state.model)
+            else:
+                distributed._GROUP = None
+            step = make_train_step(19)
+            times[name] = cuda_ms(lambda: step(state, *batch), reps=10)
+            distributed._GROUP = dist.group.WORLD
+            del state
+        return {"bn_max_abs_err": errs, "step_ms": times}
+    finally:
+        distributed._GROUP = None
+        dist.destroy_process_group()
+        os.environ.pop("RTSDS_NUM_PROCESSES", None)
+
+
+def _full_size_batch() -> tuple:
+    """One normalized GTA5-size batch (b8, 720x1280) with its labels, on
+    the card."""
+    ds = SyntheticSegDataset(TRAIN_BATCH, TRAIN_SIZE, CLASSES,
+                             seed=SEED + 84, fixed_tints=True)
+    images = normalize(torch.from_numpy(np.stack(
+        [ds[i][0] for i in range(TRAIN_BATCH)])).cuda())
+    labels = torch.from_numpy(np.stack(
+        [ds[i][1] for i in range(TRAIN_BATCH)])).cuda()
+    return images, labels
+
+
+def phase_parallel_nccl_cli() -> dict:
+    """(b) NCCL at world size 1: ``python -m rtsds_tpu_torch.cli
+    --multihost`` (``RTSDS_NUM_PROCESSES=1``) trains BiSeNet-R18 at
+    720x1280 b8 bf16 on colour-coded labels (K2) for 2 steps and validates
+    at 512x1024 (K1), rank 0 saving the checkpoint, with the data axis
+    forced on (:func:`forced_data_axis`), so that the broadcast of the
+    initial state, the global-batch BN, the gradient and metrics
+    all-reduces, the confusion matrix's all-reduce and the barriers after
+    the saves run under NCCL through the CLI; then
+    :func:`_nccl_forced_sync_check`, whose step times are the phase's.
+    Returns the CLI path's launches."""
+    from rtsds_tpu_torch import cli
+
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_nccl_")
+    config = os.path.join(tmp.name, "config.yaml")
+    with open(config, "w") as f:
+        f.write(f"""
+precision: {{compute_dtype: bfloat16}}
+data:
+  cityscapes: {{image_size: "{TRAIN_VAL_SIZE[0]}, {TRAIN_VAL_SIZE[1]}",
+               batch_size: {TRAIN_BATCH}, num_workers: 4}}
+  gta5_modified: {{image_size: "{TRAIN_SIZE[0]}, {TRAIN_SIZE[1]}",
+                  batch_size: {TRAIN_BATCH}, num_workers: 4,
+                  decode_label_colors: true}}
+training:
+  segmentation: {{epochs: 1, do_validation: 1}}
+callbacks:
+  model_checkpoint: {{save_dir: "{tmp.name}", save_name: "m",
+                     save_best: true}}
+""")
+    os.environ["RTSDS_NUM_PROCESSES"] = "1"
+    try:
+        with forced_data_axis() as collectives:
+            t0 = time.perf_counter()
+            history, launches, _ = on_main_path(lambda: cli.main(
+                ["--config", config, "--synthetic", "--dataset", "gta5",
+                 "--multihost"]))
+            cli_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("RTSDS_NUM_PROCESSES", None)
+    saved = sorted(os.listdir(os.path.join(tmp.name, "m")))
+    if len(history) != 1 or not math.isfinite(history[0]["train_loss"]) \
+            or "epoch_0.pt" not in saved:
+        raise AssertionError(f"the --multihost run: {history}, {saved}")
+    if not all(collectives.values()):
+        raise AssertionError(f"the --multihost run's collectives under "
+                             f"NCCL: {collectives}")
+    torch.cuda.empty_cache()
+    forced = _nccl_forced_sync_check()
+    tmp.cleanup()
+    emit({"phase": "parallel_nccl_world1", "cli": "--multihost",
+          "backend": "nccl", "world_size": 1, "data_axis": "forced on",
+          "history": history, "rank0_saved": saved, "cli_s": cli_s,
+          "cli_collectives": collectives,
+          "step_p50_ms": forced.pop("step_ms"), "forced_sync": forced,
+          "launches": launches})
+    return launches
+
+
+def phase_parallel_serving(tree: dict, frames: np.ndarray) -> dict:
+    """(c) A batch mesh of two replicas on cuda:0: BiSeNet-R18 at
+    1024x2048 b8, its masks exactly those of one device at the per-device
+    batch (b4) in bf16 and in float32, in float32 agreeing with one device
+    at b8 on at least 0.999 of pixels (cuDNN picks algorithms per batch);
+    in bf16 its ``predict_iter`` equal to ``predict`` and both timed in
+    turns, and served through the HTTP server, each reply equal to
+    ``predict``."""
+    from rtsds_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(["cuda:0"] * 2)
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        meshed = Predictor(variables=tree, image_size=SIZE,
+                           batch_size=BATCH, dtype=dtype, mesh=mesh)
+        per_device = Predictor(variables=tree, image_size=SIZE,
+                               batch_size=BATCH // 2, dtype=dtype)
+        got = meshed.predict(frames[:BATCH])
+        if not np.array_equal(got, per_device.predict(frames[:BATCH])):
+            raise AssertionError(f"{name}: the mesh's masks differ from one "
+                                 f"device's at the per-device batch")
+        out[f"{name}_predict_ms"] = cuda_ms(
+            lambda: meshed.predict(frames[:BATCH]), reps=5)
+        if dtype == torch.float32:
+            single = Predictor(variables=tree, image_size=SIZE,
+                               batch_size=BATCH, dtype=dtype)
+            agree = float((got == single.predict(frames[:BATCH])).mean())
+            out["f32_agreement_with_one_device_b8"] = agree
+            out["f32_single_b8_predict_ms"] = cuda_ms(
+                lambda: single.predict(frames[:BATCH]), reps=5)
+            if agree < 0.999:
+                raise AssertionError(f"f32 mesh vs b8: {agree}")
+            del single
+        else:
+            batches = [frames[:BATCH], frames[BATCH:2 * BATCH]]
+            streamed = list(meshed.predict_iter(iter(batches)))
+            if not all(np.array_equal(g, meshed.predict(b))
+                       for g, b in zip(streamed, batches)):
+                raise AssertionError("the mesh's predict_iter != predict")
+            out["bf16_ms_per_batch"] = stream_ms(meshed, batches)
+            out["http"] = serve_over_http(meshed, frames)
+        del meshed, per_device
+        torch.cuda.empty_cache()
+    emit({"phase": "parallel_serving", "model": "bisenet-resnet18",
+          "image_size": list(SIZE), "batch": BATCH, "replicas": 2,
+          "devices": "cuda:0 twice", **out})
+    return out
+
+
+def phase_parallel_pipe() -> dict:
+    """(d) The pipelined DeepLabV2-R101 step, pipe 2 with both stages on
+    cuda:0, M = 2: one float64 step at PIPE_F64_SIZE (b4) held against the
+    accumulating step over the same 2 microbatches, then bf16 through
+    ``supervised_fit`` at 720x1280 b8 on colour-coded labels (K2) for
+    PIPE_STEPS steps, validated at 512x1024 on the placed model (K1), and
+    the pipelined step timed beside the accumulating step.  Returns the
+    path's launches."""
+    from rtsds_tpu_torch.parallel.mesh import Mesh
+    from rtsds_tpu_torch.train.accumulate import (
+        make_accumulating_train_step, split_microbatches)
+    from rtsds_tpu_torch.train.pipelined import make_pipelined_train_step
+
+    mesh = Mesh(["cuda:0"] * 2, ("pipe",))
+    config = load_config()
+    ds = SyntheticSegDataset(4, PIPE_F64_SIZE, CLASSES, seed=SEED + 85,
+                             fixed_tints=True)
+    images = normalize(torch.from_numpy(np.stack(
+        [ds[i][0] for i in range(4)]))).double().cuda()
+    labels = torch.from_numpy(np.stack([ds[i][1] for i in range(4)])).cuda()
+    labels[:, :3] = 19
+    runs = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        for name in ("pipelined", "accumulate"):
+            model, frozen = make_segmentor(config, "deeplab", seed=SEED)
+            model.to("cuda", torch.float64)
+            state = TrainState(model, make_optimizer(
+                "SGD", model.parameters(), 0.01, momentum=0.9,
+                frozen=frozen))
+            before = {k: v.detach().cpu().clone()
+                      for k, v in model.named_parameters()}
+            if name == "pipelined":
+                loss = make_pipelined_train_step(model, mesh, 19, 2)(
+                    state, images, labels)["train_loss"]
+            else:
+                loss = make_accumulating_train_step(19)(
+                    state, split_microbatches(images, 2),
+                    split_microbatches(labels, 2))["train_loss"]
+            runs[name] = {"losses": {"train_loss": float(loss)},
+                          "before": [before],
+                          "after": [{k: v.detach().cpu() for k, v in
+                                     model.state_dict().items()}]}
+            del model, state
+    held = _held_to(runs["pipelined"], runs["accumulate"])
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    config = load_config(overrides={
+        "precision": {"compute_dtype": "bfloat16"},
+        "training": {"segmentation": {"epochs": 1, "do_validation": 1}}})
+    loader, transform = _gta5_stream(PIPE_STEPS * TRAIN_BATCH, SEED + 86)
+    state = build_supervised(config, "deeplab", len(loader), dev, seed=SEED)
+    step = make_pipelined_train_step(state.model, mesh, 19, 2)
+    clock = _StepClock()
+    torch.cuda.reset_peak_memory_stats()
+    (_, history), launches, checked = on_main_path(lambda: supervised_fit(
+        state, step, lambda epoch: device_batches(loader, transform, dev,
+                                                  seed=SEED, epoch=epoch),
+        _val_stream(), epochs=1, num_classes=CLASSES, callbacks=[clock],
+        device=dev))
+    losses = [e["train_loss"] for e in clock.logs]
+    if len(losses) != PIPE_STEPS or not all(map(math.isfinite, losses)) \
+            or not 0.0 <= history[0]["validation_mIoU"] <= 1.0:
+        raise AssertionError(f"pipelined run: {losses} {history}")
+    batch = _full_size_batch()
+    pipe_ms = cuda_ms(lambda: step(state, *batch), reps=5)
+    acc = make_accumulating_train_step(19)
+    acc_ms = cuda_ms(lambda: acc(state, split_microbatches(batch[0], 2),
+                                 split_microbatches(batch[1], 2)), reps=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step
+    torch.cuda.empty_cache()
+    emit({"phase": "parallel_pipe", "model": "deeplabv2-resnet101",
+          "stages": 2, "stage_devices": "cuda:0 twice", "microbatches": 2,
+          "float64_vs_accumulate": held, "image_size": list(TRAIN_SIZE),
+          "batch": TRAIN_BATCH, "dtype": "bfloat16", "losses": losses,
+          "validation_mIoU": history[0]["validation_mIoU"],
+          "k2_outputs_checked": checked, "pipelined_step_p50_ms": pipe_ms,
+          "accumulate_step_p50_ms": acc_ms, "peak_gb": peak_gb,
+          "launches": launches})
+    return launches
+
+
+def parallel_phases(tree: dict, frames: np.ndarray) -> dict:
+    """The parallel phase (a)-(d); returns the K1 and K2 launches of its
+    main paths."""
+    t0 = time.perf_counter()
+    shared = phase_parallel_shared_card()
+    torch.cuda.empty_cache()
+    nccl = phase_parallel_nccl_cli()
+    torch.cuda.empty_cache()
+    phase_parallel_serving(tree, frames)
+    torch.cuda.empty_cache()
+    pipe = phase_parallel_pipe()
+    torch.cuda.empty_cache()
+    paths = {"dp2_bisenet_training": shared["supervised"],
+             "dp2_bisenet_da": shared["da"],
+             "nccl_world1_cli_training": nccl,
+             "pipe2_deeplab_training": pipe}
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
+    return {kernel: {path: n[kernel] for path, n in paths.items()}
+            for kernel in ("fast_hist_cuda", "rgb_to_train_ids_cuda")}
+
+
 def timed_entry(kernel, plain, library, nbytes: int) -> dict:
     """The measured keys of a ``kernels`` entry: the kernel's device time
     (median, min, max), its wrapper's host cost, the plain version's and
@@ -3828,18 +4507,26 @@ def tooling_phases(frames, tree, dl_frames, dl_tree) -> dict:
 def main() -> int:
     if sys.argv[1:] == ["--kernels-only"]:
         return kernels_only()
-    if sys.argv[1:] in (["--int8-only"], ["--tooling-only"]):
+    if sys.argv[1:] in (["--int8-only"], ["--tooling-only"],
+                        ["--parallel-only"]):
         phase_device()
         frames, labels, tree, dl_frames, dl_tree = serving_data()
         if sys.argv[1] == "--int8-only":
             int8_phases(frames, labels, tree, dl_frames, dl_tree)
-        else:
+        elif sys.argv[1] == "--tooling-only":
             tooling_phases(frames, tree, dl_frames, dl_tree)
+        else:
+            launches = parallel_phases(tree, frames)
+            for kernel, paths in launches.items():
+                missed = [p for p, n in paths.items() if n < 1]
+                if missed:
+                    raise AssertionError(f"{kernel} never launched on "
+                                         f"{missed}")
         print(gpu_name_and_power_limit(), flush=True)
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only | "
-                         f"--int8-only | --tooling-only]")
+                         f"--int8-only | --tooling-only | --parallel-only]")
     device = phase_device()
     hist_err = phase_hist_check()
     remap_err = phase_remap_check()
@@ -3906,6 +4593,11 @@ def main() -> int:
     # the GTA5 converter (K2); the serving artifacts run no hand-written
     # kernel (counts reset inside each, just before)
     tools = tooling_phases(frames, tree, dl_frames, dl_tree)
+    # main paths 20-23: two ranks sharing the card (gloo), training and DA;
+    # the CLI's --multihost under NCCL at world size 1; the pipelined
+    # DeepLab step (counts reset inside each, just before, on every rank);
+    # the batch-mesh serving runs no hand-written kernel
+    par = parallel_phases(tree, frames)
 
     hist_paths = {"bisenet_serving_validation": serve_launches,
                   "bisenet_training": train_launches["fast_hist_cuda"],
@@ -3916,7 +4608,8 @@ def main() -> int:
                   **{f"bisenet_{k}": n["fast_hist_cuda"]
                      for k, n in extras.items()},
                   "bisenet_serving_checkpoint": serve_ckpt["fast_hist_cuda"],
-                  **int8["fast_hist_cuda"], **tools["fast_hist_cuda"]}
+                  **int8["fast_hist_cuda"], **tools["fast_hist_cuda"],
+                  **par["fast_hist_cuda"]}
     remap_paths = {
         "bisenet_training": train_launches["rgb_to_train_ids_cuda"],
         "bisenet_da": da_launches["rgb_to_train_ids_cuda"],
@@ -3927,7 +4620,8 @@ def main() -> int:
         # the training that wrote the served checkpoint: the same launches
         # as bisenet_ema_accumulate's, counted once in the total
         "bisenet_serving_checkpoint": ema["launches"]["rgb_to_train_ids_cuda"],
-        **int8["rgb_to_train_ids_cuda"], **tools["rgb_to_train_ids_cuda"]}
+        **int8["rgb_to_train_ids_cuda"], **tools["rgb_to_train_ids_cuda"],
+        **par["rgb_to_train_ids_cuda"]}
     if serve_ckpt["rgb_to_train_ids_cuda"]:
         raise AssertionError("serving launched K2")
     for kernel, paths in (("K1", hist_paths), ("K2", remap_paths)):

@@ -13,6 +13,12 @@ When training dies (an exception, or SIGTERM turned into
 :meth:`ModelCheckpoint.save_emergency`: it saves the epoch-start snapshot
 of the interrupted epoch as that epoch and writes an ``EMERGENCY`` marker
 holding its number, so that ``resume`` replays the epoch from its start.
+
+Under the data axis every rank holds the same states, and only rank 0
+writes (``parallel/distributed.py:is_main_rank``); a regular save ends
+with a barrier, so no rank reads a checkpoint before it is whole, and on
+``--resume`` every rank reads rank 0's files.  The emergency save has no
+barrier: the ranks stop at the same step and exit after it.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from rtsds_tpu_torch.callbacks.base import Callback
+from rtsds_tpu_torch.parallel.distributed import barrier, is_main_rank
 
 
 # the file that marks a directory's latest save as a mid-epoch snapshot;
@@ -227,13 +234,16 @@ class ModelCheckpoint(Callback):
         return os.path.join(self.save_dir, EMERGENCY)
 
     def _save(self, states: dict, monitor: float | None = None) -> None:
-        """A regular save of epoch ``self._epoch``; it supersedes an
-        emergency snapshot, so the marker goes."""
-        self.manager.save(self._epoch, states, monitor=monitor)
-        try:
-            os.remove(self.emergency_marker)
-        except OSError:
-            pass
+        """A regular save of epoch ``self._epoch`` (rank 0's; every rank
+        waits for it); it supersedes an emergency snapshot, so the marker
+        goes."""
+        if is_main_rank():
+            self.manager.save(self._epoch, states, monitor=monitor)
+            try:
+                os.remove(self.emergency_marker)
+            except OSError:
+                pass
+        barrier()
 
     def on_epoch_end(self, epoch, logs=None):
         self._epoch = epoch
@@ -267,6 +277,8 @@ class ModelCheckpoint(Callback):
         original error propagates."""
         if self._get_states is None:
             return False
+        if not is_main_rank():
+            return True
         try:
             if self._epoch in self.manager.all_steps():
                 marked = os.path.exists(self.emergency_marker)

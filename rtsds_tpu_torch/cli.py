@@ -36,9 +36,21 @@ JSONL event log), ``images_plots`` (validation figures) and, with
 ``--wandb``, ``logging.wandb`` (its API key may come from ``.env``).
 SIGTERM saves an emergency checkpoint of the interrupted epoch's start and
 exits; ``--resume`` replays that epoch.  ``--debug`` stops at the first
-non-finite value (``utils/debug.py``).  Features of the JAX CLI that are
-not ported yet (a mesh of more than one device, ``--multihost``) exit with
-a message saying so.
+non-finite value (``utils/debug.py``).
+
+``--multihost`` runs one process per GPU, data-parallel: launch it with
+torchrun, or with ``RTSDS_COORDINATOR_ADDRESS`` (``host:port``),
+``RTSDS_NUM_PROCESSES`` and ``RTSDS_PROCESS_ID`` set for each process
+(``device: cpu`` runs the group under gloo on the CPU).  Config batch
+sizes are then GLOBAL: each rank loads its slice of every global batch,
+BatchNorm, the losses and the gradients are the global batch's
+(``parallel/distributed.py``), every rank reports the same metrics and
+mIoU, and rank 0 alone writes checkpoints, logs and prints.  ``mesh:
+{pipe: N}`` pipelines DeepLab's layer3 over N of this process's GPUs
+(``train/pipelined.py``).  What stays refused, with a message saying so:
+the ``spatial`` and ``model`` mesh axes (ROADMAP item 17); self-training
+and distillation with more than one rank, which no test holds to the JAX
+package there; and the JAX CLI's own refusals of the pipe.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import itertools
+import os
 from functools import partial
 
 import torch
@@ -84,13 +97,17 @@ def argument_parser(argv=None):
                         help="Stop at the first non-finite value: anomaly "
                              "mode and a check of every module's output.")
     parser.add_argument("--multihost", action="store_true",
-                        help="Not ported yet.")
+                        help="Join the job's process group (torchrun's or "
+                             "the RTSDS_* variables) and train "
+                             "data-parallel, one process per GPU; config "
+                             "batch sizes are then GLOBAL.")
     return parser.parse_args(argv)
 
 
 def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported yet to rtsds_tpu_torch; use "
-                      f"the JAX package (python main.py) for it")
+    return SystemExit(f"{what} is not ported yet to rtsds_tpu_torch "
+                      f"(ROADMAP item 17); use the JAX package (python "
+                      f"main.py) for it")
 
 
 def _enabled(node) -> bool:
@@ -139,11 +156,34 @@ def _check_domain_adaptation(config) -> None:
                              f"{net} with {want}")
 
 
+def _check_mesh(args, config) -> None:
+    """The mesh axes the port runs: ``data`` (over ``--multihost``'s
+    processes) and ``pipe`` (alone, one process)."""
+    from rtsds_tpu_torch.parallel.mesh import planned_process_count
+
+    mesh = dict(config.get("mesh") or {})
+    for axis in ("spatial", "model"):
+        if int(mesh.get(axis, 1) or 1) > 1:
+            raise _not_ported(f"mesh {mesh}: the {axis} axis")
+    pipe = int(mesh.get("pipe", 1) or 1)
+    if pipe != 1 and args.multihost:
+        raise SystemExit(
+            "mesh: {pipe: N} is single-process only: the schedule "
+            "replicates inputs, which is incompatible with per-process "
+            "sharded loading (--multihost)")
+    if args.multihost and planned_process_count() > 1:
+        tcfg = config.training
+        if args.domain_adaptation and _enabled(
+                tcfg["domain_adaptation"].get("self_training")):
+            raise _not_ported("self_training with more than one process")
+        if not args.domain_adaptation and _enabled(
+                tcfg["segmentation"].get("distillation")):
+            raise _not_ported("distillation with more than one process")
+
+
 def check_ported(args, config) -> None:
     """Exit on every flag or config switch the port does not run yet, and
     say what is skipped."""
-    if args.multihost:
-        raise _not_ported("--multihost")
     if args.domain_adaptation:
         _check_domain_adaptation(config)
     else:
@@ -152,27 +192,48 @@ def check_ported(args, config) -> None:
     if _enabled(vcfg.get("ensemble")) and _enabled(vcfg.get("sliding")):
         raise SystemExit("validation.ensemble and validation.sliding are "
                          "mutually exclusive; enable at most one")
-    mesh = dict(config.get("mesh") or {})
-    if any(int(mesh.get(axis, 1) or 1) > 1
-           for axis in ("data", "spatial", "model", "pipe")):
-        raise _not_ported(f"mesh {mesh} (the port runs on one device)")
+    _check_mesh(args, config)
     if config.get("compilation_cache"):
         print("compilation_cache is an XLA setting; rtsds_tpu_torch ignores "
               "it")
 
 
+def _device_type(config) -> str:
+    return "cpu" if str(config.get("device", "cuda")).lower() == "cpu" \
+        else "cuda"
+
+
 def device_from_config(config) -> torch.device:
-    """``device: cpu`` -> the CPU; anything else -> the GPU (or raise)."""
-    if str(config.get("device", "cuda")).lower() == "cpu":
+    """``device: cpu`` -> the CPU; anything else -> the GPU (or raise).  One
+    process trains on one GPU: with more on the box it warns that they
+    idle (``--multihost`` runs one process per GPU)."""
+    if _device_type(config) == "cpu":
         return torch.device("cpu")
-    return resolve_device(None)
+    device = resolve_device(None)
+    n = torch.cuda.device_count()
+    if n > 1:
+        import warnings
+
+        warnings.warn(
+            f"one process trains on one GPU: {n - 1} of {n} GPUs idle; "
+            f"launch one process per GPU with torchrun (or --multihost "
+            f"and the RTSDS_* variables) to train on all of them",
+            stacklevel=2)
+    return device
 
 
 def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
-                    seed: int = 42, infinite: bool = False) -> dict:
+                    seed: int = 42, infinite: bool = False,
+                    train_micro_batches: tuple[str, int] = ("", 1)) -> dict:
     """Host loaders of Cityscapes train/val and GTA5, and their device
     transforms (``make_transform``) and sizes.  ``infinite`` makes the two
-    training loaders endless, for domain adaptation."""
+    training loaders endless, for domain adaptation.  In a job of several
+    processes the batch sizes are global and each loader is this rank's
+    :class:`~rtsds_tpu_torch.data.multihost.MultiHostDataLoader`;
+    ``train_micro_batches`` ``(name, K)`` lays the ``cs_train`` or
+    ``gta5_train`` loader's shares out for a K-step accumulation."""
+    from rtsds_tpu_torch.data.multihost import MultiHostDataLoader
+    from rtsds_tpu_torch.parallel.mesh import process_count
     from rtsds_tpu_torch.data.indexing import (
         build_cityscapes_index, build_gta5_index)
     from rtsds_tpu_torch.data.pipeline import DataLoader, SegmentationDataset
@@ -212,14 +273,21 @@ def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
 
     aug_cfg = AugmentConfig.from_config(config) if is_augmented else None
     correct = bool(config.data.get("correct_preprocessing", False))
-    mk = partial(DataLoader, num_workers=cs["num_workers"], seed=seed)
+    multi = process_count() > 1
+    mk = partial(MultiHostDataLoader if multi else DataLoader,
+                 num_workers=cs["num_workers"], seed=seed)
+    name, k = train_micro_batches
+    micro = {name: k} if multi else {}
+
+    def split(key):
+        return {"micro_batches": micro[key]} if key in micro else {}
     return {
         "cs_train": mk(cs_train_ds, cs["batch_size"], shuffle=True,
-                       infinite=infinite),
+                       infinite=infinite, **split("cs_train")),
         "cs_val": mk(cs_val_ds, cs["batch_size"], shuffle=False,
                      drop_last=False),
         "gta5_train": mk(gta5_ds, gta5["batch_size"], shuffle=True,
-                         infinite=infinite),
+                         infinite=infinite, **split("gta5_train")),
         "cs_transform": make_transform(cs_size, cs["num_classes"],
                                        antialias=True,
                                        correct_preprocessing=correct),
@@ -227,7 +295,9 @@ def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
                                          antialias=False,
                                          augment_cfg=aug_cfg,
                                          correct_preprocessing=correct,
-                                         decode_label_colors=decode_colors),
+                                         decode_label_colors=decode_colors,
+                                         micro_batches=micro.get(
+                                             "gta5_train", 1)),
         "cs_size": cs_size,
         "gta5_size": gta5_size,
     }
@@ -264,12 +334,16 @@ def build_eval_step(config, state, image_size: tuple[int, int],
     return make_eval_step(state.model, num_classes, **kwargs)
 
 
-def build_callbacks(config, mode_suffix: str = "", use_wandb: bool = False):
+def build_callbacks(config, mode_suffix: str = "", use_wandb: bool = False,
+                    main_rank: bool = True):
     """(callbacks, checkpoint) from ``config.callbacks``; a section set to
     null is off.  Checkpoints go to ``<save_name><mode_suffix>``, so
     supervised and domain-adaptation runs of one config keep apart.
     ``use_wandb`` (``--wandb``) adds the W&B logger of
-    ``callbacks.logging.wandb``, and exits when that section is null."""
+    ``callbacks.logging.wandb``, and exits when that section is null.
+    Off the ``main_rank`` of a data-parallel job only the callbacks that
+    decide (the checkpoint, which writes on rank 0 alone, and early
+    stopping) are made: the loggers write from rank 0."""
     from rtsds_tpu_torch.callbacks.checkpoint import (
         EarlyStopping, ModelCheckpoint)
     from rtsds_tpu_torch.callbacks.history import HistoryCallback
@@ -287,6 +361,7 @@ def build_callbacks(config, mode_suffix: str = "", use_wandb: bool = False):
             raise SystemExit(
                 "--wandb passed but callbacks.logging.wandb is disabled "
                 "(null) or missing in the config")
+    if use_wandb and main_rank:
         load_dotenv()  # WANDB_API_KEY may live in ./.env
         callbacks.append(WandBCallback(project_name=wb["project_name"],
                                        run_name=wb["run_name"],
@@ -307,6 +382,8 @@ def build_callbacks(config, mode_suffix: str = "", use_wandb: bool = False):
             monitor=es.get("monitor", "validation_mIoU"),
             mode=es.get("mode", "max"),
             patience=int(es.get("patience", 5))))
+    if not main_rank:
+        return callbacks, checkpoint
     if cb_cfg.get("history"):
         callbacks.append(HistoryCallback(
             path=cb_cfg["history"].get("path", "history.jsonl")))
@@ -436,10 +513,11 @@ def _calibrated_threshold(cal_cfg, gen_state, teacher_ema, data, device,
 
 
 def run_domain_adaptation(args, config, data, callbacks, checkpoint,
-                          class_names, device):
+                          class_names, device, mesh):
     """The ``--domain_adaptation`` branch: returns the history, or the mIoU
     with ``--validate_only``."""
     from rtsds_tpu_torch.data.pipeline import device_batches
+    from rtsds_tpu_torch.parallel.mesh import place_state
     from rtsds_tpu_torch.train.adversarial import make_adversarial_step
     from rtsds_tpu_torch.train.ema import setup_ema
     from rtsds_tpu_torch.train.factory import build_adversarial
@@ -474,6 +552,8 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     fda_beta = float(fda_cfg.get("beta", 0.01)) if _enabled(fda_cfg) else 0.0
 
     gen_state, dis_state = build_adversarial(config, device, seed=args.seed)
+    for state in (gen_state, dis_state):
+        place_state(state, mesh)
     if args.debug:
         name_modules(gen_state.model, "generator.")
         name_modules(dis_state.model, "discriminator.")
@@ -501,6 +581,8 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
         start_epoch, resumed_ema = _resume(
             checkpoint, states,
             setup_ema(gen_state.model) if ema_decay is not None else None)
+        for state in (gen_state, dis_state):
+            place_state(state, mesh)
 
     if self_training:
         if threshold is None:
@@ -555,13 +637,59 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     return history
 
 
+def _pipelined_train_step(args, config, tcfg, state, mesh, ignore_index):
+    """``mesh: {pipe: N}``: DeepLab's layer3 GPipe-pipelined
+    (``train/pipelined.py``), with the JAX CLI's refusals."""
+    from rtsds_tpu_torch.train.pipelined import make_pipelined_train_step
+
+    if args.model != "deeplab":
+        raise SystemExit(
+            "mesh: {pipe: N} pipelines DeepLab's homogeneous layer3 "
+            "bottlenecks; --model deeplab required")
+    if _enabled(tcfg.get("distillation")):
+        raise SystemExit("mesh.pipe does not compose with distillation; "
+                         "pick one")
+    if int(tcfg.get("accumulate_steps", 1)) > 1:
+        raise SystemExit(
+            "mesh.pipe already microbatches (GPipe == gradient "
+            "accumulation); set training.segmentation.pipe_microbatches "
+            "instead of accumulate_steps")
+    if bool(config.model["deeplab"].get("bn_eval", False)):
+        raise SystemExit(
+            "mesh.pipe does not support model.deeplab.bn_eval yet: the "
+            "pipelined schedule threads per-microbatch batch-stats BN; "
+            "running it with frozen stats would silently diverge from the "
+            "same config on a non-pipe mesh. Disable bn_eval or drop the "
+            "pipe axis.")
+    n_micro_cfg = tcfg.get("pipe_microbatches")
+    n_micro = (mesh.shape["pipe"] if n_micro_cfg is None
+               else int(n_micro_cfg))
+    if n_micro < 1:
+        raise SystemExit(
+            f"training.segmentation.pipe_microbatches {n_micro_cfg} must be "
+            f">= 1 (or null for the pipe size)")
+    bs = int(config.data["gta5_modified" if args.dataset == "gta5"
+                         else "cityscapes"]["batch_size"])
+    if bs % n_micro:
+        raise SystemExit(f"batch_size {bs} does not split into {n_micro} "
+                         f"pipeline microbatches")
+    try:
+        return make_pipelined_train_step(state.model, mesh,
+                                         ignore_index=ignore_index,
+                                         num_microbatches=n_micro)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
 def supervised_train_step(args, config, tcfg, train_loader, device,
-                          calib_batches=None):
-    """The supervised step of ``training.segmentation``: distillation from a
-    frozen teacher (``teacher.quantize: int8`` quantizes it, calibrated on
-    ``teacher.calib_batches`` batches of ``calib_batches()``, the first
-    epoch's training batches), gradient accumulation over
-    ``accumulate_steps`` micro-batches, or the plain step."""
+                          calib_batches=None, state=None, mesh=None):
+    """The supervised step of ``training.segmentation``: DeepLab's layer3
+    pipelined over a ``pipe`` ``mesh`` (``state`` holds the model it
+    places), distillation from a frozen teacher (``teacher.quantize: int8``
+    quantizes it, calibrated on ``teacher.calib_batches`` batches of
+    ``calib_batches()``, the first epoch's training batches), gradient
+    accumulation over ``accumulate_steps`` micro-batches, or the plain
+    step."""
     from rtsds_tpu_torch.models.pretrained import load_segmentor_state
     from rtsds_tpu_torch.train.accumulate import (
         make_accumulating_train_step, split_microbatches)
@@ -571,6 +699,9 @@ def supervised_train_step(args, config, tcfg, train_loader, device,
     from rtsds_tpu_torch.train.supervised import make_train_step
 
     ignore_index = config.model[args.model]["criterion"].get("ignore_index")
+    if mesh is not None and "pipe" in mesh.axis_names:
+        return _pipelined_train_step(args, config, tcfg, state, mesh,
+                                     ignore_index)
     accumulate_steps = int(tcfg.get("accumulate_steps", 1))
     dist_cfg = tcfg.get("distillation")
     if _enabled(dist_cfg):
@@ -628,12 +759,16 @@ def main(argv=None):
     for the run (an emergency checkpoint, then a clean exit), and
     ``--debug`` the debug mode; both are undone when the run ends, so a
     library caller keeps its own signal handlers and settings."""
+    from rtsds_tpu_torch.parallel.mesh import planned_process_count
     from rtsds_tpu_torch.utils.debug import disable_debug, enable_debug
     from rtsds_tpu_torch.utils.preemption import (
         install_preemption_handler, restore_handlers)
 
     args = argument_parser(argv)
-    previous = install_preemption_handler()
+    # with several ranks a signal only marks the run, and every rank stops
+    # at the step whose metrics report it (utils/preemption.py)
+    previous = install_preemption_handler(
+        deferred=args.multihost and planned_process_count() > 1)
     if args.debug:
         enable_debug()
     try:
@@ -645,27 +780,69 @@ def main(argv=None):
 
 
 def _main(args):
+    config = load_config(args.config)
+    check_ported(args, config)
+    if not args.multihost:
+        return _run(args, config, device_from_config(config))
+    import torch.distributed as dist
+
+    from rtsds_tpu_torch.parallel.distributed import (
+        data_parallel, is_main_rank)
+    from rtsds_tpu_torch.parallel.mesh import initialize_multihost
+
+    device = initialize_multihost(device_type=_device_type(config))
+    try:
+        with data_parallel(), contextlib.ExitStack() as stack:
+            if not is_main_rank():  # rank 0 alone prints
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return _run(args, config, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, config, device):
     from rtsds_tpu_torch.data.pipeline import device_batches
+    from rtsds_tpu_torch.parallel.distributed import is_main_rank
+    from rtsds_tpu_torch.parallel.mesh import (
+        make_mesh_from_config, place_state)
     from rtsds_tpu_torch.train.ema import setup_ema
     from rtsds_tpu_torch.train.factory import build_supervised
     from rtsds_tpu_torch.train.loop import supervised_fit
     from rtsds_tpu_torch.utils.debug import name_modules
     from rtsds_tpu_torch.utils.preemption import Preempted
 
-    config = load_config(args.config)
-    check_ported(args, config)
-    device = device_from_config(config)
-    data = datasets_loader(config, is_augmented=args.augmented,
-                           synthetic=args.synthetic, seed=args.seed,
-                           infinite=args.domain_adaptation)
+    # the JAX CLI's mesh rules: config batch sizes are global, and the
+    # data axis must divide the smaller of the two
+    mesh = make_mesh_from_config(
+        dict(config.get("mesh") or {}), device_type=device.type,
+        batch_size=min(int(config.data["cityscapes"]["batch_size"]),
+                       int(config.data["gta5_modified"]["batch_size"])))
+    if args.domain_adaptation and "pipe" in mesh.axis_names:
+        raise SystemExit(
+            "mesh: {pipe: N} supports supervised DeepLab training only (the "
+            "G/D steps have no pipelined variant); use a data mesh for "
+            "domain adaptation")
+    # under the data axis each rank's training batch holds its share of
+    # every micro-batch of the accumulating step (data/multihost.py)
+    train_name = "gta5_train" if args.dataset == "gta5" else "cs_train"
+    micro_batches = (train_name, 1 if args.domain_adaptation else int(
+        config.training["segmentation"].get("accumulate_steps", 1)))
+    try:
+        data = datasets_loader(config, is_augmented=args.augmented,
+                               synthetic=args.synthetic, seed=args.seed,
+                               infinite=args.domain_adaptation,
+                               train_micro_batches=micro_batches)
+    except ValueError as e:  # a global batch that does not divide
+        raise SystemExit(str(e))
     callbacks, checkpoint = build_callbacks(
         config, mode_suffix="_da" if args.domain_adaptation else "",
-        use_wandb=args.wandb)
+        use_wandb=args.wandb, main_rank=is_main_rank())
     class_names = list(config.meta["class_names"])
 
     if args.domain_adaptation:
         return run_domain_adaptation(args, config, data, callbacks,
-                                     checkpoint, class_names, device)
+                                     checkpoint, class_names, device, mesh)
 
     if args.dataset == "gta5":
         print(" ------> Training on GTA5, validating on Cityscapes ------ ")
@@ -679,8 +856,9 @@ def _main(args):
 
     tcfg = config.training["segmentation"]
     num_classes = int(tcfg["num_classes"])
-    state = build_supervised(config, args.model, len(train_loader), device,
-                             seed=args.seed)
+    state = place_state(build_supervised(config, args.model,
+                                         len(train_loader), device,
+                                         seed=args.seed), mesh)
     if args.debug:
         name_modules(state.model)
     ema_decay = _ema_decay_from(tcfg)
@@ -691,7 +869,8 @@ def _main(args):
                               epoch=epoch)
 
     train_step = supervised_train_step(args, config, tcfg, train_loader,
-                                       device, lambda: train_batches(0))
+                                       device, lambda: train_batches(0),
+                                       state=state, mesh=mesh)
     eval_step = build_eval_step(config, state, data["cs_size"], num_classes,
                                 return_preds=_plots(callbacks))
 
@@ -709,6 +888,7 @@ def _main(args):
         start_epoch, resumed_ema = _resume(
             checkpoint, {"model": state},
             setup_ema(state.model) if ema_decay is not None else None)
+        place_state(state, mesh)
         # the resumed epochs see the shuffles the uninterrupted run drew
         train_loader.set_epoch(start_epoch)
 

@@ -4,6 +4,11 @@ The (n, n) int32 matrix stays on the device across the epoch, updated by
 the confusion-matrix kernel after each batch's forward and argmax; the host
 fetches it once, at the end.  ``val`` and ``val_GTA5`` are the entry points
 shaped like the reference training script's.
+
+Under the data axis (``parallel/distributed.py``) each rank validates its
+own shards of the validation batches, and the ranks' matrices are summed
+once at the end (an int32 all-reduce), so every rank reports the mIoU of
+the whole set.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from torch import nn
 
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.ops.cuda.hist import fast_hist_cuda
+from rtsds_tpu_torch.parallel.distributed import global_sum
+from rtsds_tpu_torch.parallel.pipeline import to_device
 from rtsds_tpu_torch.utils.dtypes import model_dtype
 from rtsds_tpu_torch.utils.metrics import per_class_iou
 
@@ -87,7 +94,7 @@ def validate(model: nn.Module, val_iter: Iterable, num_classes: int,
         cb.on_validation_begin()
 
     plot_cbs = [cb for cb in callbacks if hasattr(cb, "add_sample")]
-    model.to(device)
+    to_device(model, device)
     was_training = model.training
     model.eval()
     if eval_step is None:
@@ -119,6 +126,7 @@ def validate(model: nn.Module, val_iter: Iterable, num_classes: int,
     finally:
         model.train(was_training)
 
+    hist = global_sum(hist)
     ious = per_class_iou(hist.cpu()).numpy()
     miou = float(np.nanmean(ious))
     print(f"Validation mIoU for Epoch {epoch + 1}: {miou:.4f}")

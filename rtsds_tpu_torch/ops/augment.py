@@ -13,6 +13,12 @@ drawing never waits on the GPU: the gate, the blur sigma, the flip coin and
 the jitter factors are the batch's; the zoom draws are per sample.  The
 draws are plain Python numbers, and :func:`apply_augment` is a
 deterministic function of them.
+
+Under the data axis (``parallel/distributed.py``) a rank holds its slice
+of the global batch, and draws as one process would for the whole global
+batch: the batch's draws once, the zoom's for every global sample, of
+which it keeps those of its own samples (:func:`rank_slice`, at the
+positions ``parallel/distributed.py:shard_positions`` gives the loader).
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 
 from rtsds_tpu_torch.config import parse_float_list, parse_int_list
 from rtsds_tpu_torch.ops.blur import gaussian_blur
+from rtsds_tpu_torch.parallel.distributed import (
+    rank, shard_positions, world_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,13 +249,33 @@ def apply_augment(cfg: AugmentConfig, draws: AugmentDraws,
     return image, label
 
 
-def make_augment_fn(cfg: AugmentConfig) -> Callable:
-    """``augment(generator, image, label) -> (image, label)``."""
+def rank_slice(draws: AugmentDraws, positions: list[int]) -> AugmentDraws:
+    """The draws of the samples at ``positions`` of the batch: the
+    per-sample zoom draws picked, the batch's draws kept."""
+    if not draws.zoom_scale:
+        return draws
+
+    def pick(values):
+        return [values[i] for i in positions]
+    return dataclasses.replace(
+        draws, zoom_scale=pick(draws.zoom_scale),
+        zoom_fire=pick(draws.zoom_fire), zoom_ty=pick(draws.zoom_ty),
+        zoom_tx=pick(draws.zoom_tx))
+
+
+def make_augment_fn(cfg: AugmentConfig, micro_batches: int = 1) -> Callable:
+    """``augment(generator, image, label) -> (image, label)``; under the
+    data axis ``image`` is this rank's share of the global batch, laid out
+    for ``micro_batches`` as the loader lays it out."""
 
     def augment(generator, image, label):
-        # only the zoom draws per sample
-        draws = (draw(cfg, generator, tuple(image.shape[:3])) if cfg.zooms
-                 else draw(cfg, generator))
-        return apply_augment(cfg, draws, image, label)
+        if not cfg.zooms:  # only the zoom draws per sample
+            return apply_augment(cfg, draw(cfg, generator), image, label)
+        n, h, w = image.shape[:3]
+        world = world_size()
+        draws = draw(cfg, generator, (n * world, h, w))
+        positions = shard_positions(n * world, rank(), world, micro_batches)
+        return apply_augment(cfg, rank_slice(draws, positions), image,
+                             label)
 
     return augment

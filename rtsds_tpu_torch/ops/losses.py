@@ -5,6 +5,12 @@ class distributions (MinEnt).
 ``cross_entropy`` is the mean over non-ignored pixels of the per-pixel
 negative log-likelihood.  A batch whose pixels are all ignored gives 0,
 not NaN: the count in the denominator is at least 1.
+
+Under the data axis (``parallel/distributed.py:data_parallel``) every mean
+divides by the count of the GLOBAL batch: the valid pixels all-reduced, or
+a shape's size times the world size.  Each rank's loss is then its share
+of the global batch's loss, whose gradient the summed gradients are, as in
+the JAX package, whose means run over the global batch.
 """
 
 from __future__ import annotations
@@ -14,7 +20,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from rtsds_tpu_torch.parallel.distributed import global_count, world_size
 from rtsds_tpu_torch.utils.dtypes import at_least_f32
+
+
+def global_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t``'s elements over the global batch: its sum over the
+    global count (``t.mean()`` at world size 1)."""
+    if world_size() == 1:
+        return t.mean()
+    return t.sum() / global_count(t.numel())
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -26,10 +41,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = at_least_f32(logits)
     labels = labels.long()
     if ignore_index is None:
-        return F.cross_entropy(logits, labels)
+        if world_size() == 1:
+            return F.cross_entropy(logits, labels)
+        return (F.cross_entropy(logits, labels, reduction="sum")
+                / global_count(labels.numel()))
     total = F.cross_entropy(logits, labels, ignore_index=ignore_index,
                             reduction="sum")
-    count = (labels != ignore_index).sum().clamp(min=1)
+    count = global_count((labels != ignore_index).sum()).clamp(min=1)
     return total / count
 
 
@@ -42,7 +60,8 @@ def bce_with_logits(logits: torch.Tensor, targets) -> torch.Tensor:
     float32."""
     x = at_least_f32(logits)
     y = torch.as_tensor(targets, dtype=x.dtype, device=x.device)
-    return (x.clamp(min=0) - x * y + torch.log1p(torch.exp(-x.abs()))).mean()
+    loss = x.clamp(min=0) - x * y + torch.log1p(torch.exp(-x.abs()))
+    return global_mean(loss)
 
 
 def entropy_loss(logits: torch.Tensor) -> torch.Tensor:
@@ -51,7 +70,7 @@ def entropy_loss(logits: torch.Tensor) -> torch.Tensor:
     Vu et al., CVPR'19), in at least float32."""
     logp = F.log_softmax(at_least_f32(logits), dim=1)
     ent = -(logp.exp() * logp).sum(dim=1)
-    return ent.mean() / math.log(logits.shape[1])
+    return global_mean(ent) / math.log(logits.shape[1])
 
 
 def make_criterion(cfg):

@@ -44,17 +44,19 @@ def make_transform(image_size: tuple[int, int], num_classes: int = 19,
                    augment_cfg: AugmentConfig | None = None,
                    correct_preprocessing: bool = False,
                    decode_label_colors: bool = False,
-                   color_table=None) -> Callable:
+                   color_table=None, micro_batches: int = 1) -> Callable:
     """``transform(image, label, generator=None) -> (image, label)``.
 
     Input: (N, H, W, 3) uint8/float images in 0..255 and (N, H, W) integer
     labels, or (N, H, W, 3) uint8 colour-coded labels with
     ``decode_label_colors``, all on one device.  Output: normalized float32
     (N, H, W, 3) images at ``image_size`` and int32 labels.  With
-    ``augment_cfg`` the transform needs the batch's ``generator``.
+    ``augment_cfg`` the transform needs the batch's ``generator``;
+    ``micro_batches`` is the loader's layout of a rank's share
+    (``data/multihost.py``).
     """
-    augment = make_augment_fn(augment_cfg) if augment_cfg is not None \
-        else None
+    augment = make_augment_fn(augment_cfg, micro_batches) \
+        if augment_cfg is not None else None
 
     def transform(image, label, generator=None):
         image = image.to(torch.float32)

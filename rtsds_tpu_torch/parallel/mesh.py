@@ -1,0 +1,302 @@
+"""Meshes of the port: the ``data`` axis over processes and the ``pipe``
+axis over one process's devices.
+
+Counterpart of ``rtsds_tpu/parallel/mesh.py``.  JAX builds one mesh over
+every chip of the job and lets XLA insert the collectives; the port runs
+one process per GPU (``--multihost``: torchrun's or the ``RTSDS_*``
+variables), and the data axis is the process group: each rank holds its
+contiguous shard of every global batch on its own device, BatchNorm reads
+global-batch statistics, the losses divide by global counts and the
+gradients are summed across ranks (``parallel/distributed.py``).  The pipe
+axis is one process over a list of stage devices (``parallel/pipeline.py``,
+``train/pipelined.py``).  Serving's batch mesh is one process over a list
+of devices too, one model replica on each (``serve.py``).
+
+A :class:`Mesh` is a device list and its axis name.  On the data axis it
+has one entry per rank, and a rank knows its own device only, so every
+entry is that device.  The CPU counts as ``RTSDS_CPU_DEVICES`` devices
+(default 1), as XLA's host platform device count does for the JAX
+package's tests, so that a pipe or serving mesh of several stages runs
+there.
+
+The ``spatial`` and ``model`` axes, and meshes that compose axes, are not
+ported yet (ROADMAP item 17): :func:`make_mesh_from_config` raises on them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import warnings
+
+import torch
+import torch.distributed as dist
+
+NOT_PORTED = "not ported yet to rtsds_tpu_torch (ROADMAP item 17)"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh: ``devices`` along the axis ``axis_names[0]``."""
+
+    devices: tuple
+    axis_names: tuple = ("data",)
+
+    def __post_init__(self):
+        object.__setattr__(self, "devices",
+                           tuple(torch.device(d) for d in self.devices))
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        if len(self.axis_names) != 1:
+            raise ValueError(f"the port's meshes are 1-D, got axes "
+                             f"{self.axis_names}; composed meshes are "
+                             f"{NOT_PORTED}")
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis_names[0]: len(self.devices)}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where a tensor lives on a mesh: ``spec`` () is replicated on every
+    device, ``("data",)`` split along the batch dimension."""
+
+    mesh: Mesh
+    spec: tuple = ()
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def local_devices(device_type: str = "cuda") -> list[torch.device]:
+    """This process's devices of ``device_type``: every GPU, or the CPU
+    counted ``RTSDS_CPU_DEVICES`` times."""
+    if device_type == "cpu":
+        return [torch.device("cpu")] * int(
+            os.environ.get("RTSDS_CPU_DEVICES", "1"))
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def job_devices(device: torch.device) -> list[torch.device]:
+    """The data axis's devices: one per rank of the process group, each
+    entry this rank's ``device``."""
+    return [torch.device(device)] * process_count()
+
+
+def make_mesh(devices=None, axis_name: str = "data",
+              batch_size: int | None = None) -> Mesh:
+    """1-D data mesh over ``devices`` (default: one per rank, on the GPU).
+
+    With ``batch_size`` the mesh is trimmed to the largest device count
+    that divides it, with a warning; in a job of several processes that
+    raises instead, since a trimmed rank would hold no shard."""
+    if devices is None:
+        devices = job_devices(_current_device("cuda"))
+    devices = list(devices)
+    if batch_size is not None:
+        n = len(devices)
+        while n > 1 and batch_size % n != 0:
+            n -= 1
+        if n < len(devices):
+            if process_count() > 1:
+                raise ValueError(
+                    f"multihost: global batch {batch_size} must divide by "
+                    f"the total device count {len(devices)}; trimming to "
+                    f"{n} device(s) would idle entire processes")
+            warnings.warn(
+                f"make_mesh: global batch {batch_size} is not divisible by "
+                f"{len(devices)} devices; using only {n} device(s) and "
+                f"idling {len(devices) - n}. Set the batch size to a "
+                f"multiple of the chip count for full utilization.",
+                stacklevel=2)
+        devices = devices[:n]
+    return Mesh(tuple(devices), (axis_name,))
+
+
+def make_mesh_from_config(spec: dict, devices=None,
+                          batch_size: int | None = None,
+                          device_type: str = "cuda") -> Mesh:
+    """The job's mesh from the config's ``mesh:`` section, by the JAX
+    package's rules: ``data: -1`` fills the devices (trimmed to divide
+    ``batch_size``); ``pipe: N`` pipelines DeepLab's layer3 over N of this
+    process's devices (``-1``: all of them; one device warns and runs as a
+    data mesh), alone and in one process only.  ``devices`` defaults to one
+    per rank for the data axis and to :func:`local_devices` for the pipe
+    axis."""
+    d = int(spec.get("data", -1))
+    s = int(spec.get("spatial", 1))
+    m = int(spec.get("model", 1))
+    p = int(spec.get("pipe", 1))
+    if s > 1 or m > 1:
+        raise NotImplementedError(
+            f"mesh spec {spec}: the spatial and model axes are {NOT_PORTED}")
+    if devices is None:
+        devices = (local_devices(device_type) if p != 1
+                   else job_devices(_current_device(device_type)))
+    devices = list(devices)
+    if p in (-1, 0):
+        p = len(devices)
+        if p == 1:
+            warnings.warn(
+                f"mesh spec {spec}: pipe resolved to a single device, so "
+                f"the job runs as a plain data mesh and pipe_microbatches "
+                f"is ignored; use training.*.accumulate_steps to "
+                f"reproduce per-microbatch numerics on one device",
+                stacklevel=2)
+    elif p < -1:
+        raise ValueError(f"mesh spec {spec}: pipe must be a positive "
+                         f"stage count or -1 (all devices)")
+    if p > 1:
+        if d not in (-1, 0, 1):
+            raise ValueError(
+                f"mesh spec {spec}: pipe does not compose with data/"
+                f"spatial/model axes (BN statistics would become "
+                f"per-shard); use mesh: {{pipe: {p}}} alone")
+        if process_count() > 1:
+            raise ValueError(
+                "mesh: {pipe: N} is single-process only: the schedule "
+                "replicates inputs, which is incompatible with "
+                "per-process sharded loading (--multihost)")
+        if len(devices) < p:
+            raise ValueError(
+                f"mesh spec {spec} needs {p} devices, have {len(devices)}")
+        if p < len(devices):
+            warnings.warn(
+                f"mesh spec {spec} uses {p} of {len(devices)} devices; "
+                f"{len(devices) - p} chip(s) will idle.", stacklevel=2)
+        return Mesh(tuple(devices[:p]), ("pipe",))
+    return make_mesh(devices if d in (-1, 0) else devices[:d],
+                     batch_size=batch_size)
+
+
+def _current_device(device_type: str) -> torch.device:
+    if device_type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def batch_sharding(mesh: Mesh, axis_name: str = "data") -> Sharding:
+    """The leading (batch) dimension split over the mesh."""
+    return Sharding(mesh, (axis_name,))
+
+
+def replicated_sharding(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def input_sharding(mesh: Mesh) -> Sharding:
+    """Input batches: split over ``data``; replicated on a ``pipe`` mesh,
+    whose schedule splits the batch into microbatches itself."""
+    if "pipe" in mesh.axis_names:
+        return replicated_sharding(mesh)
+    return batch_sharding(mesh, mesh.axis_names[0])
+
+
+def shard_batch(batch, mesh: Mesh) -> list:
+    """A batch (a tensor, or a tuple/list of them) -> one chunk per device
+    of ``mesh``, each on its device; the batch must divide evenly."""
+    if isinstance(batch, (tuple, list)):
+        parts = [shard_batch(b, mesh) for b in batch]
+        return [type(batch)(p[i] for p in parts) for i in range(mesh.size)]
+    n = batch.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"batch {n} must be a multiple of the "
+                         f"{mesh.size}-device mesh")
+    return [chunk.to(dev, non_blocking=True)
+            for chunk, dev in zip(batch.chunk(mesh.size), mesh.devices)]
+
+
+def place_state(state, mesh: Mesh):
+    """A train state on the job mesh: on the data axis of several ranks
+    its BatchNorm made global-batch and its parameters and buffers rank
+    0's (``parallel/distributed.py:replicate``); a pipe mesh places its
+    stages when the pipelined step is made (``train/pipelined.py``)."""
+    if "data" in mesh.axis_names:
+        from rtsds_tpu_torch.parallel.distributed import replicate
+
+        replicate(state.model)
+    return state
+
+
+def planned_process_count() -> int:
+    """The job's process count as ``--multihost`` will read it, before the
+    process group exists: ``RTSDS_NUM_PROCESSES``, else ``WORLD_SIZE``,
+    else 1."""
+    return int(os.environ.get("RTSDS_NUM_PROCESSES",
+                              os.environ.get("WORLD_SIZE", "1")))
+
+
+def initialize_multihost(coordinator_address: str | None = None,
+                         num_processes: int | None = None,
+                         process_id: int | None = None,
+                         device_type: str = "cuda",
+                         backend: str | None = None,
+                         timeout_s: float | None = None) -> torch.device:
+    """Join the job's process group and return this rank's device.
+
+    The arguments default to ``RTSDS_COORDINATOR_ADDRESS`` (``host:port``),
+    ``RTSDS_NUM_PROCESSES`` and ``RTSDS_PROCESS_ID``, as the JAX package
+    reads them, else to torchrun's ``MASTER_ADDR``/``MASTER_PORT``,
+    ``WORLD_SIZE`` and ``RANK``.  The device is ``cuda:LOCAL_RANK``
+    (``LOCAL_RANK``, else the rank modulo the GPU count) under NCCL, or the
+    CPU under gloo with ``device_type="cpu"``.  ``backend`` overrides the
+    choice (gloo on CUDA tensors runs all_reduce, broadcast and barrier,
+    all this module needs).  Without a GPU, and not asked for the CPU, it
+    raises: it never falls back to gloo or to the CPU on its own."""
+    env = os.environ
+    if coordinator_address is None:
+        coordinator_address = env.get("RTSDS_COORDINATOR_ADDRESS")
+        if coordinator_address is None and "MASTER_ADDR" in env:
+            coordinator_address = (f"{env['MASTER_ADDR']}:"
+                                   f"{env.get('MASTER_PORT', '29500')}")
+    if num_processes is None:
+        num_processes = planned_process_count()
+    if process_id is None:
+        process_id = int(env.get("RTSDS_PROCESS_ID", env.get("RANK", "0")))
+    if coordinator_address is None:
+        if num_processes > 1:
+            raise ValueError(
+                "--multihost with several processes needs the coordinator: "
+                "set RTSDS_COORDINATOR_ADDRESS=host:port (or launch with "
+                "torchrun)")
+        coordinator_address = "127.0.0.1:0"
+    if device_type == "cpu":
+        device = torch.device("cpu")
+        backend = backend or "gloo"
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "--multihost: no CUDA device is available; set device: cpu "
+                "in the config to run the process group (gloo) on the CPU")
+        local = int(env.get("LOCAL_RANK",
+                            process_id % torch.cuda.device_count()))
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+        backend = backend or "nccl"
+    kwargs = {}
+    if timeout_s is not None:
+        kwargs["timeout"] = datetime.timedelta(seconds=timeout_s)
+    if backend == "nccl":
+        kwargs["device_id"] = device
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id, **kwargs)
+    return device

@@ -16,10 +16,20 @@ decodes PNG frames, resizes them to ``--size`` and serves them; without
 W8A8 quantized model (``ops/quant.py``), under any protocol.  ``--export
 PATH`` writes the predictor as a serving artifact (``serve_export.py``),
 and ``--artifact PATH`` serves one without the model code.
+
+``mesh=`` (a :class:`~rtsds_tpu_torch.parallel.mesh.Mesh`) with
+``sharding="batch"`` serves one process over several devices: one model
+replica on each (the int8 model too), the batch split into a chunk per
+device, the chunks launched in turn and the masks gathered on the first
+device.
+The CLI's and the server's ``--mesh batch`` build it over every GPU (the
+CPU counts as ``RTSDS_CPU_DEVICES``).  ``sharding="spatial"`` (image
+height over the devices) is not ported yet (ROADMAP item 17).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Callable, Iterable, Iterator
 
@@ -37,6 +47,7 @@ from rtsds_tpu_torch.models.pretrained import (
     load_flax_variables, load_segmentor_state, state_dict_from_reference)
 from rtsds_tpu_torch.ops.preprocess import normalize
 from rtsds_tpu_torch.ops.quant import QuantizedSegmentor, quantize_model
+from rtsds_tpu_torch.parallel.mesh import shard_batch
 from rtsds_tpu_torch.utils.colors import apply_color_map
 
 
@@ -130,6 +141,18 @@ def protocol_kwargs_from_flags(protocol: str, scales: str = "0.75, 1.0, 1.25",
     return {}
 
 
+def batch_mesh(batch_size: int, device: str | None = None) -> dict:
+    """``--mesh batch``: the ``mesh`` and ``sharding`` arguments of a
+    :class:`Predictor` over every device of ``device``'s type (every GPU,
+    or the CPU counted ``RTSDS_CPU_DEVICES`` times), trimmed to divide
+    ``batch_size`` (``parallel/mesh.py:make_mesh``)."""
+    from rtsds_tpu_torch.parallel.mesh import local_devices, make_mesh
+
+    kind = resolve_device(device).type
+    return {"mesh": make_mesh(local_devices(kind), batch_size=batch_size),
+            "sharding": "batch"}
+
+
 def colorize_masks(masks: np.ndarray) -> np.ndarray:
     """(..., H, W) trainId masks -> colorized (..., H, W, 3) uint8."""
     if masks.ndim == 2:
@@ -182,6 +205,11 @@ class Predictor:
         reads); no calibration then.  They must name exactly the model's
         convs: an unknown or missing name raises, so no conv is ever served
         in bf16 by accident.
+      mesh: a :class:`~rtsds_tpu_torch.parallel.mesh.Mesh` of devices to
+        serve on, one model replica on each, with ``sharding="batch"``:
+        the batch is split over them, so ``batch_size`` must be a multiple
+        of the mesh's size; ``device`` is then ignored.
+      sharding: ``"batch"``; ``"spatial"`` is not ported yet.
       device: ``None`` serves on the GPU and raises without one; pass
         ``"cpu"`` to serve on the CPU.
     """
@@ -197,7 +225,8 @@ class Predictor:
                  protocol_kwargs: dict | None = None,
                  quantize: str | None = None, calib_frames=None,
                  calib_stat: str = "max", calib_percentile: float = 99.9,
-                 act_scales: dict | None = None, mesh=None, device=None):
+                 act_scales: dict | None = None, mesh=None,
+                 sharding: str = "batch", device=None):
         if model_name not in ("bisenet", "deeplab"):
             raise ValueError(model_name)
         if protocol not in ("plain", "ensemble", "sliding"):
@@ -211,7 +240,15 @@ class Predictor:
                 "(N, H, W, 3) uint8 frames to calibrate the static "
                 "activation scales) or precomputed act_scales")
         if mesh is not None:
-            raise _not_ported("multi-device serving")
+            if sharding == "spatial":
+                raise _not_ported("spatial-sharded serving (ROADMAP item "
+                                  "17)")
+            if sharding != "batch":
+                raise ValueError(f"unknown serving sharding {sharding!r}")
+            if batch_size % mesh.size:
+                raise ValueError(
+                    f"batch_size {batch_size} must be a multiple of the "
+                    f"{mesh.size}-device mesh for batch-sharded serving")
         if variables is not None and state is not None:
             raise ValueError("pass the weights as variables or as state, "
                              "not both")
@@ -220,7 +257,9 @@ class Predictor:
             raise ValueError(
                 f"num_classes={num_classes} exceeds the uint8 serving wire "
                 f"format (class ids must fit in a byte)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
         self.num_classes = num_classes
         self.image_size = tuple(image_size)
         self.batch_size = batch_size
@@ -241,33 +280,46 @@ class Predictor:
             load_segmentor_state(model, state)
         self.model_class = type(model).__name__
         self.quantize = quantize
-        if quantize:
-            self.model = self._quantized(model_name, model.state_dict(),
-                                         calib_frames, calib_stat,
-                                         calib_percentile, act_scales)
-        else:
-            self.model = model.to(device=self.device, dtype=dtype).eval()
+        devices = mesh.devices if mesh is not None else (self.device,)
+        self.replicas = []
+        for i, dev in enumerate(devices):
+            if quantize:
+                # calibrated once, on the first device; the others serve
+                # its scales
+                replica = self._quantized(
+                    model_name, model.state_dict(), calib_frames, calib_stat,
+                    calib_percentile, act_scales if i == 0
+                    else self.act_scales, device=dev)
+            else:
+                replica = (model if i == 0 else copy.deepcopy(model)).to(
+                    device=dev, dtype=dtype).eval()
+            self.replicas.append(replica)
+        self.model = self.replicas[0]
+        self._protocols = [self._make_protocol(r, protocol, protocol_kwargs)
+                           for r in self.replicas]
 
+    def _make_protocol(self, model, protocol: str, protocol_kwargs):
         def forward(x):
-            return self.model(x.to(self.dtype))
+            return model(x.to(self.dtype))
 
-        self._protocol = None
         if protocol == "ensemble":
-            self._protocol = make_ensemble_predict(
-                forward, self.image_size, **(protocol_kwargs or {}))
-        elif protocol == "sliding":
-            self._protocol = make_sliding_predict(
-                forward, self.image_size, **(protocol_kwargs or {}))
+            return make_ensemble_predict(forward, self.image_size,
+                                         **(protocol_kwargs or {}))
+        if protocol == "sliding":
+            return make_sliding_predict(forward, self.image_size,
+                                        **(protocol_kwargs or {}))
+        return None
 
-    def _normalized(self, frames: np.ndarray) -> torch.Tensor:
+    def _normalized(self, frames: np.ndarray, device=None) -> torch.Tensor:
         """(N, H, W, 3) uint8 host frames -> normalized float32 (N, 3, H,
-        W) on the device."""
-        x = torch.from_numpy(frames).to(self.device)
+        W) on ``device`` (default: the first)."""
+        x = torch.from_numpy(frames).to(device or self.device)
         return normalize(x, self.correct_preprocessing).permute(0, 3, 1, 2)
 
     def _quantized(self, model_name: str, state: dict, calib_frames,
                    calib_stat: str, calib_percentile: float,
-                   act_scales: dict | None) -> QuantizedSegmentor:
+                   act_scales: dict | None,
+                   device=None) -> QuantizedSegmentor:
         """The int8 model of ``state`` on the device
         (``ops/quant.py:quantize_model``), its scales ``act_scales`` or
         calibrated on ``calib_frames`` in chunks of the serving batch; the
@@ -285,10 +337,11 @@ class Predictor:
                     calib = np.concatenate([calib, calib[:pad]])
             chunks = [calib[i:i + self.batch_size]
                       for i in range(0, calib.shape[0], self.batch_size)]
+        device = device or self.device
         model = quantize_model(
-            model_name, state, (self._normalized(c) for c in chunks),
+            model_name, state, (self._normalized(c, device) for c in chunks),
             calib_stat=calib_stat, calib_percentile=calib_percentile,
-            device=self.device, act_scales=act_scales)
+            device=device, act_scales=act_scales)
         self.act_scales = model.act_scales
         return model
 
@@ -297,16 +350,27 @@ class Predictor:
         frames -> (N, H, W) uint8 masks.  A protocol resizes and slices the
         float32 frames and casts each forward's input to the model's dtype.
         ``serve_export.export_predictor`` captures this method."""
+        return self._masks_on(0, frames)
+
+    def _masks_on(self, i: int, frames: torch.Tensor) -> torch.Tensor:
+        """:meth:`masks` on replica ``i`` (frames on its device)."""
         x = normalize(frames, self.correct_preprocessing).permute(0, 3, 1, 2)
-        if self._protocol is not None:
-            return self._protocol(x).to(torch.uint8)
-        logits = self.model(x.to(self.dtype))
+        if self._protocols[i] is not None:
+            return self._protocols[i](x).to(torch.uint8)
+        logits = self.replicas[i](x.to(self.dtype))
         return logits.argmax(dim=1).to(torch.uint8)
 
     @torch.inference_mode()
     def _predict(self, frames: np.ndarray) -> torch.Tensor:
-        """(N, H, W, 3) uint8 host frames -> (N, H, W) uint8 device masks."""
-        return self.masks(torch.from_numpy(frames).to(self.device))
+        """(N, H, W, 3) uint8 host frames -> (N, H, W) uint8 masks, on the
+        device; on a mesh, each device's chunk launched in turn and the
+        masks gathered on the first device, so that the host waits for
+        none of them and :meth:`predict_iter` keeps a batch in flight."""
+        if self.mesh is None:
+            return self.masks(torch.from_numpy(frames).to(self.device))
+        chunks = shard_batch(torch.from_numpy(frames), self.mesh)
+        return torch.cat([self._masks_on(i, c).to(self.device)
+                          for i, c in enumerate(chunks)])
 
     def warmup(self) -> "Predictor":
         dummy = np.zeros((self.batch_size, *self.image_size, 3), np.uint8)
@@ -478,7 +542,11 @@ def main(argv=None):
                         help="serve from an exported artifact instead of "
                              "model code + checkpoint")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="not yet ported")
+                        choices=["batch", "spatial"],
+                        help="batch: one replica per device, the batch "
+                             "split over them (every GPU; with --device "
+                             "cpu, RTSDS_CPU_DEVICES); spatial is not yet "
+                             "ported")
     args = parser.parse_args(argv)
 
     # flag checks before any model or artifact work
@@ -491,8 +559,9 @@ def main(argv=None):
     if args.mesh and (args.artifact or args.export):
         parser.error("--mesh is live multi-chip serving; AOT artifacts "
                      "are single-device programs (export without --mesh)")
-    if args.mesh is not None:
-        parser.error("--mesh is not yet ported to rtsds_tpu_torch")
+    if args.mesh == "spatial":
+        parser.error("--mesh spatial is not yet ported to rtsds_tpu_torch "
+                     "(ROADMAP item 17); --mesh batch is")
     if args.quantize and args.artifact:
         parser.error("--quantize happens at predictor build time; the "
                      "artifact is already a compiled program")
@@ -529,6 +598,8 @@ def main(argv=None):
                 args.protocol, args.scales, args.window, args.stride,
                 args.window_chunk),
             device=args.device)
+        if args.mesh:
+            kwargs.update(batch_mesh(kwargs["batch_size"], args.device))
         if args.quantize:
             kwargs.update(quantize=args.quantize, calib_frames=frames,
                           calib_stat=args.calib_stat,

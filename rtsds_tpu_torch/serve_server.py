@@ -19,7 +19,9 @@ Two layers:
   the raw path serves where PIL is not installed.  ``--quantize int8``
   serves the W8A8 model, its activation scales calibrated on
   ``--calib_images`` (PNGs) or read from a QAT checkpoint's sidecar;
-  ``--artifact PATH`` serves a program written by ``serve_export.py``.
+  ``--artifact PATH`` serves a program written by ``serve_export.py``;
+  ``--mesh batch`` splits each micro-batch over a model replica per device
+  (``Predictor(mesh=)``).
 
 The forward runs under ``torch.inference_mode``, which is thread-local:
 :meth:`rtsds_tpu_torch.serve.Predictor._predict` enters it itself, on
@@ -329,7 +331,8 @@ def main(argv=None):
     import argparse
 
     from rtsds_tpu_torch.config import parse_int_list
-    from rtsds_tpu_torch.serve import Predictor, protocol_kwargs_from_flags
+    from rtsds_tpu_torch.serve import (
+        Predictor, batch_mesh, protocol_kwargs_from_flags)
 
     parser = argparse.ArgumentParser(
         description="RTSDS micro-batching inference server (PyTorch/CUDA)")
@@ -386,7 +389,11 @@ def main(argv=None):
     parser.add_argument("--artifact", default=None,
                         help="serve from an exported artifact "
                              "(serve_export.py)")
-    parser.add_argument("--mesh", default=None, help="not yet ported")
+    parser.add_argument("--mesh", default=None, choices=["batch", "spatial"],
+                        help="batch: one replica per device, each "
+                             "micro-batch split over them (every GPU; with "
+                             "--device cpu, RTSDS_CPU_DEVICES); spatial is "
+                             "not yet ported")
     args = parser.parse_args(argv)
 
     if args.quantize:
@@ -405,8 +412,9 @@ def main(argv=None):
     if args.artifact and args.mesh:
         parser.error("--mesh is live multi-chip serving; AOT artifacts "
                      "are single-device programs")
-    if args.mesh is not None:
-        parser.error("--mesh is not yet ported to rtsds_tpu_torch")
+    if args.mesh == "spatial":
+        parser.error("--mesh spatial is not yet ported to rtsds_tpu_torch "
+                     "(ROADMAP item 17); --mesh batch is")
 
     if args.artifact:
         from rtsds_tpu_torch.serve_export import load_predictor
@@ -423,6 +431,10 @@ def main(argv=None):
                           args.protocol, args.scales, args.window,
                           args.stride, args.window_chunk),
                       device=args.device)
+        if args.mesh:
+            # the predictor pads each micro-batch to --batch, a multiple
+            # of the mesh
+            kwargs.update(batch_mesh(args.batch, args.device))
         if args.quantize:
             kwargs.update(quantize=args.quantize, calib_stat=args.calib_stat,
                           calib_percentile=args.calib_percentile)

@@ -12,6 +12,13 @@ Batch-norm running statistics update once per micro-batch, K times a step,
 as the JAX package's ``lax.scan`` threads them.  With ``ignore_index``
 masking, each micro-batch's loss is a mean over its own valid pixels, so
 micro-batches weigh equally, not pixels.
+
+Under the data axis (``parallel/distributed.py``) each rank splits its
+shard, and micro-batch k is the union of the ranks' k-th slices: its
+BatchNorm statistics and loss denominators are that union's.  The loader
+gives rank r its share of each of the global batch's K contiguous
+micro-batches (``data/multihost.py``, ``shard_positions``), so that union
+is the JAX package's micro-batch k of the same global batch.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Callable
 import torch
 
 from rtsds_tpu_torch.ops.losses import segmentation_loss
+from rtsds_tpu_torch.parallel.distributed import reduce_metrics, world_size
 from rtsds_tpu_torch.train.state import TrainState
 
 
@@ -49,7 +57,7 @@ def make_accumulating_train_step(ignore_index: int | None = 19) -> Callable:
                    labels: torch.Tensor) -> dict:
         accum_steps, micro = images.shape[:2]
         need = getattr(state.model, "min_train_batch", 1)
-        if micro < need:
+        if micro * world_size() < need:
             raise ValueError(
                 f"training needs a batch of at least {need} frames, got "
                 f"micro-batches of {micro} ({accum_steps} x {micro} frames): "
@@ -71,7 +79,7 @@ def make_accumulating_train_step(ignore_index: int | None = 19) -> Callable:
                 correct = correct + (main.argmax(dim=1) == mb_labels).sum()
             del outputs, main
         state.optimizer.step()
-        return {"train_loss": loss_sum / accum_steps, "correct": correct,
-                "total": labels.numel()}
+        return reduce_metrics({"train_loss": loss_sum / accum_steps,
+                               "correct": correct, "total": labels.numel()})
 
     return train_step

@@ -30,6 +30,13 @@ G's losses (divided by ``iterations`` under v1 and the reversal step, as
 their other losses are; unscaled under v2), reported as ``loss_entropy``;
 ``fda_beta > 0`` restyles each source batch with the target batch's
 low-frequency amplitude (``ops/fda.py``) before the step sees it.
+
+Under the data axis (``parallel/distributed.py``) the batches are this
+rank's shards: both networks' BatchNorm, every loss (CE, BCE, entropy) and
+G's and D's gradients are the global batch's, and the metrics come back
+summed over the ranks.  FDA restyles each source frame with its own
+rank's target frames, as the JAX step's per-frame FFT does with the
+frames at the same global index.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from rtsds_tpu_torch.ops.fda import fda_source_to_target
 from rtsds_tpu_torch.ops.losses import (
     bce_with_logits, entropy_loss, segmentation_loss)
 from rtsds_tpu_torch.ops.pool import adaptive_avg_pool2d
+from rtsds_tpu_torch.parallel.distributed import reduce_metrics
 from rtsds_tpu_torch.train.state import TrainState
 from rtsds_tpu_torch.train.supervised import check_batch
 from rtsds_tpu_torch.utils.schedules import lambda_adv_schedule
@@ -89,14 +97,21 @@ def _with_fda(step: Callable, fda_beta: float) -> Callable:
     """``step`` with each source batch FDA-restyled by the target batch
     first; ``step`` itself when ``fda_beta`` is 0."""
     if not fda_beta:
-        return step
+        return _reduced(step)
 
     def fda_step(gen, dis, src_images, src_labels, tgt_images) -> dict:
         return step(gen, dis,
                     fda_source_to_target(src_images, tgt_images, fda_beta),
                     src_labels, tgt_images)
 
-    return fda_step
+    return _reduced(fda_step)
+
+
+def _reduced(step: Callable) -> Callable:
+    """``step`` with its metrics summed over the data axis's ranks."""
+    def reduced(*args) -> dict:
+        return reduce_metrics(step(*args))
+    return reduced
 
 
 def _check_batches(gen: TrainState, src_images: torch.Tensor,

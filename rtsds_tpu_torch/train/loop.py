@@ -16,6 +16,11 @@ the model, the optimizer with its moments and count, the EMA); when an
 exception (``Preempted`` on SIGTERM among them) leaves the loop, that copy
 is saved as the interrupted epoch's emergency checkpoint before the
 exception propagates, and ``--resume`` replays the epoch from it.
+
+Under the data axis every rank runs the loop on its shards; the steps'
+metrics come back summed over the ranks, so every rank prints and decides
+alike.  A shutdown signal recorded by any rank (``utils/preemption.py``,
+deferred) stops all of them at the step whose metrics report it.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ from typing import Callable, Iterable, Iterator
 from rtsds_tpu_torch.callbacks.checkpoint import snapshot_states
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.eval.validate import make_eval_step, validate
+from rtsds_tpu_torch.parallel.pipeline import to_device
 from rtsds_tpu_torch.train.ema import ema_update, ema_weights, setup_ema
+from rtsds_tpu_torch.utils.preemption import check_stop
 
 
 def _fan_out(callbacks, method: str, *args, **kwargs):
@@ -51,6 +58,7 @@ def train_epoch(state, train_step: Callable, batches: Iterable, epoch: int,
     def consume(item):
         nonlocal running_loss, correct, total
         batch_idx, metrics = item
+        check_stop(metrics.get("preempted"))
         loss = float(metrics["train_loss"])
         running_loss += loss
         correct += int(metrics["correct"])
@@ -58,7 +66,7 @@ def train_epoch(state, train_step: Callable, batches: Iterable, epoch: int,
         logs = {"train_loss": loss,
                 "train_accuracy": 100.0 * correct / max(total, 1)}
         for k, v in metrics.items():
-            if k not in ("train_loss", "correct", "total"):
+            if k not in ("train_loss", "correct", "total", "preempted"):
                 logs[k] = float(v)
         _fan_out(callbacks, "on_batch_end", batch_idx, logs)
 
@@ -116,7 +124,7 @@ def supervised_fit(state, train_step: Callable, make_train_batches: Callable,
     Returns ``(state, history)``, one history entry per validation.
     """
     device = resolve_device(device)
-    state.model.to(device)
+    to_device(state.model, device)
     callbacks = list(callbacks or [])
     ema = None
     if ema_decay is not None:
@@ -229,7 +237,7 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
     dis_state, history)``, one history entry per validation.
     """
     device = resolve_device(device)
-    gen_state.model.to(device)
+    to_device(gen_state.model, device)
     dis_state.model.to(device)
     callbacks = list(callbacks or [])
     ema = None
@@ -258,6 +266,7 @@ def adversarial_fit(gen_state, dis_state, da_step: Callable,
 
             def consume(item):
                 i, metrics = item
+                check_stop(metrics.get("preempted"))
                 logs = {k: float(metrics[k]) for k in DA_LOSS_KEYS
                         if k in metrics}
                 for k, v in logs.items():

@@ -2,8 +2,11 @@
 schedule and an optional global-norm gradient clip.
 
 The update rule, in order:
-  0. the gradients of the ``frozen`` parameters (DeepLabV2's batch-norm
-     affines) are set to zero, a missing one created as zero;
+  0. under the data axis (``parallel/distributed.py``), every gradient is
+     summed over the ranks (the ranks' losses are shares of the global
+     batch's), so every step reduces them here, once, before the update;
+     then the gradients of the ``frozen`` parameters (DeepLabV2's
+     batch-norm affines) are set to zero, a missing one created as zero;
   1. ``grad_clip``: when the global norm of all gradients exceeds it, every
      gradient is scaled by ``grad_clip / norm`` (before the moments);
   2. Adam (betas 0.9, 0.999, eps 1e-8, ``weight_decay`` added to the
@@ -32,6 +35,7 @@ from typing import Callable, Iterable
 import torch
 from torch import nn
 
+from rtsds_tpu_torch.parallel.distributed import all_reduce_gradients
 from rtsds_tpu_torch.utils.schedules import Schedule
 
 
@@ -68,6 +72,8 @@ class ScheduledOptimizer:
         lr = self.current_lr()
         for group in self.param_groups:
             group["lr"] = lr * group.get("lr_mult", 1.0)
+        all_reduce_gradients(p for g in self.param_groups
+                             for p in g["params"])
         for p in self.frozen:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -92,16 +98,18 @@ class ScheduledOptimizer:
 def clip_by_global_norm(params: Iterable[torch.Tensor],
                         max_norm: float) -> None:
     """Scale the gradients in place by ``max_norm / norm`` when their global
-    L2 norm exceeds ``max_norm``; no host sync."""
+    L2 norm exceeds ``max_norm``; no host sync.  The gradients may lie on
+    several devices (a pipelined model's stages)."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
+    device = grads[0].device
     norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+        [torch.linalg.vector_norm(g.float()).to(device) for g in grads]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:
-        g.mul_(scale.to(g.dtype))
+        g.mul_(scale.to(g.device, g.dtype))
 
 
 def make_optimizer(name: str, param_groups, learning_rate: float | Schedule,

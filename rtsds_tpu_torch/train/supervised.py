@@ -6,6 +6,10 @@ metrics stay on the device until the loop reads them: the loss, the count of pix
 prediction equals the label, and the count of all pixels.  Ignored pixels
 count in ``total`` too: they can never be predicted, so they count as
 errors, as in the original training script.
+
+Under the data axis (``parallel/distributed.py``) ``images`` is this
+rank's shard of the global batch: BatchNorm, the loss and the gradients
+are the global batch's, and the metrics come back summed over the ranks.
 """
 
 from __future__ import annotations
@@ -15,16 +19,18 @@ from typing import Callable
 import torch
 
 from rtsds_tpu_torch.ops.losses import segmentation_loss
+from rtsds_tpu_torch.parallel.distributed import reduce_metrics, world_size
 from rtsds_tpu_torch.train.state import TrainState
 
 
 def check_batch(model: torch.nn.Module, images: torch.Tensor,
                 name: str = "") -> None:
-    """Raise when ``images`` holds fewer frames than ``model`` trains on:
+    """Raise when the global batch of ``images`` (this rank's shard times
+    the data axis's ranks) holds fewer frames than ``model`` trains on:
     its ``min_train_batch`` (BiSeNet's attention gates batch-normalize a
     pooled (N, C, 1, 1) map, whose statistics one frame cannot give)."""
     need = getattr(model, "min_train_batch", 1)
-    n = images.shape[0]
+    n = images.shape[0] * world_size()
     if n < need:
         got = f"{n} {name} frames" if name else str(n)
         raise ValueError(
@@ -54,7 +60,7 @@ def make_train_step(ignore_index: int | None = 19) -> Callable:
         main = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
         with torch.no_grad():
             correct = (main.argmax(dim=1) == labels).sum()
-        return {"train_loss": loss.detach(), "correct": correct,
-                "total": labels.numel()}
+        return reduce_metrics({"train_loss": loss.detach(),
+                               "correct": correct, "total": labels.numel()})
 
     return train_step

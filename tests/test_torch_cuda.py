@@ -702,3 +702,23 @@ def test_convert_labels_on_the_card_equals_the_host_lut(cuda):
     launches = rgb_to_train_ids_cuda.launches
     np.testing.assert_array_equal(convert_labels(rgb), build_lut()[packed])
     assert rgb_to_train_ids_cuda.launches == launches + 1
+
+
+def test_global_batchnorm_under_gloo_on_cuda_tensors_equals_the_cpu(cuda):
+    """Two ranks sharing the card under gloo (CUDA tensors; gloo runs the
+    all_reduce the global-batch BN needs) against two ranks on the CPU, in
+    float64: output, running statistics and gradients at rtol 1e-9 / atol
+    1e-12."""
+    from rtsds_tpu_torch.parallel.launch import run_ranks
+    from test_torch_multihost import bn_worker
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(2.0, 3.0, size=(4, 5, 6, 7))
+    x[:2] += 10.0
+    dy = rng.normal(size=x.shape)
+    card = run_ranks(bn_worker, 2, (x, dy, "cuda"), timeout_s=120)
+    cpu = run_ranks(bn_worker, 2, (x, dy, "cpu"), timeout_s=120)
+    for got, want in zip(card, cpu):
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-9,
+                                       atol=1e-12, err_msg=k)

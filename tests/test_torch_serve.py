@@ -10,6 +10,7 @@ from PIL import Image
 from rtsds_tpu import serve as jax_serve
 from rtsds_tpu.models.bisenet import BiSeNet as FlaxBiSeNet
 from rtsds_tpu_torch.data.synthetic import SyntheticSegDataset
+from rtsds_tpu_torch.parallel.mesh import Mesh
 from rtsds_tpu_torch.serve import (
     Predictor, batched_mask_predict, colorize_masks, main)
 
@@ -98,12 +99,15 @@ def test_colorize_masks_matches_jax(rng):
                                   jax_serve.colorize_masks(masks[0]))
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": "batch"},
+@pytest.mark.parametrize("kwargs", [{"mesh": Mesh(["cpu", "cpu"]),
+                                     "sharding": "spatial"},
                                     {"model_name": "deeplab",
-                                     "mesh": "spatial"},
+                                     "mesh": Mesh(["cpu", "cpu"]),
+                                     "sharding": "spatial"},
                                     {"quantize": "int8"}])
 def test_unported_options_raise(kwargs):
-    """A mesh is not ported; int8 is, and raises without its calibration
+    """A spatial mesh is not ported (a batch mesh is:
+    test_torch_parallel.py); int8 is, and raises without its calibration
     frames or scales, as the JAX package's does."""
     if "quantize" in kwargs:
         with pytest.raises(ValueError, match="calib_frames"):

@@ -277,11 +277,13 @@ def test_serve_cli_serves_a_checkpoint_and_resizes(served, frames, tmp_path,
 
 @pytest.mark.parametrize("flag", ["--mesh", "--quantize"])
 def test_serve_cli_refuses_what_is_not_ported(tmp_path, flag, capsys):
-    """``--mesh`` is not ported; ``--quantize`` is, and refuses a mode
-    other than int8 (``--export`` and ``--artifact`` are ported:
+    """``--mesh spatial`` is not ported (``--mesh batch`` is:
+    test_torch_parallel.py); ``--quantize`` is, and refuses a mode other
+    than int8 (``--export`` and ``--artifact`` are ported:
     test_torch_serve_export.py)."""
+    value = "spatial" if flag == "--mesh" else "x"
     with pytest.raises(SystemExit):
-        main([str(tmp_path / "f.png"), flag, "x", "--device", "cpu"])
+        main([str(tmp_path / "f.png"), flag, value, "--device", "cpu"])
     err = capsys.readouterr().err
     if flag == "--quantize":
         assert "invalid choice: 'x'" in err

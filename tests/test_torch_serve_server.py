@@ -2,7 +2,8 @@
 each behaviour that ``test_serve_server.py`` checks of the JAX package's
 server (request coalescing, per-client routing, errors, refusals,
 cancelled futures, statistics, backpressure, the HTTP surface, SIGTERM),
-except its mesh cases, which the port refuses (its int8 flags are in
+except its mesh cases (the port's batch mesh is in
+test_torch_parallel.py; its int8 flags are in
 test_torch_quant_serving.py); and the port's
 server over the port's ``Predictor`` against the JAX package's
 ``MicroBatcher`` over its ``Predictor`` on the same weights and frames."""
@@ -327,10 +328,11 @@ def test_stats_is_safe_under_concurrent_mutation():
 
 @pytest.mark.parametrize("flag", ["--mesh", "--quantize"])
 def test_server_main_refuses_what_is_not_ported(flag, capsys):
-    """``--mesh`` is not ported; ``--quantize`` is, and refuses only an
-    int8 server with nothing to calibrate from (``--artifact`` is served:
+    """``--mesh spatial`` is not ported (``--mesh batch`` is:
+    test_torch_parallel.py); ``--quantize`` is, and refuses only an int8
+    server with nothing to calibrate from (``--artifact`` is served:
     test_torch_serve_export.py)."""
-    value = "int8" if flag == "--quantize" else "x"
+    value = "int8" if flag == "--quantize" else "spatial"
     with pytest.raises(SystemExit):
         serve_server.main([flag, value, "--device", "cpu"])
     err = capsys.readouterr().err
