@@ -4278,9 +4278,584 @@ def phase_parallel_pipe() -> dict:
     return launches
 
 
-def parallel_phases(tree: dict, frames: np.ndarray) -> dict:
-    """The parallel phase (a)-(d); returns the K1 and K2 launches of its
-    main paths."""
+# --- the parallel phase, continued: self-training, distillation and QAT on
+# two ranks and under NCCL through the CLI (ROADMAP 17.1); spatial serving
+# on a 2-band mesh (ROADMAP 17.2) ---------------------------------------------
+
+EXTRA_STEPS = 2            # per path, one epoch, global b8
+EXTRA_TIMEOUT_S = 480      # the spawn of the two ranks
+SPATIAL_F64_SIZE = (256, 512)
+SPATIAL_REPS = 10          # per timed b1 predict
+# least share of equal mask pixels, bands against one device, in float32
+# (TF32 off).  In bf16 and int8 the first card runs read 0.9763 (BiSeNet
+# bf16) and 0.7851 (DeepLab bf16; PERF.md): random weights leave
+# near-tied top-two logits, and any other rounding of a conv (cuDNN picks
+# its algorithm by the band's shape) flips their argmax, as a yardstick
+# shows: one device at b1 against itself at b2 (another cuDNN algorithm,
+# the same frame) read 0.8344 for DeepLab bf16.  So the bands must agree
+# within SPATIAL_YARDSTICK_MARGIN of the yardstick; a broken band path
+# agrees on about one pixel in CLASSES.  The served int8 masks (0.5986 for
+# DeepLab in the first run, where the yardstick's bf16 convs happened to
+# round alike: 1.0) are held to MIN_INT8_AGREEMENT, the int8-vs-bf16
+# floor of the same random nets, and the int8 wiring on bands to its
+# float64 walk (spatial_int8_walk_check)
+MIN_SPATIAL_AGREEMENT = 0.999
+SPATIAL_YARDSTICK_MARGIN = 0.1
+
+
+def _f64_model(config, name: str, seed: int):
+    model, frozen = make_segmentor(config, name, seed=seed)
+    return model.to("cuda", torch.float64), frozen
+
+
+def _states(*models) -> list:
+    return [{k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+            for m in models]
+
+
+def _named(*models) -> list:
+    return [{k: v.detach().cpu().clone() for k, v in m.named_parameters()}
+            for m in models]
+
+
+def _extras_f64(rank: int, world: int, qat_scales: dict) -> dict:
+    """Float64 steps on the card at PAR_F64_SIZE, on this rank's shard of
+    :func:`_par_f64_inputs` (with ``world`` 1, the global batch): the
+    self-training step (ClassMix on scores drawn for the global target
+    batch, FDA, MinEnt), distillation under a float DeepLabV2-R101
+    teacher, the int8-teacher step and the QAT step on ``qat_scales``;
+    and, from the shards, the CBST thresholds and the int8 teacher's
+    activation scales under max and percentile."""
+    from rtsds_tpu_torch.parallel.distributed import replicate
+    from rtsds_tpu_torch.train.distill import (
+        make_distill_step, quantize_teacher)
+    from rtsds_tpu_torch.train.ema import ema_init
+    from rtsds_tpu_torch.train.qat import QATSegmentor
+    from rtsds_tpu_torch.train.self_training import (
+        calibrate_class_thresholds, classmix_scores, make_self_training_step)
+
+    images, labels, target = _par_f64_inputs()
+    n = images.shape[0] // world
+    part = slice(rank * n, (rank + 1) * n)
+    x, y, t = (a[part].cuda() for a in (images, labels, target))
+    config = load_config()
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        gen, _ = _f64_model(config, "bisenet", SEED)
+        dis = make_discriminator(
+            config.model["adversarial_model"]["discriminator"],
+            seed=SEED + 1).to("cuda", torch.float64)
+        replicate(gen, dis)
+        out["cbst"] = calibrate_class_thresholds(gen, [t], CLASSES).tolist()
+        g = TrainState(gen, make_optimizer("SGD", gen.parameters(), 0.01,
+                                           momentum=0.0))
+        d = TrainState(dis, make_optimizer("SGD", dis.parameters(), 0.02,
+                                           momentum=0.0))
+        before = _named(gen, dis)
+        ema = ema_init(gen)
+        metrics = make_self_training_step(
+            0.1, DA_ITERATIONS, 19, threshold=0.1, ema_decay=0.99,
+            lambda_ent=0.05, fda_beta=0.05, classmix=True,
+            classmix_seed=SEED)(g, d, ema, x, y, t,
+                                scores=classmix_scores(SEED, 0, 4, CLASSES))
+        out["self_training"] = {
+            "losses": {k: float(v) for k, v in metrics.items()
+                       if k.startswith("loss_") or k.endswith("coverage")},
+            "before": before, "after": _states(gen, dis)}
+        del gen, dis, g, d, ema
+
+        teacher, _ = _f64_model(config, "deeplab", SEED + 22)
+        teacher.eval()
+        t32 = {k: v.float() for k, v in teacher.state_dict().items()}
+        calib = [x.float().permute(0, 3, 1, 2)]
+        out["int8_scales"] = {
+            stat: quant.quantize_model(
+                "deeplab", t32, calib, calib_stat=stat,
+                calib_percentile=99.0, device="cuda").act_scales
+            for stat in ("max", "percentile")}
+        int8_teacher = quantize_teacher("deeplab", t32, calib,
+                                        device="cuda")
+        for name, tch in (("distillation", teacher),
+                          ("distillation_int8", int8_teacher)):
+            student, _ = _f64_model(config, "bisenet", SEED)
+            replicate(student)
+            s = TrainState(student, make_optimizer(
+                "SGD", student.parameters(), 0.01, momentum=0.0))
+            before = _named(student)
+            metrics = make_distill_step(tch, 19)(s, x, y)
+            out[name] = {"losses": {k: float(metrics[k]) for k in (
+                "train_loss", "loss_ce", "loss_distill")},
+                "before": before, "after": _states(student)}
+            del student, s
+        del teacher, int8_teacher
+
+        student, _ = make_segmentor(config, "bisenet", seed=SEED)
+        prep = prepare_qat("bisenet", student.state_dict(), calib,
+                           device="cuda")
+        out["qat_scales"] = dict(prep.act_scales)
+        qat = QATSegmentor(prep._replace(act_scales=qat_scales)).to(
+            torch.float64)
+        s = TrainState(qat, make_optimizer("SGD", qat.parameters(), 0.1,
+                                           momentum=0.0))
+        before = _named(qat)
+        metrics = make_train_step(19)(s, x, y)
+        out["qat"] = {"losses": {"train_loss": float(metrics["train_loss"])},
+                      "before": before, "after": _states(qat)}
+    return out
+
+
+def _extras_fit(run, clock) -> dict:
+    """``run()`` (a trainer's fit) with K1's and K2's counts from zero:
+    its losses, mIoU, step time and launches."""
+    fast_hist_cuda.launches = rgb_to_train_ids_cuda.launches = 0
+    history = run()[-1]
+    torch.cuda.synchronize()
+    return {"losses": clock.logs,
+            "miou": [h["validation_mIoU"] for h in history],
+            "launches": {"fast_hist_cuda": fast_hist_cuda.launches,
+                         "rgb_to_train_ids_cuda":
+                             rgb_to_train_ids_cuda.launches}}
+
+
+def _extras_rank(rank: int, world: int, qat_scales: dict) -> dict:
+    """One rank of the 17.1 phase (gloo on CUDA tensors, both ranks on
+    cuda:0): the float64 steps, then bf16 at full width through the
+    trainers on this rank's shards of global b8 (GTA5 720x1280 with
+    colour-coded labels, K2; target 512x1024), each one epoch of
+    EXTRA_STEPS steps validated at 512x1024 (K1): self-training (CBST on
+    the rank's shards of 2 target batches, ClassMix, FDA, MinEnt, EMA),
+    distillation under a bf16 DeepLabV2-R101 teacher and under its int8
+    form (calibrated over the ranks), and the QAT step of BiSeNet-R18."""
+    import torch.distributed as dist
+
+    from rtsds_tpu_torch.parallel.distributed import data_group, replicate
+    from rtsds_tpu_torch.train.distill import (
+        make_distill_step, quantize_teacher)
+    from rtsds_tpu_torch.train.self_training import (
+        calibrate_class_thresholds, make_self_training_step)
+
+    torch.cuda.set_device(0)
+    _build.load()
+    out = {"f64": _extras_f64(rank, world, qat_scales)}
+    dev = torch.device("cuda")
+    val_loader = _par_loader(TRAIN_VAL_BATCHES * TRAIN_BATCH, TRAIN_VAL_SIZE,
+                             SEED + 5, False, shuffle=False, drop_last=False)
+    val_tf = make_transform(TRAIN_VAL_SIZE, CLASSES, antialias=True)
+
+    def val_batches(epoch):
+        return device_batches(val_loader, val_tf, dev)
+
+    aug = AugmentConfig.from_config(load_config())
+    src_tf = make_transform(TRAIN_SIZE, CLASSES, antialias=False,
+                            augment_cfg=aug, decode_label_colors=True)
+    tgt_tf = make_transform(DA_TGT_SIZE, CLASSES, antialias=True)
+    bits = []
+
+    # self-training
+    config = _extras_config(domain_adaptation={
+        "epochs": 1, "iterations": EXTRA_STEPS, "do_validation": 1})
+    gen, dis = build_adversarial(config, dev, seed=SEED)
+    replicate(gen.model, dis.model)
+    cal = _par_loader(2 * TRAIN_BATCH, DA_TGT_SIZE, SEED + 87, False)
+    thr = calibrate_class_thresholds(
+        gen.model, device_batches(cal, tgt_tf, dev), CLASSES,
+        compute_dtype=gen.compute_dtype)
+    src = _par_loader(EXTRA_STEPS * TRAIN_BATCH, TRAIN_SIZE, SEED + 88,
+                      True, infinite=True)
+    tgt = _par_loader(EXTRA_STEPS * TRAIN_BATCH, DA_TGT_SIZE, SEED + 89,
+                      False, infinite=True)
+    step = make_self_training_step(
+        float(config.training["domain_adaptation"]["lambda"]), EXTRA_STEPS,
+        19, threshold=thr, ema_decay=0.999, lambda_ent=0.005, fda_beta=0.01,
+        classmix=True, classmix_seed=SEED)
+    clock = _StepClock()
+    source_iter = device_batches(src, src_tf, dev, seed=SEED)
+    target_iter = device_batches(tgt, tgt_tf, dev)
+    with contextlib.closing(source_iter), contextlib.closing(target_iter):
+        out["self_training"] = _extras_fit(lambda: adversarial_fit(
+            gen, dis, step, source_iter, target_iter, val_batches,
+            iterations=EXTRA_STEPS, epochs=1, num_classes=CLASSES,
+            callbacks=[clock], device=dev, ema_decay=0.999,
+            ema_in_step=True), clock)
+    out["self_training"]["thresholds"] = thr.tolist()
+    bits.append(_param_bits(gen.model, dis.model))
+    del gen, dis, step
+
+    # distillation: the bf16 teacher, its int8 form, then QAT
+    config = load_config(overrides={
+        "precision": {"compute_dtype": "bfloat16"},
+        "training": {"segmentation": {"epochs": 1, "do_validation": 1}}})
+    teacher, _ = make_segmentor(config, "deeplab", seed=SEED + 22)
+    teacher.to(dev).eval()
+    loader = _par_loader(EXTRA_STEPS * TRAIN_BATCH, TRAIN_SIZE, SEED + 90,
+                         True)
+
+    def batches(epoch):
+        return device_batches(loader, src_tf, dev, seed=SEED, epoch=epoch)
+
+    calib = []
+    for images, _ in batches(0):
+        calib.append(images.permute(0, 3, 1, 2))
+    loader.set_epoch(0)
+    teachers = {"distillation": teacher,
+                "distillation_int8": quantize_teacher(
+                    "deeplab", teacher.state_dict(), calib, device=dev)}
+    for name, tch in teachers.items():
+        state = build_supervised(config, "bisenet", len(loader), dev,
+                                 seed=SEED)
+        replicate(state.model)
+        clock = _StepClock()
+        out[name] = _extras_fit(lambda: supervised_fit(
+            state, make_distill_step(tch, 19), batches, val_batches,
+            epochs=1, num_classes=CLASSES, callbacks=[clock], device=dev),
+            clock)
+        bits.append(_param_bits(state.model))
+        del state
+    del teachers, teacher
+    student, _ = make_segmentor(config, "bisenet", seed=SEED)
+    prep = prepare_qat("bisenet", student.state_dict(), calib, device=dev)
+    state = create_qat_state(prep, 1e-5, "SGD")
+    clock = _StepClock()
+    out["qat"] = _extras_fit(lambda: supervised_fit(
+        state, make_train_step(19), batches, val_batches, epochs=1,
+        num_classes=CLASSES, callbacks=[clock], device=dev), clock)
+    bits.append(_param_bits(state.model))
+    flat = torch.cat(bits)
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=data_group())
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=data_group())
+    out["params_bit_identical"] = bool(torch.equal(hi, lo))
+    return out
+
+
+EXTRA_PATHS = ("self_training", "distillation", "distillation_int8", "qat")
+
+
+def _scales_rel_diff(a: dict, b: dict) -> float:
+    if sorted(a) != sorted(b):
+        raise AssertionError("the activation scales name other convs")
+    return max(abs(a[k] - b[k]) / b[k] for k in b)
+
+
+def phase_parallel_extras() -> dict:
+    """(e) Self-training, distillation (bf16 and int8 teachers) and QAT on
+    two ranks sharing the card under gloo: the float64 steps held against
+    one process's on the global batch at the card-vs-CPU limits, the CBST
+    thresholds equal, the int8 teacher's scales (gloo's MAX on CUDA
+    tensors, the summed percentile histogram) against one process's; then
+    bf16 at full width through the trainers (:func:`_extras_rank`), the
+    ranks' metrics equal and parameters bit-identical.  Returns each
+    path's K1/K2 launches, summed over the ranks."""
+    from rtsds_tpu_torch.parallel.launch import run_ranks
+
+    student, _ = make_segmentor(load_config(), "bisenet", seed=SEED)
+    images, _, _ = _par_f64_inputs()
+    qat_scales = dict(prepare_qat(
+        "bisenet", student.state_dict(),
+        [images.float().permute(0, 3, 1, 2).cuda()],
+        device="cuda").act_scales)
+    del student
+    t0 = time.perf_counter()
+    ranks = run_ranks(_extras_rank, PAR_WORLD, (qat_scales,),
+                      timeout_s=EXTRA_TIMEOUT_S, threads=None)
+    ranks_s = time.perf_counter() - t0
+    one = _extras_f64(0, 1, qat_scales)
+    got = ranks[0]["f64"]
+    held = {name: _held_to(got[name], one[name])
+            for name in ("self_training", "distillation",
+                         "distillation_int8", "qat")}
+    for name in held:
+        for a, b in zip(got[name]["after"], ranks[1]["f64"][name]["after"]):
+            if any(not torch.equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"{name}: the ranks' states differ")
+    if got["cbst"] != one["cbst"] or ranks[1]["f64"]["cbst"] != one["cbst"]:
+        raise AssertionError("CBST thresholds of 2 ranks != one process's")
+    scales = {stat: _scales_rel_diff(got["int8_scales"][stat],
+                                     one["int8_scales"][stat])
+              for stat in ("max", "percentile")}
+    scales["qat"] = _scales_rel_diff(got["qat_scales"], one["qat_scales"])
+    if max(scales.values()) > 2.0 ** -6:
+        raise AssertionError(f"activation scales of 2 ranks: {scales}")
+    launches = {}
+    for path in EXTRA_PATHS:
+        runs = [r[path] for r in ranks]
+        losses = [v for r in runs for e in r["losses"] for k, v in e.items()
+                  if k.startswith("loss") or k == "train_loss"]
+        if len(runs[0]["losses"]) != EXTRA_STEPS or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"{path}: losses {runs[0]['losses']}")
+        if runs[0]["losses"] != runs[1]["losses"] or \
+                runs[0]["miou"] != runs[1]["miou"]:
+            raise AssertionError(f"{path}: the ranks report different "
+                                 f"metrics")
+        launches[path] = {k: sum(r["launches"][k] for r in runs)
+                          for k in runs[0]["launches"]}
+    if not all(r["params_bit_identical"] for r in ranks):
+        raise AssertionError("the ranks' parameters are not bit-identical")
+    emit({"phase": "parallel_extras", "ranks": PAR_WORLD,
+          "backend": "gloo on CUDA tensors, both ranks on cuda:0",
+          "float64_vs_one_process": held,
+          "cbst_thresholds_equal": True,
+          "scales_rel_diff_vs_one_process": scales,
+          "bf16": {"image_size": list(TRAIN_SIZE),
+                   "target_size": list(DA_TGT_SIZE),
+                   "global_batch": TRAIN_BATCH, "steps": EXTRA_STEPS,
+                   "teacher": "deeplabv2-resnet101",
+                   "qat": "bisenet-resnet18, float32 fake-quant"},
+          "losses": {p: ranks[0][p]["losses"] for p in EXTRA_PATHS},
+          "miou": {p: ranks[0][p]["miou"] for p in EXTRA_PATHS},
+          "params_bit_identical_across_ranks": True,
+          "ranks_s": ranks_s, "launches": launches})
+    return launches
+
+
+def phase_parallel_extras_nccl_cli() -> dict:
+    """(f) NCCL at world size 1 through the CLI with the data axis forced
+    on (:func:`forced_data_axis`): ``--multihost --domain_adaptation`` with
+    self-training (CBST over 2 target batches, ClassMix, FDA, MinEnt,
+    EMA), and ``--multihost --dataset gta5`` distilling from the int8 form
+    of a DeepLabV2-R101 teacher checkpoint (calibrated on 2 batches, the
+    percentile histogram and max over the forced axis); each at 720x1280
+    b8 bf16 (target 512x1024), colour-coded labels (K2), validated at
+    512x1024 (K1).  Returns each path's launches."""
+    from rtsds_tpu_torch import cli
+    from rtsds_tpu_torch.callbacks.checkpoint import CheckpointManager
+
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_nccl_x_")
+    teacher, _ = make_segmentor(train_config(), "deeplab", seed=SEED + 22)
+    teacher_dir = os.path.join(tmp.name, "teacher")
+    CheckpointManager(teacher_dir).save(0, {"model": TrainState(
+        teacher, make_optimizer("SGD", teacher.parameters(), 0.01))},
+        monitor=0.5)
+    del teacher
+    base = f"""
+precision: {{compute_dtype: bfloat16}}
+data:
+  cityscapes: {{image_size: "{TRAIN_VAL_SIZE[0]}, {TRAIN_VAL_SIZE[1]}",
+               batch_size: {TRAIN_BATCH}, num_workers: 4}}
+  gta5_modified: {{image_size: "{TRAIN_SIZE[0]}, {TRAIN_SIZE[1]}",
+                  batch_size: {TRAIN_BATCH}, num_workers: 4,
+                  decode_label_colors: true}}
+callbacks:
+  model_checkpoint: {{save_dir: "{tmp.name}", save_name: "m",
+                     save_best: true}}
+"""
+    runs = {
+        "self_training": ("""
+training:
+  domain_adaptation:
+    epochs: 1
+    iterations: 2
+    do_validation: 1
+    ema: {enabled: true}
+    entropy_min: {enabled: true}
+    fda: {enabled: true, beta: 0.01}
+    self_training: {enabled: true, classmix: {enabled: true},
+                    calibration: {enabled: true, batches: 2}}
+""", ["--domain_adaptation"]),
+        "distillation_int8": (f"""
+training:
+  segmentation:
+    epochs: 1
+    do_validation: 1
+    distillation: {{enabled: true, teacher: {{model: deeplab,
+                   checkpoint_dir: "{teacher_dir}", quantize: int8,
+                   calib_batches: 2}}}}
+""", ["--dataset", "gta5"])}
+    out, launches = {}, {}
+    os.environ["RTSDS_NUM_PROCESSES"] = "1"
+    try:
+        for name, (section, argv) in runs.items():
+            config = os.path.join(tmp.name, f"{name}.yaml")
+            with open(config, "w") as f:
+                f.write(base + section)
+            with forced_data_axis() as collectives:
+                t0 = time.perf_counter()
+                history, launches[name], _ = on_main_path(lambda: cli.main(
+                    ["--config", config, "--synthetic", "--multihost",
+                     *argv]))
+                seconds = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            if len(history) != 1 or not all(
+                    math.isfinite(v) for k, v in history[0].items()
+                    if isinstance(v, float)):
+                raise AssertionError(f"the --multihost {name} run: "
+                                     f"{history}")
+            if not all(collectives.values()):
+                raise AssertionError(f"the --multihost {name} run's "
+                                     f"collectives under NCCL: "
+                                     f"{collectives}")
+            out[name] = {"history": history, "cli_s": seconds,
+                         "cli_collectives": dict(collectives),
+                         "launches": launches[name]}
+    finally:
+        os.environ.pop("RTSDS_NUM_PROCESSES", None)
+        tmp.cleanup()
+    emit({"phase": "parallel_extras_nccl_world1", "cli": "--multihost",
+          "backend": "nccl", "world_size": 1, "data_axis": "forced on",
+          **out})
+    return launches
+
+
+def _spatial_pair(model: str, tree: dict, size, dtype, **kw) -> tuple:
+    """A 2-band spatial Predictor on cuda:0 and its one-device twin (int8:
+    the twin's calibrated scales served by both)."""
+    from rtsds_tpu_torch.parallel.mesh import Mesh
+
+    common = dict(model_name=model, variables=tree, image_size=size,
+                  batch_size=1, dtype=dtype)
+    one = Predictor(**common, **kw)
+    if kw.get("quantize"):
+        kw = {"quantize": kw["quantize"], "act_scales": one.act_scales}
+    return (Predictor(mesh=Mesh(["cuda:0"] * 2), sharding="spatial",
+                      **common, **kw), one)
+
+
+def spatial_int8_walk_check(banded: Predictor, one: Predictor,
+                            frame: np.ndarray) -> dict:
+    """The served quantized tree's int8 walk with its dequantization and
+    bf16-policy convs in float64 (``make_quant_op(out_dtype=float64)``) on
+    one full-width frame, on 2 bands against one device.  In float32 the
+    walk is chaotic on random weights: cuDNN picks another algorithm for a
+    band's shape, and a conv's output 1e-5 apart flips int8 codes layer
+    after layer (the first card run read 0.112 of the peak apart).  In
+    float64 the quantizers' float32 inputs come out the same, so the
+    walks must agree within INT8_WALK_ATOL_SHARE of their peak and on
+    INT8_WALK_MIN_ARGMAX of the pixels (the card-vs-CPU walk's limits)."""
+    from rtsds_tpu_torch.parallel import spatial
+
+    eng = banded._spatial
+    f64 = torch.float64
+    ops = [quant.make_quant_op(r.qtree, f64) for r in eng.replicas]
+
+    def op(name, h, stride, padding, dilation):
+        if not isinstance(h, spatial.Bands):
+            return ops[0](name, h, stride, padding, dilation)
+        return spatial.banded_conv(
+            h, eng._kernel_h[name], stride, padding, dilation,
+            lambda rows, i, pad: ops[i](name, rows, stride, pad, dilation))
+
+    with torch.inference_mode():
+        x = torch.from_numpy(frame)
+        got = spatial.gather(eng.replicas[0]._walk(
+            op, banded._bands(x).to(f64)))
+        want = one.model._walk(
+            quant.make_quant_op(one.model.qtree, f64),
+            normalize(x.cuda()).permute(0, 3, 1, 2).to(f64))
+    peak = float(want.abs().max())
+    result = {"dtype": "float64",
+              "max_abs_err_over_peak": float((got - want).abs().max())
+              / peak,
+              "argmax_agreement": float((got.argmax(1) == want.argmax(1))
+                                        .float().mean())}
+    if (result["max_abs_err_over_peak"] > INT8_WALK_ATOL_SHARE
+            or result["argmax_agreement"] < INT8_WALK_MIN_ARGMAX):
+        raise AssertionError(f"float64 int8 walk on bands: {result}")
+    return result
+
+
+def _agreement_k1(a: np.ndarray, b: np.ndarray) -> float:
+    """The share of equal pixels of two masks, from K1's confusion matrix
+    of the pair on the card."""
+    hist = fast_hist_cuda(torch.from_numpy(a).cuda(),
+                          torch.from_numpy(b).cuda(), CLASSES)
+    return float(hist.diagonal().sum()) / float(hist.sum())
+
+
+def phase_spatial_serving(tree: dict, frames: np.ndarray, dl_tree: dict,
+                          dl_frames: np.ndarray) -> dict:
+    """(g) Spatial serving on a 2-band mesh on cuda:0 (ROADMAP 17.2), each
+    model from its seeded tree at b1: BiSeNet-R18 at 1024x2048 and
+    DeepLabV2-R101 at 512x1024.  Float64 at SPATIAL_F64_SIZE: the logits
+    within 1e-10 of their peak of one device's; float32 at full size (TF32
+    off) on ATen's convs: within 1e-4 of the peak, masks >= 0.999 equal;
+    float32 on cuDNN: the same masks rule, the logits' gap measured; bf16
+    and int8 (the one-device int8 predictor, the same scales): the masks'
+    agreement, read from K1's confusion matrices, beside a yardstick (one
+    device at b1 against b2): bf16 within SPATIAL_YARDSTICK_MARGIN of it,
+    int8 above MIN_INT8_AGREEMENT and its float64 walk on bands held to
+    one device's (:func:`spatial_int8_walk_check`); ``predict``
+    at b1 timed beside one device's (one card: not a scaling figure).
+    Returns K1's launches on the path (the agreements)."""
+    out = {}
+    fast_hist_cuda.launches = 0
+    for model, t, fr, size in (("bisenet", tree, frames, SIZE),
+                               ("deeplab", dl_tree, dl_frames,
+                                DEEPLAB_SIZE)):
+        res = {}
+        small = np.ascontiguousarray(
+            fr[:1, :SPATIAL_F64_SIZE[0], :SPATIAL_F64_SIZE[1]])
+        # float32 twice: on ATen's own convs, whose sums do not depend on
+        # the band's shape (the engine's check), and on cuDNN, which picks
+        # another algorithm for a band's shape (as served; TF32 off)
+        for name, dtype, x, cudnn, limit in (
+                ("float64", torch.float64, small, True, 1e-10),
+                ("float32_aten_convs", torch.float32, fr[:1], False, 1e-4),
+                ("float32", torch.float32, fr[:1], True, None)):
+            with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                banded, one = _spatial_pair(model, t, x.shape[1:3], dtype)
+                got = banded.spatial_logits(x)
+                with torch.inference_mode():
+                    want = one.model(normalize(torch.from_numpy(x).cuda())
+                                     .permute(0, 3, 1, 2).to(dtype))
+            err = float((got - want).abs().max() / want.abs().max())
+            masks = (got.argmax(1) == want.argmax(1)).float().mean()
+            res[name] = {"size": list(x.shape[1:3]),
+                         "max_err_over_peak": err,
+                         "argmax_equal": float(masks)}
+            if (limit is not None and err > limit) or (
+                    dtype == torch.float32
+                    and masks < MIN_SPATIAL_AGREEMENT):
+                raise AssertionError(f"spatial {model} {name}: {res}")
+            del banded, one, got, want
+            torch.cuda.empty_cache()
+        for name, kw in (("bfloat16", {}),
+                         ("int8", {"quantize": "int8",
+                                   "calib_frames": fr[:INT8_CALIB_BATCHES]})):
+            banded, one = _spatial_pair(model, t, size, torch.bfloat16, **kw)
+            want = one.predict(fr[:1])
+            agree = _agreement_k1(banded.predict(fr[:1]), want)
+            if kw:
+                kw = {"quantize": "int8", "act_scales": one.act_scales}
+            b2 = Predictor(model_name=model, variables=t, image_size=size,
+                           batch_size=2, dtype=torch.bfloat16, **kw)
+            res[name] = {"mask_agreement": agree,
+                         "yardstick_one_device_b1_vs_b2": _agreement_k1(
+                             b2.predict(fr[:1]), want)}
+            del b2
+            if name == "int8":
+                res[name]["float64_walk"] = spatial_int8_walk_check(
+                    banded, one, fr[:1])
+                floor = MIN_INT8_AGREEMENT[model]
+            else:
+                floor = res[name]["yardstick_one_device_b1_vs_b2"] \
+                    - SPATIAL_YARDSTICK_MARGIN
+            if agree < floor:
+                raise AssertionError(f"spatial {model} {name}: {res}")
+            if name == "bfloat16":
+                res["predict_b1_ms_one_card_not_a_scaling_figure"] = {
+                    "two_bands": cuda_ms(lambda: banded.predict(fr[:1]),
+                                         reps=SPATIAL_REPS),
+                    "one_device": cuda_ms(lambda: one.predict(fr[:1]),
+                                          reps=SPATIAL_REPS)}
+            del banded, one
+            torch.cuda.empty_cache()
+        out[model] = res
+    launches = fast_hist_cuda.launches
+    emit({"phase": "spatial_serving", "bands": 2,
+          "devices": "cuda:0 twice", "batch": 1,
+          "bisenet_size": list(SIZE), "deeplab_size": list(DEEPLAB_SIZE),
+          "k1_agreement_launches": launches, **out})
+    return {"fast_hist_cuda": launches}
+
+
+def parallel_phases(tree: dict, frames: np.ndarray, dl_tree: dict,
+                    dl_frames: np.ndarray) -> dict:
+    """The parallel phase (a)-(g); returns the K1 and K2 launches of its
+    main paths (the spatial path launches K1 alone)."""
     t0 = time.perf_counter()
     shared = phase_parallel_shared_card()
     torch.cuda.empty_cache()
@@ -4290,13 +4865,24 @@ def parallel_phases(tree: dict, frames: np.ndarray) -> dict:
     torch.cuda.empty_cache()
     pipe = phase_parallel_pipe()
     torch.cuda.empty_cache()
+    extras = phase_parallel_extras()
+    torch.cuda.empty_cache()
+    extras_cli = phase_parallel_extras_nccl_cli()
+    torch.cuda.empty_cache()
+    spatial = phase_spatial_serving(tree, frames, dl_tree, dl_frames)
+    torch.cuda.empty_cache()
     paths = {"dp2_bisenet_training": shared["supervised"],
              "dp2_bisenet_da": shared["da"],
              "nccl_world1_cli_training": nccl,
-             "pipe2_deeplab_training": pipe}
+             "pipe2_deeplab_training": pipe,
+             **{f"dp2_bisenet_{k}": n for k, n in extras.items()},
+             **{f"nccl_world1_cli_{k}": n for k, n in extras_cli.items()}}
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
-    return {kernel: {path: n[kernel] for path, n in paths.items()}
-            for kernel in ("fast_hist_cuda", "rgb_to_train_ids_cuda")}
+    launches = {kernel: {path: n[kernel] for path, n in paths.items()}
+                for kernel in ("fast_hist_cuda", "rgb_to_train_ids_cuda")}
+    launches["fast_hist_cuda"]["bisenet_deeplab_spatial_serving"] = \
+        spatial["fast_hist_cuda"]
+    return launches
 
 
 def timed_entry(kernel, plain, library, nbytes: int) -> dict:
@@ -4508,15 +5094,19 @@ def main() -> int:
     if sys.argv[1:] == ["--kernels-only"]:
         return kernels_only()
     if sys.argv[1:] in (["--int8-only"], ["--tooling-only"],
-                        ["--parallel-only"]):
+                        ["--parallel-only"], ["--spatial-only"]):
         phase_device()
         frames, labels, tree, dl_frames, dl_tree = serving_data()
         if sys.argv[1] == "--int8-only":
             int8_phases(frames, labels, tree, dl_frames, dl_tree)
         elif sys.argv[1] == "--tooling-only":
             tooling_phases(frames, tree, dl_frames, dl_tree)
+        elif sys.argv[1] == "--spatial-only":
+            if phase_spatial_serving(tree, frames, dl_tree, dl_frames)[
+                    "fast_hist_cuda"] < 1:
+                raise AssertionError("the spatial path never launched K1")
         else:
-            launches = parallel_phases(tree, frames)
+            launches = parallel_phases(tree, frames, dl_tree, dl_frames)
             for kernel, paths in launches.items():
                 missed = [p for p, n in paths.items() if n < 1]
                 if missed:
@@ -4526,7 +5116,8 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only | "
-                         f"--int8-only | --tooling-only | --parallel-only]")
+                         f"--int8-only | --tooling-only | --parallel-only | "
+                         f"--spatial-only]")
     device = phase_device()
     hist_err = phase_hist_check()
     remap_err = phase_remap_check()
@@ -4593,11 +5184,14 @@ def main() -> int:
     # the GTA5 converter (K2); the serving artifacts run no hand-written
     # kernel (counts reset inside each, just before)
     tools = tooling_phases(frames, tree, dl_frames, dl_tree)
-    # main paths 20-23: two ranks sharing the card (gloo), training and DA;
-    # the CLI's --multihost under NCCL at world size 1; the pipelined
-    # DeepLab step (counts reset inside each, just before, on every rank);
-    # the batch-mesh serving runs no hand-written kernel
-    par = parallel_phases(tree, frames)
+    # main paths 20-31: two ranks sharing the card (gloo), training, DA,
+    # self-training, distillation (bf16 and int8 teachers) and QAT; the
+    # CLI's --multihost under NCCL at world size 1 (training,
+    # self-training, int8-teacher distillation); the pipelined DeepLab
+    # step; spatial serving, whose mask agreements K1 reads (counts reset
+    # inside each, just before, on every rank); the batch-mesh serving
+    # runs no hand-written kernel
+    par = parallel_phases(tree, frames, dl_tree, dl_frames)
 
     hist_paths = {"bisenet_serving_validation": serve_launches,
                   "bisenet_training": train_launches["fast_hist_cuda"],

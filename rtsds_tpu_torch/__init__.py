@@ -33,18 +33,20 @@ Entry points run on the GPU unless the caller asks for the CPU: see
   distillation teacher; the offline pseudo-label sweep (``python -m
   rtsds_tpu_torch.pseudo_label``);
 * parallelism (:mod:`rtsds_tpu_torch.parallel`): data-parallel training,
-  DA and validation over processes (``--multihost``, one process per GPU:
-  global-batch BatchNorm, global loss denominators, summed gradients,
-  rank-0 writes), batch-sharded serving over a mesh of devices
-  (``Predictor(mesh=)``, ``--mesh batch``), and the GPipe-pipelined
-  DeepLabV2 step (``mesh: {pipe: N}``);
+  DA (self-training and distillation included), QAT and validation over
+  processes (``--multihost``, one process per GPU: global-batch
+  BatchNorm, global loss denominators and calibration statistics, summed
+  gradients, rank-0 writes), batch-sharded and height-banded (spatial)
+  serving over a mesh of devices (``Predictor(mesh=, sharding=)``,
+  ``--mesh batch|spatial``), and the GPipe-pipelined DeepLabV2 step
+  (``mesh: {pipe: N}``);
 * tools: ``ckpt_info`` (what a checkpoint directory holds),
   ``export_torch`` (a checkpoint's weights in the reference models'
   layouts), tracing (:mod:`rtsds_tpu_torch.utils.profiling`), and the
   benches (:mod:`rtsds_tpu_torch.bench`; ``python -m
   rtsds_tpu_torch.bench`` prints the one-line record).
 
-Not ported yet: the ``spatial`` and ``model`` mesh axes, meshes that
-compose axes, and self-training, distillation and QAT with more than one
-process (``ROADMAP.md``, item 17).
+Not ported yet: the ``spatial`` and ``model`` mesh axes in training,
+meshes that compose axes, hybrid meshes, and the sliding protocol under
+spatial serving (``ROADMAP.md``, item 17).
 """

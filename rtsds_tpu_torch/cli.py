@@ -47,10 +47,12 @@ BatchNorm, the losses and the gradients are the global batch's
 (``parallel/distributed.py``), every rank reports the same metrics and
 mIoU, and rank 0 alone writes checkpoints, logs and prints.  ``mesh:
 {pipe: N}`` pipelines DeepLab's layer3 over N of this process's GPUs
-(``train/pipelined.py``).  What stays refused, with a message saying so:
-the ``spatial`` and ``model`` mesh axes (ROADMAP item 17); self-training
-and distillation with more than one rank, which no test holds to the JAX
-package there; and the JAX CLI's own refusals of the pipe.
+(``train/pipelined.py``).  Self-training (CBST calibration on each
+rank's shards of the same global batches), distillation (the int8
+teacher calibrated over the ranks) and every DA extra run on several
+ranks too.  What stays refused, with a message saying so: the ``spatial``
+and ``model`` mesh axes (ROADMAP item 17) and the JAX CLI's own refusals
+of the pipe.
 """
 
 from __future__ import annotations
@@ -159,8 +161,6 @@ def _check_domain_adaptation(config) -> None:
 def _check_mesh(args, config) -> None:
     """The mesh axes the port runs: ``data`` (over ``--multihost``'s
     processes) and ``pipe`` (alone, one process)."""
-    from rtsds_tpu_torch.parallel.mesh import planned_process_count
-
     mesh = dict(config.get("mesh") or {})
     for axis in ("spatial", "model"):
         if int(mesh.get(axis, 1) or 1) > 1:
@@ -171,14 +171,6 @@ def _check_mesh(args, config) -> None:
             "mesh: {pipe: N} is single-process only: the schedule "
             "replicates inputs, which is incompatible with per-process "
             "sharded loading (--multihost)")
-    if args.multihost and planned_process_count() > 1:
-        tcfg = config.training
-        if args.domain_adaptation and _enabled(
-                tcfg["domain_adaptation"].get("self_training")):
-            raise _not_ported("self_training with more than one process")
-        if not args.domain_adaptation and _enabled(
-                tcfg["segmentation"].get("distillation")):
-            raise _not_ported("distillation with more than one process")
 
 
 def check_ported(args, config) -> None:
@@ -482,22 +474,41 @@ def _self_training_threshold(st_cfg, num_classes: int):
     return float(thr)
 
 
+def _calibration_pass(stream):
+    """A finite pass of its own over ``stream``'s data, in the order its
+    first epoch draws (the same seed), so that the training stream's
+    position is untouched.  Under ``--multihost`` it is the rank's
+    :class:`~rtsds_tpu_torch.data.multihost.MultiHostDataLoader` again: the
+    rank reads its shard of each global batch, never the whole batch, so
+    that a statistic summed over the ranks counts every frame once."""
+    from rtsds_tpu_torch.data.multihost import MultiHostDataLoader
+    from rtsds_tpu_torch.data.pipeline import DataLoader
+
+    if isinstance(stream, MultiHostDataLoader):
+        return MultiHostDataLoader(
+            stream.dataset, stream.global_batch_size, shuffle=stream.shuffle,
+            num_workers=stream.num_workers, seed=stream.seed,
+            process_index=stream.process_index,
+            process_count=stream.process_count)
+    return DataLoader(stream.dataset, stream.batch_size,
+                      shuffle=stream.shuffle,
+                      num_workers=stream.num_workers, seed=stream.seed)
+
+
 def _calibrated_threshold(cal_cfg, gen_state, teacher_ema, data, device,
                           num_classes: int):
     """CBST thresholds of the teacher (the resumed EMA, else the generator
     as it starts) over the first ``calibration.batches`` target batches, of
-    a pass of its own over the target set, so that the training stream's
-    position is untouched."""
-    from rtsds_tpu_torch.data.pipeline import DataLoader, device_batches
+    a pass of its own over the target set (:func:`_calibration_pass`); with
+    several ranks each reads its shards and the histogram is summed over
+    them."""
+    from rtsds_tpu_torch.data.pipeline import device_batches
     from rtsds_tpu_torch.train.ema import ema_weights
     from rtsds_tpu_torch.train.self_training import (
         calibrate_class_thresholds)
 
     portion = float(cal_cfg.get("portion", 0.5))
-    stream = data["cs_train"]
-    loader = DataLoader(stream.dataset, stream.batch_size,
-                        shuffle=stream.shuffle,
-                        num_workers=stream.num_workers, seed=stream.seed)
+    loader = _calibration_pass(data["cs_train"])
     batches = device_batches(loader, data["cs_transform"], device)
     model = gen_state.model
     with contextlib.closing(batches), (

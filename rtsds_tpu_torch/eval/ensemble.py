@@ -6,7 +6,10 @@ Each scale's size is snapped to a multiple of 32, and a size met twice
 runs once.  The copy at a scale and its flip run as one forward of 2N
 frames.  The resizes antialias as ``jax.image.resize`` does by default: the
 frames into a smaller scale and the logits of a larger scale back down to
-the frame's size.
+the frame's size.  The probabilities are taken in at least float32 (the
+JAX package's float32; a float64 run stays float64, for exact
+comparisons).  ``images`` may be height bands (``parallel/spatial.py``):
+the protocol then runs on the bands, every op of it banded.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from torch import nn
 
 from rtsds_tpu_torch.eval.validate import make_eval_step
 from rtsds_tpu_torch.ops.resize import resize_bilinear
+from rtsds_tpu_torch.utils.dtypes import at_least_f32
 
 
 def _snap(v: float, multiple: int = 32) -> int:
@@ -61,7 +65,7 @@ def make_ensemble_predict(forward: Callable, image_size: tuple[int, int],
             else:
                 logits_list = [forward(x)]
             for logits in logits_list:
-                logits = logits.float()
+                logits = at_least_f32(logits)
                 if tuple(logits.shape[-2:]) != (h, w):
                     logits = resize_bilinear(logits, (h, w), antialias=True)
                 p = torch.softmax(logits, dim=1)

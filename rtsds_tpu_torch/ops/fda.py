@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from rtsds_tpu_torch.ops.resize import resize_bilinear
+from rtsds_tpu_torch.parallel.distributed import cyclic_partners, world_size
 from rtsds_tpu_torch.utils.dtypes import at_least_f32
 
 
@@ -44,7 +45,10 @@ def fda_source_to_target(src_images: torch.Tensor, tgt_images: torch.Tensor,
 
     The target is resized bilinearly to the source's size where it differs
     (antialiased when it shrinks, as ``jax.image.resize`` does) and tiled
-    cyclically over the source batch when ``Nt != Ns``.  ``beta <= 0``
+    cyclically over the source batch when ``Nt != Ns``: source frame ``i``
+    takes target frame ``i % Nt``.  Under the data axis the frames are this
+    rank's shards and ``i`` counts in the global batches, as in the JAX
+    package (``parallel/distributed.py:cyclic_partners``).  ``beta <= 0``
     returns ``src_images`` itself.  The result has the source's dtype.
     """
     if float(beta) <= 0.0:
@@ -55,8 +59,8 @@ def fda_source_to_target(src_images: torch.Tensor, tgt_images: torch.Tensor,
     if tuple(tgt.shape[1:3]) != (h, w):
         tgt = resize_bilinear(tgt.permute(0, 3, 1, 2), (h, w),
                               antialias=True).permute(0, 2, 3, 1)
-    if tgt.shape[0] != ns:
-        tgt = tgt[torch.arange(ns, device=tgt.device) % tgt.shape[0]]
+    if tgt.shape[0] != ns or world_size() > 1:
+        tgt = cyclic_partners(tgt, ns * world_size())
     # real FFTs: the frames are real and the spliced spectrum Hermitian, so
     # the half spectrum gives the same result as the full one
     fft_src = torch.fft.rfft2(src, dim=(1, 2))

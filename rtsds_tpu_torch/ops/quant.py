@@ -46,9 +46,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.fx.experimental.symbolic_shapes import statically_known_true
+from torch.nn.modules.utils import _pair
 
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.models.layers import BN_EPS
+from rtsds_tpu_torch.parallel.distributed import (
+    global_count, global_max, global_sum)
+from rtsds_tpu_torch.utils.dtypes import at_least_f32
 
 HIST_BINS = 4096
 # the card's int8 GEMM takes more than 16 rows, and K and N multiples of 8
@@ -167,17 +171,19 @@ def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def im2col_int8(x_q: torch.Tensor, kh: int, kw: int, stride: int = 1,
-                padding: int = 0, dilation: int = 1) -> torch.Tensor:
+                padding=0, dilation: int = 1) -> torch.Tensor:
     """(N, C, H, W) int8 -> (N*H'*W', kh*kw*C) int8 columns in (kh, kw, c)
     order, the rows in (n, h', w') order: a strided view of the padded
     channels-last input, (n, h', w', i, j, c) -> x[n, h'*stride +
-    i*dilation, w'*stride + j*dilation, c], copied once."""
+    i*dilation, w'*stride + j*dilation, c], copied once.  ``padding`` is an
+    int or (rows, columns), as ``F.conv2d`` takes it."""
     n, c, h, w = x_q.shape
-    oh = _out_size(h, kh, stride, padding, dilation)
-    ow = _out_size(w, kw, stride, padding, dilation)
+    ph, pw = _pair(padding)
+    oh = _out_size(h, kh, stride, ph, dilation)
+    ow = _out_size(w, kw, stride, pw, dilation)
     x = x_q.permute(0, 2, 3, 1)
-    if padding:
-        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    if ph or pw:
+        x = F.pad(x, (0, 0, pw, pw, ph, ph))
     sn, sh, sw, sc = x.stride()
     taps = x.as_strided((n, oh, ow, kh, kw, c),
                         (sn, sh * stride, sw * stride, sh * dilation,
@@ -186,14 +192,15 @@ def im2col_int8(x_q: torch.Tensor, kh: int, kw: int, stride: int = 1,
 
 
 def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
-              padding: int = 0, dilation: int = 1) -> torch.Tensor:
+              padding=0, dilation: int = 1) -> torch.Tensor:
     """The int32 accumulators of an int8 conv: (N, Cin, H, W) int8 input,
     (Cout, Cin, kh, kw) int8 kernel -> (N, Cout, H', W') int32 (a
     channels-last view of the GEMM's output)."""
     n, _, h, w = x_q.shape
     cout, cin, kh, kw = w_q.shape
-    oh = _out_size(h, kh, stride, padding, dilation)
-    ow = _out_size(w, kw, stride, padding, dilation)
+    ph, pw = _pair(padding)
+    oh = _out_size(h, kh, stride, ph, dilation)
+    ow = _out_size(w, kw, stride, pw, dilation)
     cols = im2col_int8(x_q, kh, kw, stride, padding, dilation)
     wmat = w_q.permute(0, 2, 3, 1).reshape(cout, kh * kw * cin)
     acc = int8_matmul(cols, wmat)
@@ -253,8 +260,14 @@ def abs_bound(x: torch.Tensor, stat: str = "max", percentile: float = 99.9,
     (:func:`percentile_target`).  The JAX package pads the last chunk with
     ``+inf``, which lands in the last bin and cannot change k; here the
     last chunk is simply shorter.
+
+    Under the data axis (``parallel/distributed.py``) ``x`` is this rank's
+    shard of the global batch, and the bound is the global batch's, as the
+    JAX package takes it over its global arrays: the maximum over the
+    ranks, and the histogram over the global ``amax`` summed over the
+    ranks, its target over the global element count.
     """
-    amax = x.abs().max().to(torch.float32)
+    amax = global_max(x.abs().max().to(torch.float32))
     if stat == "max":
         return amax
     amax = amax.clamp_min(1e-12)
@@ -265,7 +278,9 @@ def abs_bound(x: torch.Tensor, stat: str = "max", percentile: float = 99.9,
         absx = flat[start:start + chunk].abs().to(torch.float32)
         idx = torch.clamp(absx * ratio, max=HIST_BINS - 1).to(torch.int32)
         hist += torch.bincount(idx, minlength=HIST_BINS)
-    target = torch.tensor([percentile_target(percentile, flat.numel())],
+    hist = global_sum(hist)
+    target = torch.tensor([percentile_target(percentile,
+                                             global_count(flat.numel()))],
                           dtype=torch.int64, device=x.device)
     k = torch.searchsorted(hist.cumsum(0), target)[0]
     return (k + 1).to(torch.float32) * (amax / HIST_BINS)
@@ -486,12 +501,13 @@ def fake_quant_kernel(kernel: torch.Tensor) -> torch.Tensor:
 
 
 def fake_quant_act(x: torch.Tensor, scale) -> torch.Tensor:
-    """Differentiable A8 view of an activation with a static scale, in
-    float32 (as the JAX package casts it): the serving grid's values
-    (round, saturate at +-127, dequantize); the clipped straight-through
-    gradient, identity inside the representable range and zero where the
-    value saturates."""
-    xf = x.to(torch.float32)
+    """Differentiable A8 view of an activation with a static scale, in at
+    least float32 (the JAX package casts to float32; a float64 activation
+    stays float64, for the tests' exact comparisons): the serving grid's
+    values (round, saturate at +-127, dequantize); the clipped
+    straight-through gradient, identity inside the representable range and
+    zero where the value saturates."""
+    xf = at_least_f32(x)
     s = _scalar(scale, xf)
     bound = s * 127.0
     dq = torch.clamp(torch.round(xf / s), -127, 127) * s
@@ -503,16 +519,17 @@ def make_fake_quant_op(folded: dict, act_scales: dict,
                        quant_names) -> Callable:
     """The QAT conv dispatcher, differentiable with respect to the
     ``folded`` tree: the ``quant_names`` convs see the W8A8 grid through
-    the STEs, the others run straight through; float32 compute."""
+    the STEs, the others run straight through; the compute in the tree's
+    dtype, at least float32."""
 
     def op(name, x, stride, padding, dilation):
         kernel, bias = folded[name]
-        kernel = kernel.to(torch.float32)
+        kernel = at_least_f32(kernel)
         if name in quant_names:
             x = fake_quant_act(x, act_scales[name])
             kernel = fake_quant_kernel(kernel)
         return conv_bf16(x, kernel, bias, stride, padding, dilation,
-                         out_dtype=torch.float32)
+                         out_dtype=kernel.dtype)
 
     return op
 

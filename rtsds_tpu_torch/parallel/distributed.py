@@ -15,8 +15,9 @@ computes at once.  Three rules make a rank's step the JAX step's share:
   once before every optimizer update (``train/optim.py``), which gives the
   gradient of the global loss.
 
-Only ``all_reduce``, ``broadcast`` and ``barrier`` are used: the three
-collectives gloo also runs on CUDA tensors, so the same code runs under
+Only ``all_reduce`` (a sum, or a max for calibration bounds),
+``broadcast`` and ``barrier`` are used: the three collectives gloo also
+runs on CUDA tensors, so the same code runs under
 NCCL on GPUs, under gloo on the CPU, and under gloo on CUDA tensors when
 two ranks share one card.  The models are not wrapped in
 ``DistributedDataParallel``: the port's steps run several backward passes
@@ -114,6 +115,58 @@ def global_count(n) -> torch.Tensor | int:
     if isinstance(n, torch.Tensor):
         return global_sum(n)
     return n * world_size()
+
+
+def global_max(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elementwise maximum over the data axis's ranks (a new
+    tensor; ``t`` itself when there is one rank)."""
+    if _GROUP is None:
+        return t
+    t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_GROUP)
+    return t
+
+
+def rank_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of ``t``, a tensor drawn for the whole global batch
+    (its dim 0): the rows at the rank's :func:`shard_positions` (``t``
+    itself at one rank)."""
+    if _GROUP is None:
+        return t
+    return t[shard_positions(t.shape[0], rank(), world_size())]
+
+
+def cyclic_partners(partner: torch.Tensor, n: int) -> torch.Tensor:
+    """The partners of this rank's rows of a global batch of ``n`` frames:
+    global row ``i`` pairs with row ``i % m`` of another global batch of
+    ``m`` frames, whose contiguous shard ``partner`` this rank holds (FDA's
+    target frame of each source frame, ClassMix's source frame of each
+    target frame, as the JAX package pairs them over its global arrays).
+
+    At one rank this is ``partner[arange(n) % m]``.  On several, a rank
+    takes its partners from its own shard when every rank finds all of its
+    partners in its own shard; otherwise the ranks' shards are assembled
+    into the global batch by one all-reduce (each shard at its rows, zeros
+    elsewhere), and each rank takes its partners from it."""
+    if _GROUP is None:
+        return partner[torch.arange(n, device=partner.device)
+                       % partner.shape[0]]
+    world, me = world_size(), rank()
+    local = partner.shape[0]
+    m = local * world
+    if n == m:  # equal global batches: the same rows on the same rank
+        return partner
+
+    def wanted(r):
+        return [i % m for i in shard_positions(n, r, world)]
+    if all(r * local <= j < (r + 1) * local
+           for r in range(world) for j in wanted(r)):
+        return partner[[j - me * local for j in wanted(me)]]
+    whole = torch.zeros((m, *partner.shape[1:]), dtype=partner.dtype,
+                        device=partner.device)
+    whole[me * local:(me + 1) * local] = partner
+    dist.all_reduce(whole, group=_GROUP)
+    return whole[wanted(me)]
 
 
 @torch.no_grad()

@@ -19,8 +19,11 @@ entry is that device.  The CPU counts as ``RTSDS_CPU_DEVICES`` devices
 package's tests, so that a pipe or serving mesh of several stages runs
 there.
 
-The ``spatial`` and ``model`` axes, and meshes that compose axes, are not
-ported yet (ROADMAP item 17): :func:`make_mesh_from_config` raises on them.
+Serving's spatial mesh is one process over a list of devices too, each
+holding a band of every frame's rows (:func:`shard_spatial`,
+``parallel/spatial.py``).  The ``spatial`` and ``model`` axes in training,
+and meshes that compose axes, are not ported yet (ROADMAP item 17):
+:func:`make_mesh_from_config` raises on them.
 """
 
 from __future__ import annotations
@@ -200,6 +203,34 @@ def batch_sharding(mesh: Mesh, axis_name: str = "data") -> Sharding:
 
 def replicated_sharding(mesh: Mesh) -> Sharding:
     return Sharding(mesh, ())
+
+
+def spatial_sharding(mesh: Mesh, axis_name: str = "data") -> Sharding:
+    """The height (dim 1) of NHWC frames split over the mesh: one band of
+    rows per device, the vision analogue of sequence parallelism."""
+    return Sharding(mesh, (None, axis_name))
+
+
+def row_starts(height: int, n: int) -> list[int]:
+    """The first row of each of ``n`` equal bands of ``height`` rows (the
+    height must divide)."""
+    if height % n:
+        raise ValueError(f"image height {height} must divide over the "
+                         f"{n}-device mesh for spatial serving")
+    return [i * (height // n) for i in range(n)]
+
+
+def shard_spatial(batch, mesh: Mesh) -> list:
+    """NHWC frames (a tensor, or a tuple/list of them) -> one band of rows
+    per device of ``mesh``, each on its device; the height must divide
+    evenly (:func:`row_starts`)."""
+    if isinstance(batch, (tuple, list)):
+        parts = [shard_spatial(b, mesh) for b in batch]
+        return [type(batch)(p[i] for p in parts) for i in range(mesh.size)]
+    from rtsds_tpu_torch.parallel.spatial import split_rows
+
+    return split_rows(batch, mesh.devices, dim=1,
+                      starts=row_starts(batch.shape[1], mesh.size))
 
 
 def input_sharding(mesh: Mesh) -> Sharding:

@@ -1,0 +1,543 @@
+"""Height-band (spatial) inference: one frame's rows split over the
+devices of a mesh, for frames too large for one device.
+
+Counterpart of what XLA's SPMD partitioner does to the JAX package's
+serving forward under ``rtsds_tpu/parallel/mesh.py:spatial_sharding``
+(``P(None, "data")``: NHWC frames split along H, the weights replicated),
+where it inserts the conv halo exchanges and the all-reduces of the global
+pools itself.  No PyTorch partitioner does that for these nets: DTensor's
+halo conv splits the width only, needs dilation 1 and, with padding, stride
+1, which rules out BiSeNet's stride-2 convs and DeepLab's dilated ASPP.  So
+the split is written here.
+
+:class:`Bands` is a tensor-like (not a ``torch.Tensor``): its ``parts``
+are one (N, C, h_i, W) tensor per device holding the global rows
+``[starts[i], starts[i + 1])`` of an (N, C, H, W) map (H is always the
+second-to-last dim, so an argmax's (N, H, W) masks are bands too), and its
+``shape`` is the global one.  A model's own ``forward`` runs on it
+unchanged: ``__torch_function__`` gives every torch function the model
+calls a banded form, and refuses the ones it has none for, so no op ever
+runs on a band alone when it reads across rows.
+
+* Ops that read across rows: ``conv2d`` and ``max_pool2d`` read
+  ``dilation * (k - 1)`` rows past their band, gathered from whichever
+  bands hold them (a halo may be wider than a neighbour band: DeepLab's
+  ASPP dilation of 24 at 1/8 of a small frame), zeros (or -inf for the
+  pool) only beyond the global edges, with no row padding inside; band
+  ``i`` of a stride-``s`` output holds the output rows ``[ceil(a_i / s),
+  ceil(a_{i+1} / s))`` of the input rows ``[a_i, a_{i+1})``, so that every
+  level stays a partition whatever H / 32 is (a band may hold no row).
+  ``interpolate`` (bilinear, half-pixel) takes each output row's taps from
+  the GLOBAL heights, as torch's kernels compute them (the plain kernel's
+  two clamped taps, or the antialiased kernel's widened triangle where it
+  shrinks), on the rows gathered for it, then resizes the width with
+  torch's own kernel.  ``mean`` over H sums each band in at least float32,
+  adds the sums on the first device and divides by the global count
+  (BiSeNet's ARM/FFM gates, the ResNet tail): a plain tensor.
+* Every other op is per band: elementwise ops (a plain operand must not
+  vary along H: the pooled gates), eval-mode ``batch_norm``, ``softmax``,
+  ``argmax`` and ``cat`` over the channel or batch dims, batch slicing and
+  width flips.
+
+The int8 walks (``models/{bisenet,deeplab}_int8.py``) take their convs
+through an ``op(name, x, stride, padding, dilation)`` argument:
+:class:`SpatialModel` passes a banded ``op`` that calls each device's
+replica's quantized conv on the band's rows with the padding ``(0, pw)``;
+the quantize and dequantize steps are elementwise, so per band.
+
+Bands move between devices by device copies (``Tensor.to``), in one
+process, and every op is a differentiable torch op: the spatial axis in
+training (ROADMAP item 17.4) keeps this engine, swaps :func:`_rows`'s
+copies for collectives, and adds batch norm over the bands.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.nn.modules.utils import _pair
+
+NOT_BANDED = "has no height-band form (ROADMAP item 17)"
+
+
+class _Layout:
+    """What the bands of one frame batch share: the devices, each weight's
+    copy on each device, and the row partition met at each height."""
+
+    def __init__(self, devices, copies: dict | None = None):
+        self.devices = [torch.device(d) for d in devices]
+        self.copies = copies or {}
+        self.partitions: dict = {}
+
+    def on(self, t, i: int):
+        """``t`` (a tensor, or None) on device ``i``: the replica's copy of
+        a weight, else a copy of ``t`` (a pooled gate: small)."""
+        if not isinstance(t, torch.Tensor):
+            return t
+        dev = self.devices[i]
+        if t.device == dev:
+            return t
+        copy = self.copies.get((t.data_ptr(), t.dtype, tuple(t.shape)))
+        return copy[i] if copy is not None else t.to(dev)
+
+
+class Bands:
+    """An (..., H, W) map split by rows over devices: ``parts[i]`` holds the
+    global rows ``[starts[i], starts[i + 1])`` (the last band up to
+    ``height``) on ``layout.devices[i]``."""
+
+    def __init__(self, parts, starts, height: int, layout: _Layout):
+        self.parts = list(parts)
+        self.starts = tuple(int(s) for s in starts)
+        self.height = int(height)
+        self.layout = layout
+        layout.partitions.setdefault(self.height, self.starts)
+
+    # --- what a tensor tells about itself ---------------------------------
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.parts[0].shape)
+        s[-2] = self.height
+        return torch.Size(s)
+
+    @property
+    def ndim(self) -> int:
+        return self.parts[0].dim()
+
+    def dim(self) -> int:
+        return self.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.layout.devices[0]
+
+    def bounds(self, i: int) -> tuple[int, int]:
+        return _bounds(self.starts, self.height, i)
+
+    def _like(self, parts) -> "Bands":
+        return Bands(parts, self.starts, self.height, self.layout)
+
+    def _per_band(self, fn) -> "Bands":
+        return self._like([fn(p) for p in self.parts])
+
+    def _hdim(self, dims) -> bool:
+        """Whether ``dims`` name the H dim."""
+        if dims is None:
+            return True
+        dims = dims if isinstance(dims, (tuple, list)) else (dims,)
+        return any(d % self.ndim == self.ndim - 2 for d in dims)
+
+    def _below_rows(self, dim, what: str) -> int:
+        """``dim`` normalized, when it lies before the H and W dims."""
+        d = dim % self.ndim
+        if d >= self.ndim - 2:
+            raise NotImplementedError(f"{what} over dim {dim} of a banded "
+                                      f"map {NOT_BANDED}")
+        return d
+
+    # --- tensor methods ---------------------------------------------------
+
+    def to(self, *args, **kwargs) -> "Bands":
+        if "device" in kwargs or any(isinstance(a, (torch.device, str))
+                                     for a in args):
+            raise NotImplementedError("a banded map stays on its devices; "
+                                      "gather it first")
+        return self._per_band(lambda p: p.to(*args, **kwargs))
+
+    def float(self) -> "Bands":
+        return self.to(torch.float32)
+
+    def contiguous(self) -> "Bands":
+        return self._per_band(torch.Tensor.contiguous)
+
+    def flip(self, *dims) -> "Bands":
+        dims = tuple(dims[0]) if len(dims) == 1 and isinstance(
+            dims[0], (tuple, list)) else dims
+        if self._hdim(dims):
+            raise NotImplementedError(f"flip over H {NOT_BANDED}")
+        return self._per_band(lambda p: p.flip(dims))
+
+    def __getitem__(self, key) -> "Bands":
+        if not isinstance(key, slice):
+            raise NotImplementedError(f"indexing with {key!r} {NOT_BANDED}"
+                                      f" (batch slices only)")
+        return self._per_band(lambda p: p[key])
+
+    def argmax(self, dim=None, keepdim: bool = False) -> "Bands":
+        if dim is None:
+            raise NotImplementedError(f"a flat argmax {NOT_BANDED}")
+        self._below_rows(dim, "argmax")
+        return self._per_band(lambda p: p.argmax(dim=dim, keepdim=keepdim))
+
+    def mean(self, dim=None, keepdim: bool = False, dtype=None):
+        """Per band over dims without H; over H (and any others) the
+        bands' sums in at least float32, added on the first device and
+        divided by the global count: a plain tensor."""
+        if not self._hdim(dim):
+            return self._per_band(lambda p: p.mean(dim, keepdim=keepdim,
+                                                   dtype=dtype))
+        dims = tuple(range(self.ndim)) if dim is None else (
+            tuple(dim) if isinstance(dim, (tuple, list)) else (dim,))
+        acc = torch.promote_types(self.dtype, torch.float32)
+        total = None
+        for p in self.parts:
+            s = p.sum(dims, keepdim=keepdim, dtype=acc).to(self.device)
+            total = s if total is None else total + s
+        count = math.prod(self.shape[d] for d in dims)
+        return (total / count).to(dtype or self.dtype)
+
+    def __add__(self, other):
+        return _binary(torch.add, self, other)
+
+    def __radd__(self, other):
+        return _binary(torch.add, other, self)
+
+    def __mul__(self, other):
+        return _binary(torch.mul, self, other)
+
+    def __rmul__(self, other):
+        return _binary(torch.mul, other, self)
+
+    def __truediv__(self, other):
+        return _binary(torch.div, self, other)
+
+    # --- torch functions ----------------------------------------------------
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        handler = _HANDLERS.get(func)
+        if handler is None:
+            name = getattr(func, "__name__", repr(func))
+            raise NotImplementedError(f"{name} {NOT_BANDED}")
+        return handler(*args, **kwargs)
+
+
+# --- moving rows --------------------------------------------------------------
+
+def _bounds(starts, height: int, i: int) -> tuple[int, int]:
+    """Band ``i``'s global rows under the partition ``starts``."""
+    return starts[i], starts[i + 1] if i + 1 < len(starts) else height
+
+
+def _rows(x: Bands, lo: int, hi: int, i: int, fill: float = 0.0
+          ) -> torch.Tensor:
+    """The global rows ``[lo, hi)`` of ``x`` on device ``i``: ``fill`` where
+    they lie outside ``[0, H)``, the others from whichever bands hold them.
+    A range inside band ``i`` is a view of it."""
+    a, b = x.bounds(i)
+    if a <= lo and hi <= b:
+        return x.parts[i][..., lo - a:hi - a, :]
+    dev = x.layout.devices[i]
+    ref = x.parts[i]
+    pieces = []
+
+    def filled(n):
+        return torch.full((*ref.shape[:-2], n, ref.shape[-1]), fill,
+                          dtype=ref.dtype, device=dev)
+    if lo < 0:
+        pieces.append(filled(min(hi, 0) - lo))
+    for j in range(len(x.parts)):
+        a, b = x.bounds(j)
+        s, e = max(lo, a), min(hi, b)
+        if s < e:
+            pieces.append(x.parts[j][..., s - a:e - a, :].to(dev))
+    if hi > x.height:
+        pieces.append(filled(hi - max(lo, x.height)))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-2)
+
+
+def _repartition(x: Bands, starts) -> Bands:
+    """``x`` with the row partition ``starts``."""
+    if tuple(starts) == x.starts:
+        return x
+    return Bands([_rows(x, *_bounds(starts, x.height, i), i)
+                  for i in range(len(starts))], starts, x.height, x.layout)
+
+
+def gather(x: Bands, device=None) -> torch.Tensor:
+    """The whole map on ``device`` (default: the first band's)."""
+    device = x.device if device is None else torch.device(device)
+    return torch.cat([p.to(device) for p in x.parts], dim=-2)
+
+
+def split_rows(t: torch.Tensor, devices, dim: int = -2,
+               starts=None) -> list[torch.Tensor]:
+    """``t``'s rows along ``dim`` cut at ``starts`` (default: equal bands)
+    and each cut on its device."""
+    devices = list(devices)
+    height = t.shape[dim]
+    if starts is None:
+        starts = [i * height // len(devices) for i in range(len(devices))]
+    ends = [*starts[1:], height]
+    return [t.narrow(dim, s, e - s).to(dev, non_blocking=True)
+            for s, e, dev in zip(starts, ends, devices)]
+
+
+def bands_of(parts, layout: _Layout) -> Bands:
+    """Bands from per-device NCHW row cuts, in order."""
+    starts, height = [], 0
+    for p in parts:
+        starts.append(height)
+        height += p.shape[-2]
+    return Bands(parts, starts, height, layout)
+
+
+# --- banded ops -----------------------------------------------------------
+
+def _out_starts(x: Bands, stride: int, out_height: int) -> list[int]:
+    return [min(-(-a // stride), out_height) for a in x.starts]
+
+
+def _window(x: Bands, k: int, stride: int, padding: int, dilation: int,
+            out_height: int, fill: float, fn) -> Bands:
+    """A sliding-window op over H: output band ``i``'s rows from the input
+    rows they read, the row padding made of ``fill`` at the global edges
+    only; ``fn(rows, i)`` runs the op with no row padding on device ``i``.
+    A band with no output row runs one and keeps none of it, so that its
+    empty part has the right channels, width and dtype."""
+    starts = _out_starts(x, stride, out_height)
+    ends = [*starts[1:], out_height]
+    parts = []
+    for i, (oa, ob) in enumerate(zip(starts, ends)):
+        n = ob - oa
+        end = ob if n else oa + 1
+        lo = oa * stride - padding
+        hi = (end - 1) * stride - padding + dilation * (k - 1) + 1
+        out = fn(_rows(x, lo, hi, i, fill), i)
+        parts.append(out if n else out[..., :0, :])
+    return Bands(parts, starts, out_height, x.layout)
+
+
+def _conv_out(h: int, k: int, s: int, p: int, d: int) -> int:
+    return (h + 2 * p - d * (k - 1) - 1) // s + 1
+
+
+def _pool_out(h: int, k: int, s: int, p: int, d: int, ceil: bool) -> int:
+    """``max_pool2d``'s output size, by torch's rule."""
+    out = (h + 2 * p - d * (k - 1) - 1 + (s - 1 if ceil else 0)) // s + 1
+    if ceil and (out - 1) * s >= h + p:
+        out -= 1
+    return out
+
+
+def banded_conv(x: Bands, k: int, stride, padding, dilation, fn) -> Bands:
+    """A conv of kernel height ``k`` over bands: ``fn(rows, i,
+    padding=(0, pw))`` convolves one band's rows on device ``i``."""
+    (sh, _), (ph, pw), (dh, _) = _pair(stride), _pair(padding), \
+        _pair(dilation)
+    out_h = _conv_out(x.height, k, sh, ph, dh)
+    return _window(x, k, sh, ph, dh, out_h, 0.0,
+                   lambda rows, i: fn(rows, i, (0, pw)))
+
+
+def _conv2d(input, weight, bias=None, stride=1, padding=0, dilation=1,
+            groups=1):
+    if isinstance(padding, str):
+        raise NotImplementedError(f"conv2d padding={padding!r} "
+                                  f"{NOT_BANDED}")
+    lay = input.layout
+    return banded_conv(
+        input, weight.shape[2], stride, padding, dilation,
+        lambda rows, i, pad: F.conv2d(rows, lay.on(weight, i),
+                                      lay.on(bias, i), stride, pad,
+                                      dilation, groups))
+
+
+def _max_pool2d(input, kernel_size, stride=None, padding=0, dilation=1,
+                ceil_mode=False, return_indices=False):
+    if return_indices:
+        raise NotImplementedError(f"max_pool2d's indices {NOT_BANDED}")
+    (kh, kw) = _pair(kernel_size)
+    (sh, sw) = _pair(stride if stride not in (None, ()) else kernel_size)
+    (ph, pw), (dh, dw) = _pair(padding), _pair(dilation)
+    out_h = _pool_out(input.height, kh, sh, ph, dh, ceil_mode)
+    return _window(
+        input, kh, sh, ph, dh, out_h, -math.inf,
+        lambda rows, i: F.max_pool2d(rows, (kh, kw), (sh, sw), (0, pw),
+                                     (dh, dw), ceil_mode))
+
+
+def _row_taps(in_h: int, out_rows: torch.Tensor, out_h: int,
+              antialias: bool, dtype: torch.dtype):
+    """(taps, rows) input-row indices and weights of the output rows
+    ``out_rows`` of a bilinear resize of the height ``in_h`` to ``out_h``,
+    half-pixel centres, in ``dtype``, as torch's kernels compute them: the
+    plain kernel's two taps clamped at the global edges, or, with
+    ``antialias``, the triangle widened by the shrink factor and
+    normalized."""
+    scale = torch.tensor(in_h, dtype=dtype) / out_h
+    o = out_rows.to(dtype)
+    if not antialias:
+        src = (scale * (o + 0.5) - 0.5).clamp(min=0)
+        h0 = src.long()
+        h1 = h0 + (h0 < in_h - 1).long()
+        l1 = src - h0.to(dtype)
+        return torch.stack([h0, h1]), torch.stack([1 - l1, l1])
+    support = scale if scale >= 1 else torch.ones((), dtype=dtype)
+    invscale = 1 / scale if scale >= 1 else torch.ones((), dtype=dtype)
+    center = scale * (o + 0.5)
+    xmin = (center - support + 0.5).long().clamp(min=0)
+    xmax = (center + support + 0.5).long().clamp(max=in_h)
+    n = int((xmax - xmin).max())
+    j = torch.arange(n)[:, None]
+    w = (1 - ((j + xmin - center + 0.5) * invscale).abs()).clamp(min=0)
+    w = torch.where(j < (xmax - xmin), w, torch.zeros((), dtype=dtype))
+    total = w.sum(0)
+    w = torch.where(total != 0, w / total, w)
+    idx = torch.minimum(j + xmin, torch.tensor(in_h - 1))
+    return idx, w
+
+
+def _interpolate(input, size=None, scale_factor=None, mode="nearest",
+                 align_corners=None, recompute_scale_factor=None,
+                 antialias=False):
+    if mode != "bilinear" or align_corners or size is None:
+        raise NotImplementedError(f"interpolate mode={mode!r}, align_corners"
+                                  f"={align_corners}, size={size} "
+                                  f"{NOT_BANDED}")
+    out_h, out_w = (int(v) for v in _pair(size))
+    x, lay = input, input.layout
+    starts = lay.partitions.get(out_h) or [
+        min(-(-a * out_h // x.height), out_h) for a in x.starts]
+    ends = [*starts[1:], out_h]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    parts = []
+    for i, (oa, ob) in enumerate(zip(starts, ends)):
+        n = ob - oa
+        rows = torch.arange(oa, ob if n else oa + 1)
+        rows = rows.clamp(max=out_h - 1)
+        idx, w = _row_taps(x.height, rows, out_h, antialias, acc)
+        lo, hi = int(idx.min()), int(idx.max()) + 1
+        src = _rows(x, lo, hi, i).to(acc)
+        dev = lay.devices[i]
+        idx, w = (idx - lo).to(dev), w.to(dev)
+        tmp = None
+        for t in range(idx.shape[0]):
+            term = src.index_select(-2, idx[t]) * w[t][:, None]
+            tmp = term if tmp is None else tmp + term
+        if out_w != x.shape[-1]:
+            tmp = F.interpolate(tmp, size=(tmp.shape[-2], out_w),
+                                mode="bilinear", align_corners=False,
+                                antialias=antialias)
+        out = tmp.to(x.dtype)
+        parts.append(out if n else out[..., :0, :])
+    return Bands(parts, starts, out_h, lay)
+
+
+def _binary(fn, a, b):
+    """``fn(a, b)`` band by band: two maps on one partition, or a map and a
+    number or a tensor that does not vary along H."""
+    x = a if isinstance(a, Bands) else b
+    if isinstance(a, Bands) and isinstance(b, Bands):
+        b = _repartition(b, a.starts)
+        return a._like([fn(p, q) for p, q in zip(a.parts, b.parts)])
+    other = b if x is a else a
+    if isinstance(other, torch.Tensor) and other.dim() >= 2 \
+            and other.shape[-2] != 1:
+        raise NotImplementedError(f"a plain tensor of shape "
+                                  f"{tuple(other.shape)} varies along H "
+                                  f"and {NOT_BANDED}")
+    parts = []
+    for i, p in enumerate(x.parts):
+        o = x.layout.on(other, i)
+        parts.append(fn(p, o) if x is a else fn(o, p))
+    return x._like(parts)
+
+
+def _unary(fn):
+    def run(input, *args, **kwargs):
+        return input._per_band(lambda p: fn(p, *args, **kwargs))
+    return run
+
+
+def _softmax(fn):
+    def run(input, dim=None, *args, **kwargs):
+        input._below_rows(dim, "softmax")
+        return input._per_band(lambda p: fn(p, dim, *args, **kwargs))
+    return run
+
+
+def _cat(tensors, dim=0):
+    first = tensors[0]
+    first._below_rows(dim, "cat")
+    tensors = [_repartition(t, first.starts) for t in tensors]
+    return first._like([torch.cat([t.parts[i] for t in tensors], dim=dim)
+                        for i in range(len(first.parts))])
+
+
+def _batch_norm(input, running_mean, running_var, weight=None, bias=None,
+                training=False, momentum=0.1, eps=1e-5):
+    if training:
+        raise NotImplementedError(f"train-mode batch norm {NOT_BANDED}")
+    lay = input.layout
+    return input._like([
+        F.batch_norm(p, lay.on(running_mean, i), lay.on(running_var, i),
+                     lay.on(weight, i), lay.on(bias, i), False, momentum,
+                     eps) for i, p in enumerate(input.parts)])
+
+
+_HANDLERS = {
+    F.conv2d: _conv2d,
+    F.max_pool2d: _max_pool2d,
+    F.interpolate: _interpolate,
+    F.batch_norm: _batch_norm,
+    F.relu: _unary(F.relu),
+    torch.sigmoid: _unary(torch.sigmoid),
+    torch.softmax: _softmax(torch.softmax),
+    torch.cat: _cat,
+}
+
+
+class SpatialModel:
+    """A model's eval forward on :class:`Bands`, one replica per device of
+    ``devices`` (``replicas[i]`` on ``devices[i]``): a float model's own
+    ``forward`` (its weights on each band's device are its replica's), or
+    an int8 :class:`~rtsds_tpu_torch.ops.quant.QuantizedSegmentor`'s walk
+    with a banded conv ``op`` over each replica's quantized convs."""
+
+    def __init__(self, replicas, devices):
+        self.replicas = list(replicas)
+        self.devices = [torch.device(d) for d in devices]
+        first = self.replicas[0]
+        self._copies = {}
+        named = [dict(r.state_dict(keep_vars=True)) for r in self.replicas]
+        for name, t in named[0].items():
+            self._copies[(t.data_ptr(), t.dtype, tuple(t.shape))] = {
+                i: n[name] for i, n in enumerate(named)}
+        from rtsds_tpu_torch.ops.quant import (
+            QuantizedSegmentor, make_quant_op)
+        self.int8 = isinstance(first, QuantizedSegmentor)
+        if self.int8:
+            self._ops = [make_quant_op(r.qtree) for r in self.replicas]
+            tree = first.qtree
+            self._kernel_h = {name: entry[0].shape[2]
+                              for kind in ("q8", "bf16")
+                              for name, entry in tree[kind].items()}
+        self.compute_dtype = getattr(first, "compute_dtype", None)
+
+    def layout(self) -> _Layout:
+        """A fresh layout over the devices, with the replicas' weights."""
+        return _Layout(self.devices, self._copies)
+
+    def __call__(self, x: Bands) -> Bands:
+        if not self.int8:
+            return self.replicas[0](x)
+
+        def op(name, h, stride, padding, dilation):
+            if not isinstance(h, Bands):
+                return self._ops[0](name, h, stride, padding, dilation)
+            return banded_conv(
+                h, self._kernel_h[name], stride, padding, dilation,
+                lambda rows, i, pad: self._ops[i](name, rows, stride, pad,
+                                                  dilation))
+
+        with torch.autocast(device_type=self.devices[0].type, enabled=False):
+            return self.replicas[0]._walk(op, x.to(torch.bfloat16))

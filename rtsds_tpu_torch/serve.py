@@ -23,8 +23,14 @@ replica on each (the int8 model too), the batch split into a chunk per
 device, the chunks launched in turn and the masks gathered on the first
 device.
 The CLI's and the server's ``--mesh batch`` build it over every GPU (the
-CPU counts as ``RTSDS_CPU_DEVICES``).  ``sharding="spatial"`` (image
-height over the devices) is not ported yet (ROADMAP item 17).
+CPU counts as ``RTSDS_CPU_DEVICES``).  ``sharding="spatial"`` splits each
+frame's rows into one band per device (the height must divide over the
+mesh; any batch size): the model's own forward, or the int8 walk, runs on
+the bands (``parallel/spatial.py``: halos of rows for the convs and the
+pool, pooled sums over the bands, resizes from the global heights), and
+the masks are gathered on the first device; ``--mesh spatial`` builds it
+over every device, untrimmed.  The sliding protocol is not banded yet
+(ROADMAP item 17).
 """
 
 from __future__ import annotations
@@ -47,7 +53,9 @@ from rtsds_tpu_torch.models.pretrained import (
     load_flax_variables, load_segmentor_state, state_dict_from_reference)
 from rtsds_tpu_torch.ops.preprocess import normalize
 from rtsds_tpu_torch.ops.quant import QuantizedSegmentor, quantize_model
-from rtsds_tpu_torch.parallel.mesh import shard_batch
+from rtsds_tpu_torch.parallel.mesh import (
+    row_starts, shard_batch, shard_spatial)
+from rtsds_tpu_torch.parallel.spatial import SpatialModel, bands_of, gather
 from rtsds_tpu_torch.utils.colors import apply_color_map
 
 
@@ -141,16 +149,19 @@ def protocol_kwargs_from_flags(protocol: str, scales: str = "0.75, 1.0, 1.25",
     return {}
 
 
-def batch_mesh(batch_size: int, device: str | None = None) -> dict:
-    """``--mesh batch``: the ``mesh`` and ``sharding`` arguments of a
-    :class:`Predictor` over every device of ``device``'s type (every GPU,
-    or the CPU counted ``RTSDS_CPU_DEVICES`` times), trimmed to divide
-    ``batch_size`` (``parallel/mesh.py:make_mesh``)."""
+def serving_mesh(kind: str, batch_size: int, device: str | None = None
+                 ) -> dict:
+    """``--mesh batch|spatial``: the ``mesh`` and ``sharding`` arguments of
+    a :class:`Predictor` over every device of ``device``'s type (every GPU,
+    or the CPU counted ``RTSDS_CPU_DEVICES`` times): for ``batch`` trimmed
+    to divide ``batch_size`` (``parallel/mesh.py:make_mesh``), for
+    ``spatial`` untrimmed (each frame's rows are banded over them)."""
     from rtsds_tpu_torch.parallel.mesh import local_devices, make_mesh
 
-    kind = resolve_device(device).type
-    return {"mesh": make_mesh(local_devices(kind), batch_size=batch_size),
-            "sharding": "batch"}
+    devices = local_devices(resolve_device(device).type)
+    return {"mesh": make_mesh(devices, batch_size=batch_size
+                              if kind == "batch" else None),
+            "sharding": kind}
 
 
 def colorize_masks(masks: np.ndarray) -> np.ndarray:
@@ -206,10 +217,11 @@ class Predictor:
         convs: an unknown or missing name raises, so no conv is ever served
         in bf16 by accident.
       mesh: a :class:`~rtsds_tpu_torch.parallel.mesh.Mesh` of devices to
-        serve on, one model replica on each, with ``sharding="batch"``:
-        the batch is split over them, so ``batch_size`` must be a multiple
-        of the mesh's size; ``device`` is then ignored.
-      sharding: ``"batch"``; ``"spatial"`` is not ported yet.
+        serve on, one model replica on each; ``device`` is then ignored.
+      sharding: ``"batch"``, the batch split over the mesh (``batch_size``
+        a multiple of its size), or ``"spatial"``, each frame's rows split
+        into one band per device (the height must divide over the mesh;
+        the plain and ensemble protocols).
       device: ``None`` serves on the GPU and raises without one; pass
         ``"cpu"`` to serve on the CPU.
     """
@@ -240,15 +252,18 @@ class Predictor:
                 "(N, H, W, 3) uint8 frames to calibrate the static "
                 "activation scales) or precomputed act_scales")
         if mesh is not None:
-            if sharding == "spatial":
-                raise _not_ported("spatial-sharded serving (ROADMAP item "
-                                  "17)")
-            if sharding != "batch":
+            if sharding == "batch":
+                if batch_size % mesh.size:
+                    raise ValueError(
+                        f"batch_size {batch_size} must be a multiple of the "
+                        f"{mesh.size}-device mesh for batch-sharded serving")
+            elif sharding == "spatial":
+                row_starts(tuple(image_size)[0], mesh.size)
+                if protocol == "sliding":
+                    raise _not_ported("the sliding protocol under spatial "
+                                      "serving (ROADMAP item 17)")
+            else:
                 raise ValueError(f"unknown serving sharding {sharding!r}")
-            if batch_size % mesh.size:
-                raise ValueError(
-                    f"batch_size {batch_size} must be a multiple of the "
-                    f"{mesh.size}-device mesh for batch-sharded serving")
         if variables is not None and state is not None:
             raise ValueError("pass the weights as variables or as state, "
                              "not both")
@@ -258,6 +273,7 @@ class Predictor:
                 f"num_classes={num_classes} exceeds the uint8 serving wire "
                 f"format (class ids must fit in a byte)")
         self.mesh = mesh
+        self.sharding = sharding if mesh is not None else None
         self.device = (mesh.devices[0] if mesh is not None
                        else resolve_device(device))
         self.num_classes = num_classes
@@ -295,8 +311,14 @@ class Predictor:
                     device=dev, dtype=dtype).eval()
             self.replicas.append(replica)
         self.model = self.replicas[0]
-        self._protocols = [self._make_protocol(r, protocol, protocol_kwargs)
-                           for r in self.replicas]
+        if self.sharding == "spatial":
+            self._spatial = SpatialModel(self.replicas, mesh.devices)
+            self._protocols = [self._make_protocol(
+                self._spatial, protocol, protocol_kwargs)]
+        else:
+            self._protocols = [self._make_protocol(r, protocol,
+                                                   protocol_kwargs)
+                               for r in self.replicas]
 
     def _make_protocol(self, model, protocol: str, protocol_kwargs):
         def forward(x):
@@ -360,14 +382,43 @@ class Predictor:
         logits = self.replicas[i](x.to(self.dtype))
         return logits.argmax(dim=1).to(torch.uint8)
 
+    def _bands(self, frames: torch.Tensor):
+        """(N, H, W, 3) uint8 host frames -> each device's band of rows,
+        normalized there, as NCHW bands (``parallel/spatial.py``)."""
+        return bands_of([normalize(c, self.correct_preprocessing)
+                         .permute(0, 3, 1, 2)
+                         for c in shard_spatial(frames, self.mesh)],
+                        self._spatial.layout())
+
+    def _spatial_masks(self, frames: torch.Tensor) -> torch.Tensor:
+        """:meth:`masks` on the spatial mesh: the model or the protocol on
+        the frames' bands, the masks gathered on the first device."""
+        bands = self._bands(frames)
+        if self._protocols[0] is not None:
+            masks = self._protocols[0](bands)
+        else:
+            masks = self._spatial(bands.to(self.dtype)).argmax(dim=1)
+        return gather(masks.to(torch.uint8), self.device)
+
+    @torch.inference_mode()
+    def spatial_logits(self, frames: np.ndarray) -> torch.Tensor:
+        """The spatial mesh's plain-forward logits of (N, H, W, 3) uint8
+        frames, gathered on the first device (for comparisons with one
+        device)."""
+        bands = self._bands(torch.from_numpy(frames))
+        return gather(self._spatial(bands.to(self.dtype)), self.device)
+
     @torch.inference_mode()
     def _predict(self, frames: np.ndarray) -> torch.Tensor:
         """(N, H, W, 3) uint8 host frames -> (N, H, W) uint8 masks, on the
-        device; on a mesh, each device's chunk launched in turn and the
-        masks gathered on the first device, so that the host waits for
-        none of them and :meth:`predict_iter` keeps a batch in flight."""
+        device; on a batch mesh, each device's chunk launched in turn, on a
+        spatial mesh each device's band of rows, and the masks gathered on
+        the first device, so that the host waits for none of them and
+        :meth:`predict_iter` keeps a batch in flight."""
         if self.mesh is None:
             return self.masks(torch.from_numpy(frames).to(self.device))
+        if self.sharding == "spatial":
+            return self._spatial_masks(torch.from_numpy(frames))
         chunks = shard_batch(torch.from_numpy(frames), self.mesh)
         return torch.cat([self._masks_on(i, c).to(self.device)
                           for i, c in enumerate(chunks)])
@@ -544,9 +595,9 @@ def main(argv=None):
     parser.add_argument("--mesh", type=str, default=None,
                         choices=["batch", "spatial"],
                         help="batch: one replica per device, the batch "
-                             "split over them (every GPU; with --device "
-                             "cpu, RTSDS_CPU_DEVICES); spatial is not yet "
-                             "ported")
+                             "split over them; spatial: each frame's rows "
+                             "split into one band per device (every GPU; "
+                             "with --device cpu, RTSDS_CPU_DEVICES)")
     args = parser.parse_args(argv)
 
     # flag checks before any model or artifact work
@@ -559,9 +610,6 @@ def main(argv=None):
     if args.mesh and (args.artifact or args.export):
         parser.error("--mesh is live multi-chip serving; AOT artifacts "
                      "are single-device programs (export without --mesh)")
-    if args.mesh == "spatial":
-        parser.error("--mesh spatial is not yet ported to rtsds_tpu_torch "
-                     "(ROADMAP item 17); --mesh batch is")
     if args.quantize and args.artifact:
         parser.error("--quantize happens at predictor build time; the "
                      "artifact is already a compiled program")
@@ -599,7 +647,8 @@ def main(argv=None):
                 args.window_chunk),
             device=args.device)
         if args.mesh:
-            kwargs.update(batch_mesh(kwargs["batch_size"], args.device))
+            kwargs.update(serving_mesh(args.mesh, kwargs["batch_size"],
+                                       args.device))
         if args.quantize:
             kwargs.update(quantize=args.quantize, calib_frames=frames,
                           calib_stat=args.calib_stat,

@@ -21,7 +21,8 @@ Two layers:
   ``--calib_images`` (PNGs) or read from a QAT checkpoint's sidecar;
   ``--artifact PATH`` serves a program written by ``serve_export.py``;
   ``--mesh batch`` splits each micro-batch over a model replica per device
-  (``Predictor(mesh=)``).
+  and ``--mesh spatial`` each frame's rows into a band per device
+  (``Predictor(mesh=, sharding=)``).
 
 The forward runs under ``torch.inference_mode``, which is thread-local:
 :meth:`rtsds_tpu_torch.serve.Predictor._predict` enters it itself, on
@@ -332,7 +333,7 @@ def main(argv=None):
 
     from rtsds_tpu_torch.config import parse_int_list
     from rtsds_tpu_torch.serve import (
-        Predictor, batch_mesh, protocol_kwargs_from_flags)
+        Predictor, protocol_kwargs_from_flags, serving_mesh)
 
     parser = argparse.ArgumentParser(
         description="RTSDS micro-batching inference server (PyTorch/CUDA)")
@@ -391,9 +392,10 @@ def main(argv=None):
                              "(serve_export.py)")
     parser.add_argument("--mesh", default=None, choices=["batch", "spatial"],
                         help="batch: one replica per device, each "
-                             "micro-batch split over them (every GPU; with "
-                             "--device cpu, RTSDS_CPU_DEVICES); spatial is "
-                             "not yet ported")
+                             "micro-batch split over them; spatial: each "
+                             "frame's rows split into one band per device "
+                             "(every GPU; with --device cpu, "
+                             "RTSDS_CPU_DEVICES)")
     args = parser.parse_args(argv)
 
     if args.quantize:
@@ -412,9 +414,6 @@ def main(argv=None):
     if args.artifact and args.mesh:
         parser.error("--mesh is live multi-chip serving; AOT artifacts "
                      "are single-device programs")
-    if args.mesh == "spatial":
-        parser.error("--mesh spatial is not yet ported to rtsds_tpu_torch "
-                     "(ROADMAP item 17); --mesh batch is")
 
     if args.artifact:
         from rtsds_tpu_torch.serve_export import load_predictor
@@ -433,8 +432,8 @@ def main(argv=None):
                       device=args.device)
         if args.mesh:
             # the predictor pads each micro-batch to --batch, a multiple
-            # of the mesh
-            kwargs.update(batch_mesh(args.batch, args.device))
+            # of a batch mesh; a spatial mesh bands every frame
+            kwargs.update(serving_mesh(args.mesh, args.batch, args.device))
         if args.quantize:
             kwargs.update(quantize=args.quantize, calib_stat=args.calib_stat,
                           calib_percentile=args.calib_percentile)

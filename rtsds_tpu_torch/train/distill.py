@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rtsds_tpu_torch.ops.losses import segmentation_loss
+from rtsds_tpu_torch.ops.losses import global_mean, segmentation_loss
+from rtsds_tpu_torch.parallel.distributed import reduce_metrics
 from rtsds_tpu_torch.ops.quant import quantize_model
 from rtsds_tpu_torch.serve import load_checkpoint_state
 from rtsds_tpu_torch.train.state import TrainState
@@ -33,12 +34,14 @@ def distillation_kl(student_logits: torch.Tensor,
                     teacher_logits: torch.Tensor,
                     temperature: float = 2.0) -> torch.Tensor:
     """Mean over pixels of KL(teacher_T || student_T) x T^2, of (N, C, H, W)
-    logits, in at least float32.  Every pixel counts, ignored ones too."""
+    logits, in at least float32.  Every pixel counts, ignored ones too;
+    under the data axis the mean runs over the global batch's pixels
+    (``ops/losses.py:global_mean``)."""
     t = at_least_f32(teacher_logits) / temperature
     s = at_least_f32(student_logits) / temperature
     log_t = F.log_softmax(t, dim=1)
     kl = (log_t.exp() * (log_t - F.log_softmax(s, dim=1))).sum(dim=1)
-    return kl.mean() * temperature ** 2
+    return global_mean(kl) * temperature ** 2
 
 
 def make_distill_step(teacher: nn.Module, ignore_index: int | None = 19, *,
@@ -49,7 +52,9 @@ def make_distill_step(teacher: nn.Module, ignore_index: int | None = 19, *,
     the student's train-mode forward, ``alpha * CE + (1 - alpha) * KL_T``
     on the main head, backward, one optimizer step.  The metrics:
     ``train_loss``, ``loss_ce``, ``loss_distill``, ``correct``, ``total``.
-    ``alpha = 1`` is the supervised step.  The teacher's input is cast to
+    ``alpha = 1`` is the supervised step.  Under the data axis the
+    metrics come back summed over the ranks, as the supervised step's do.
+    The teacher's input is cast to
     its ``compute_dtype`` when it declares one (the int8 teacher of
     :func:`quantize_teacher`, whose walk runs outside autocast in bf16),
     else to its first parameter's dtype."""
@@ -78,9 +83,10 @@ def make_distill_step(teacher: nn.Module, ignore_index: int | None = 19, *,
         state.optimizer.step()
         with torch.no_grad():
             correct = (main.argmax(dim=1) == labels).sum()
-        return {"train_loss": loss.detach(), "loss_ce": ce.detach(),
-                "loss_distill": kd.detach(), "correct": correct,
-                "total": labels.numel()}
+        return reduce_metrics({"train_loss": loss.detach(),
+                               "loss_ce": ce.detach(),
+                               "loss_distill": kd.detach(),
+                               "correct": correct, "total": labels.numel()})
 
     return train_step
 
@@ -94,7 +100,9 @@ def quantize_teacher(teacher_name: str, teacher_state, calib_batches,
     student stays full precision.  ``teacher_state``: the teacher's float32
     state dict; ``calib_batches``: (N, 3, H, W) image batches after the
     production preprocess, on ``device`` (the distribution the teacher will
-    see in the step).  Returns the
+    see in the step; under the data axis this rank's shards of the first
+    global batches, whose bounds ``ops/quant.py:abs_bound`` takes over the
+    ranks).  Returns the
     :class:`~rtsds_tpu_torch.ops.quant.QuantizedSegmentor`, a drop-in
     ``teacher`` for :func:`make_distill_step`."""
     return quantize_model(teacher_name, teacher_state, calib_batches,

@@ -75,7 +75,8 @@ def prepare_qat(model_name: str, state: Mapping, calib_batches: Iterable,
 class QATSegmentor(nn.Module):
     """The fake-quant walk as a model whose parameters are the float32
     folded tree (``kernels[name]``, ``biases[name]``): (N, 3, H, W) input
-    -> (N, classes, H, W) float32 logits, in train and eval mode alike.
+    -> (N, classes, H, W) float32 logits, in train and eval mode alike
+    (``.double()`` makes it float64 throughout, for exact comparisons).
     The supervised step (``train/supervised.py``) drives it unchanged."""
 
     def __init__(self, prep: QATPrep):
@@ -102,7 +103,9 @@ class QATSegmentor(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         op = make_fake_quant_op(self.folded, self.act_scales,
                                 self.quant_names)
-        return self._walk(op, x.to(torch.float32))
+        dtype = torch.promote_types(
+            next(iter(self.kernels.values())).dtype, torch.float32)
+        return self._walk(op, x.to(dtype))
 
 
 def make_qat_apply(prep: QATPrep) -> QATSegmentor:

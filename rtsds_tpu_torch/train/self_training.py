@@ -16,6 +16,15 @@ The JAX package draws them with ``fold_in(key(classmix_seed), step)``,
 which torch cannot reproduce; here a CPU ``torch.Generator`` seeded from
 ``(classmix_seed, step)`` draws them, so a resumed run replays the same
 mixes, and a caller may pass its own scores (the tests pass JAX's).
+
+Under the data axis (``parallel/distributed.py``) the frames are this
+rank's shards, and every statistic is the global batch's, as in the JAX
+package, whose arrays are global: CBST's histogram is summed over the
+ranks, the scores are drawn for the global target batch (each rank takes
+its rows), a target frame pairs with the source frame of its global index,
+the coverages and losses divide by global counts and the metrics come back
+summed over the ranks.  The EMA needs no collective: every rank holds the
+same parameters.
 """
 
 from __future__ import annotations
@@ -29,8 +38,10 @@ from torch import nn
 
 from rtsds_tpu_torch.ops.fda import fda_source_to_target
 from rtsds_tpu_torch.ops.losses import (
-    bce_with_logits, entropy_loss, segmentation_loss)
+    bce_with_logits, entropy_loss, global_mean, segmentation_loss)
 from rtsds_tpu_torch.ops.resize import resize_images, resize_labels_nearest
+from rtsds_tpu_torch.parallel.distributed import (
+    cyclic_partners, global_sum, rank_rows, reduce_metrics, world_size)
 from rtsds_tpu_torch.train.adversarial import (
     _accuracy, _check_batches, _forward, _frozen, _with_entropy,
     v1_discriminator_update)
@@ -45,7 +56,9 @@ def pseudo_labels(logits: torch.Tensor, threshold, ignore_index: int = 19
     ``threshold`` is a number, or one per class (a sequence or tensor of C
     values): each pixel is held to the threshold of its argmax class.
     Returns ``(labels, coverage)``: (N, H, W) int32 labels, ``ignore_index``
-    where the confidence falls short, and the float32 share of pixels kept.
+    where the confidence falls short, and the float32 share of pixels kept
+    (under the data axis this rank's part of the global share,
+    ``ops/losses.py:global_mean``).
     """
     probs = F.softmax(at_least_f32(logits), dim=1)
     conf, labels = probs.max(dim=1)
@@ -57,7 +70,7 @@ def pseudo_labels(logits: torch.Tensor, threshold, ignore_index: int = 19
     keep = conf >= thr
     labels = torch.where(keep, labels,
                          torch.full_like(labels, ignore_index))
-    return labels, keep.to(torch.float32).mean()
+    return labels, global_mean(keep.to(torch.float32))
 
 
 def classmix_scores(seed: int, step: int, n: int, num_classes: int
@@ -104,9 +117,10 @@ def calibrate_class_thresholds(model: nn.Module, batches: Iterable,
 
     ``model`` runs in eval mode on each batch (NHWC images, or tuples whose
     first item they are); the joint class x confidence-bin counts add up on
-    the device (``torch.bincount``), and only the (C, bins) table comes to
-    the host, where each class's quantile is walked down from the most
-    confident bin.  Returns (C,) float32 thresholds; a class the teacher
+    the device (``torch.bincount``; under the data axis summed over the
+    ranks, each of which reads its shards of the same global batches), and
+    only the (C, bins) table comes to the host, where each class's quantile
+    is walked down from the most confident bin.  Returns (C,) float32 thresholds; a class the teacher
     never predicts gets ``max_threshold``.
     """
     was_training = model.training
@@ -133,7 +147,7 @@ def calibrate_class_thresholds(model: nn.Module, batches: Iterable,
     thr = np.full((num_classes,), max_threshold, np.float32)
     if hist is None:
         return thr
-    h = hist.reshape(num_classes, bins).cpu().numpy()
+    h = global_sum(hist).reshape(num_classes, bins).cpu().numpy()
     for c in range(num_classes):
         total = int(h[c].sum())
         if total == 0:
@@ -159,8 +173,10 @@ def make_self_training_step(lambda_: float, iterations: int,
     generator's batch-norm statistics as they stand before this step, and
     its pseudo-labels; with ``classmix``, the mixed batch (the source and
     its labels resized to the target's size, bilinear and nearest, tiled
-    over the target batch; ``scores``, (Nt, C), pick the classes, drawn
-    from ``(classmix_seed, step)`` when not given); the generator update,
+    over the target batch: target frame ``i`` takes source frame ``i %
+    Ns``; ``scores``, (Nt, C) for the global target batch, pick the
+    classes, drawn from ``(classmix_seed, step)`` when not given); the
+    generator update,
     v1's losses plus ``lambda_pl`` x the cross entropy on the pseudo-labels
     or on the mixed batch, plus MinEnt with ``lambda_ent``, every loss
     divided by ``iterations``; the v1 discriminator update; the EMA update
@@ -195,20 +211,20 @@ def make_self_training_step(lambda_: float, iterations: int,
             tgt_hw = tuple(tgt_images.shape[1:3])
             src_small = resize_images(src_images, tgt_hw)
             lbl_small = resize_labels_nearest(src_labels, tgt_hw)
-            nt = tgt_images.shape[0]
-            if src_small.shape[0] != nt:
-                idx = torch.arange(nt, device=src_small.device) \
-                    % src_small.shape[0]
-                src_small, lbl_small = src_small[idx], lbl_small[idx]
+            nt = tgt_images.shape[0] * world_size()
+            if src_small.shape[0] != tgt_images.shape[0] \
+                    or world_size() > 1:
+                src_small = cyclic_partners(src_small, nt)
+                lbl_small = cyclic_partners(lbl_small, nt)
             if scores is None:
                 scores = classmix_scores(classmix_seed, gen.step, nt,
                                          num_classes)
-            mask = classmix_masks(lbl_small, scores, num_classes)
+            mask = classmix_masks(lbl_small, rank_rows(scores), num_classes)
             mix_images = torch.where(mask[..., None],
                                      src_small.to(tgt_images.dtype),
                                      tgt_images)
             mix_labels = torch.where(mask, lbl_small.to(torch.int32), pl)
-            mix_coverage = mask.to(torch.float32).mean()
+            mix_coverage = global_mean(mask.to(torch.float32))
             del src_small, lbl_small, mask
 
         # the generator: source CE; target adversarial BCE (+ pseudo-label
@@ -262,7 +278,7 @@ def make_self_training_step(lambda_: float, iterations: int,
                    **_accuracy(src_main, src_labels)}
         if mix_coverage is not None:
             metrics["mix_coverage"] = mix_coverage
-        return _with_entropy(
-            metrics, None if ent_loss is None else ent_loss.detach())
+        return reduce_metrics(_with_entropy(
+            metrics, None if ent_loss is None else ent_loss.detach()))
 
     return step

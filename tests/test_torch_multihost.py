@@ -13,8 +13,9 @@ CPU processes (gloo).
 * The CLI on two ranks (``device: cpu``, the ``RTSDS_*`` variables): both
   ranks report the same metrics and mIoU, only rank 0 writes, ``--resume``
   continues on both, SIGTERM to one rank saves the emergency checkpoint and
-  ends both at one step, and what stays refused exits before the process
-  group is joined.
+  ends both at one step, and what is refused (the pipe with several
+  processes; the JAX CLI's refusals of self-training and distillation)
+  exits before the process group is joined.
 
 This module also holds the rank workers of test_torch_parallel.py and
 test_torch_pipelined.py: a spawned child imports it, and it imports no JAX
@@ -488,15 +489,21 @@ def _config_with(tmp_path, extra: dict) -> str:
     (["--model", "deeplab"], {"mesh": {"pipe": 2}}, "single-process only"),
     (["--domain_adaptation"],
      {"training": {"domain_adaptation": {"ema": {"enabled": True},
-                                         "self_training": {"enabled": True}}}},
-     "self_training with more than one process is not ported yet"),
+                                         "self_training": {"enabled": True}}},
+      "model": {"adversarial_model": {"discriminator": {
+          "grl": {"enabled": True}}}}},
+     "discriminator.grl does not compose with self_training"),
     ([], {"training": {"segmentation": {"distillation": {
-        "enabled": True, "teacher": {"checkpoint_dir": "t"}}}}},
-     "distillation with more than one process is not ported yet"),
+        "enabled": True, "teacher": {"checkpoint_dir": "t",
+                                     "quantize": "fp8"}}}}},
+     "distillation.teacher.quantize 'fp8' is not supported"),
 ], ids=["pipe", "self_training", "distillation"])
 def test_multihost_refusals_exit_before_joining(tmp_path, monkeypatch, argv,
                                                 extra, match):
-    """Refused before any process group exists (no coordinator is set)."""
+    """Refused before any process group exists (no coordinator is set).
+    Self-training and distillation run on several processes
+    (test_torch_multirank_extras.py); what stays refused for them is the
+    JAX CLI's own refusals, which come before the group is joined too."""
     monkeypatch.setenv("RTSDS_NUM_PROCESSES", "2")
     monkeypatch.delenv("RTSDS_COORDINATOR_ADDRESS", raising=False)
     config = _config_with(tmp_path, extra)

@@ -4,7 +4,8 @@ and against the JAX package on a 2-device data mesh, at small size.
 * The meshes: ``make_mesh`` and ``make_mesh_from_config`` give the JAX
   package's axis, device count, warning and error, case by case, on lists
   of as many devices as its virtual CPU devices; the spatial and model
-  axes are refused as not ported.
+  axes in training are refused as not ported (spatial serving is ported:
+  test_torch_spatial.py).
 * The global-batch BatchNorm on 2 ranks (gloo, CPU) equals one process's
   ``nn.BatchNorm2d`` on the global batch in float64: the output, the
   running statistics and the gradients, at rtol 1e-9 / atol 1e-12.

@@ -99,21 +99,20 @@ def test_colorize_masks_matches_jax(rng):
                                   jax_serve.colorize_masks(masks[0]))
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": Mesh(["cpu", "cpu"]),
-                                     "sharding": "spatial"},
-                                    {"model_name": "deeplab",
-                                     "mesh": Mesh(["cpu", "cpu"]),
-                                     "sharding": "spatial"},
-                                    {"quantize": "int8"}])
-def test_unported_options_raise(kwargs):
-    """A spatial mesh is not ported (a batch mesh is:
-    test_torch_parallel.py); int8 is, and raises without its calibration
-    frames or scales, as the JAX package's does."""
-    if "quantize" in kwargs:
-        with pytest.raises(ValueError, match="calib_frames"):
-            Predictor(image_size=SIZE, device="cpu", **kwargs)
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+@pytest.mark.parametrize("kwargs,match", [
+    ({"mesh": Mesh(["cpu"] * 3), "sharding": "spatial"},
+     "image height 64 must divide over the 3-device mesh"),
+    ({"model_name": "deeplab", "mesh": Mesh(["cpu", "cpu"]),
+      "sharding": "rows"}, "unknown serving sharding 'rows'"),
+    ({"quantize": "int8"}, "calib_frames")],
+    ids=["kwargs0", "kwargs1", "kwargs2"])
+def test_unported_options_raise(kwargs, match):
+    """Spatial and batch meshes are ported (test_torch_spatial.py,
+    test_torch_parallel.py), int8 too; each raises the JAX package's error
+    where its rule is broken: a height that does not divide over a spatial
+    mesh, an unknown sharding, int8 without calibration frames or
+    scales."""
+    with pytest.raises(ValueError, match=match):
         Predictor(image_size=SIZE, device="cpu", **kwargs)
 
 

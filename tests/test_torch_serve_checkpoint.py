@@ -277,15 +277,19 @@ def test_serve_cli_serves_a_checkpoint_and_resizes(served, frames, tmp_path,
 
 @pytest.mark.parametrize("flag", ["--mesh", "--quantize"])
 def test_serve_cli_refuses_what_is_not_ported(tmp_path, flag, capsys):
-    """``--mesh spatial`` is not ported (``--mesh batch`` is:
-    test_torch_parallel.py); ``--quantize`` is, and refuses a mode other
-    than int8 (``--export`` and ``--artifact`` are ported:
+    """``--mesh spatial`` and ``--mesh batch`` are ported
+    (test_torch_spatial.py, test_torch_parallel.py) and refuse an export,
+    as the JAX package's CLI does; ``--quantize`` is ported, and refuses a
+    mode other than int8 (``--export`` and ``--artifact`` are ported:
     test_torch_serve_export.py)."""
+    extra = ["--export", str(tmp_path / "m.rtsds")] if flag == "--mesh" \
+        else []
     value = "spatial" if flag == "--mesh" else "x"
     with pytest.raises(SystemExit):
-        main([str(tmp_path / "f.png"), flag, value, "--device", "cpu"])
+        main([str(tmp_path / "f.png"), flag, value, *extra, "--device",
+              "cpu"])
     err = capsys.readouterr().err
     if flag == "--quantize":
         assert "invalid choice: 'x'" in err
     else:
-        assert "not yet ported" in err
+        assert "--mesh is live multi-chip serving" in err

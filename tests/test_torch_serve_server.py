@@ -328,18 +328,22 @@ def test_stats_is_safe_under_concurrent_mutation():
 
 @pytest.mark.parametrize("flag", ["--mesh", "--quantize"])
 def test_server_main_refuses_what_is_not_ported(flag, capsys):
-    """``--mesh spatial`` is not ported (``--mesh batch`` is:
-    test_torch_parallel.py); ``--quantize`` is, and refuses only an int8
-    server with nothing to calibrate from (``--artifact`` is served:
-    test_torch_serve_export.py)."""
-    value = "int8" if flag == "--quantize" else "spatial"
+    """``--mesh spatial`` and ``--mesh batch`` are ported
+    (test_torch_spatial.py, test_torch_parallel.py) and refuse an artifact,
+    as the JAX package's server does; ``--quantize`` is ported, and
+    refuses only an int8 server with nothing to calibrate from
+    (``--artifact`` is served: test_torch_serve_export.py)."""
+    if flag == "--quantize":
+        argv = [flag, "int8"]
+    else:
+        argv = [flag, "spatial", "--artifact", "m.rtsds"]
     with pytest.raises(SystemExit):
-        serve_server.main([flag, value, "--device", "cpu"])
+        serve_server.main([*argv, "--device", "cpu"])
     err = capsys.readouterr().err
     if flag == "--quantize":
         assert "--quantize needs --calib_images" in err
     else:
-        assert "not yet ported" in err
+        assert "--mesh is live multi-chip serving" in err
 
 
 def test_server_main_serves_one_request(monkeypatch, capsys):
