@@ -5,7 +5,8 @@
     python3 chip_smoke.py --kernels-only  # build and time K1 and K2 alone
     python3 chip_smoke.py --int8-only     # the int8 phases alone
     python3 chip_smoke.py --tooling-only  # artifacts, tooling, converter
-    python3 chip_smoke.py --parallel-only # data axis, batch mesh, pipe
+    python3 chip_smoke.py --parallel-only # data, model, spatial, pipe axes
+    python3 chip_smoke.py --axes-only     # the model and spatial axes alone
 
 Kernels are timed on the device alone with the L2 cold: each timed launch
 follows a write of a 256 MB buffer, as K2 follows the transform's write of
@@ -119,7 +120,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
      the HTTP server over it) and parallel_pipe (DeepLabV2-R101, pipe 2 on
      cuda:0, M = 2: a float64 step against the accumulating step, then
      bf16 at 720x1280 b8 through ``supervised_fit`` with K2 and K1,
-     timed beside the accumulating step);
+     timed beside the accumulating step), then the extras on two ranks
+     and under NCCL, spatial serving, and the model and spatial axes
+     (``python3 chip_smoke.py --axes-only`` runs these four alone):
+     parallel_model_axis (two gloo ranks on cuda:0 with ``mesh: {model:
+     2}``, FSDP through the all_reduce forms: a float64 BiSeNet-R18 step
+     and a DA v1 step against one process's replicated steps; bf16 at
+     720x1280 through ``supervised_fit``, BiSeNet-R18 global b8 2 x 4
+     steps and DeepLabV2-R101 global b2 1 x 2 steps, K2 in the transforms
+     and K1 in the validations, each rank's bytes of parameters and Adam
+     moments equal to the placement rule's, the gathered parameters
+     bit-identical across the ranks, and the BiSeNet checkpoint served by
+     ``Predictor.from_checkpoint`` with the replicated weights' masks),
+     parallel_model_nccl_world1 (NCCL at world size 1 with the model axis
+     forced on, so that ``all_gather_into_tensor`` and
+     ``reduce_scatter_tensor`` run: a float64 step against the plain one,
+     a bf16 720x1280 b8 step timed beside it), parallel_spatial_training
+     (2 bands on cuda:0: float64 BiSeNet-R18 and DeepLabV2-R101 steps
+     against one device; bf16 BiSeNet-R18 720x1280 b8 2 x 4 steps, DA v1
+     1 x 2 steps (target 512x1024) and DeepLabV2-R101 512x1024 b2 1 x 2
+     steps through the trainers, K2 before banding and K1 per band, each
+     summed matrix against the plain version over the gathered masks; the
+     step on bands timed beside one device, with the peak memory) and
+     spatial_sliding (DeepLabV2-R101 at 1024x2048 b1 with a 512x1024
+     window on 2 bands: float64 masks equal to one device's, the bf16
+     agreement beside one device's b1-vs-b2 yardstick, both timed);
   15. train_profile: torch.profiler over a few train steps: the device's
      idle share and kernel time by group, and each hand-written kernel's
      device time per launch beside the timer's (run after the kernel
@@ -3675,12 +3700,22 @@ def _par_f64_inputs() -> tuple:
     return images, labels, target
 
 
-def _par_f64_steps(rank: int, world: int) -> dict:
+def _par_f64_steps(rank: int, world: int, mesh=None) -> dict:
     """One float64 supervised step of BiSeNet-R18 and one DA v1 step (the
     Tiny discriminator) on this rank's shard of :func:`_par_f64_inputs`,
-    on the card; with ``world`` 1, the whole global batch.  Returns the
-    losses, the states before and after (CPU tensors)."""
+    on the card; with ``world`` 1, the whole global batch.  The states are
+    replicated over the ranks, or with ``mesh`` placed on it
+    (``place_state``: a model axis shards them).  Returns the losses, the
+    states before and after (whole, CPU tensors)."""
     from rtsds_tpu_torch.parallel.distributed import replicate
+    from rtsds_tpu_torch.parallel.mesh import place_state
+
+    def placed(*states):
+        for st in states:
+            if mesh is None:
+                replicate(st.model)
+            else:
+                place_state(st, mesh)
 
     images, labels, target = _par_f64_inputs()
     n = images.shape[0] // world
@@ -3692,28 +3727,28 @@ def _par_f64_steps(rank: int, world: int) -> dict:
                                     deterministic=False, allow_tf32=False):
         model, _ = make_segmentor(config, "bisenet", seed=SEED)
         model.to("cuda", torch.float64)
-        replicate(model)
-        state = TrainState(model, make_optimizer(
-            "SGD", model.parameters(), 0.01, momentum=0.9))
         before = {k: v.detach().cpu().clone()
                   for k, v in model.named_parameters()}
+        state = TrainState(model, make_optimizer(
+            "SGD", model.parameters(), 0.01, momentum=0.9))
+        placed(state)
         loss = float(make_train_step(19)(state, x, y)["train_loss"])
         out["supervised"] = {
             "losses": {"train_loss": loss}, "before": [before],
             "after": [{k: v.detach().cpu() for k, v in
-                       model.state_dict().items()}]}
+                       state.state_dict()["model"].items()}]}
         gen, _ = make_segmentor(config, "bisenet", seed=SEED)
         gen.to("cuda", torch.float64)
         dis = make_discriminator(
             config.model["adversarial_model"]["discriminator"],
             seed=SEED + 1).to("cuda", torch.float64)
-        replicate(gen, dis)
+        before = [{k: v.detach().cpu().clone() for k, v in
+                   m.named_parameters()} for m in (gen, dis)]
         g = TrainState(gen, make_optimizer("SGD", gen.parameters(), 0.01,
                                            momentum=0.0))
         d = TrainState(dis, make_optimizer("SGD", dis.parameters(), 0.02,
                                            momentum=0.0))
-        before = [{k: v.detach().cpu().clone() for k, v in
-                   m.named_parameters()} for m in (gen, dis)]
+        placed(g, d)
         metrics = make_adversarial_step(0.1, DA_ITERATIONS, DA_EPOCHS, 19,
                                         "v1")(g, d, x, y, t)
         out["da_v1"] = {
@@ -3721,7 +3756,7 @@ def _par_f64_steps(rank: int, world: int) -> dict:
                        if k.startswith("loss_")},
             "before": before,
             "after": [{k: v.detach().cpu() for k, v in
-                       m.state_dict().items()} for m in (gen, dis)]}
+                       st.state_dict()["model"].items()} for st in (g, d)]}
     return out
 
 
@@ -3985,13 +4020,14 @@ def forced_data_axis():
         return call
 
     @contextlib.contextmanager
-    def forced(group=None):
-        previous = distributed._GROUP
+    def forced(group=None, model_group=None):
+        previous = distributed._GROUP, distributed._JOB
         distributed._GROUP = group if group is not None else dist.group.WORLD
+        distributed._JOB = dist.group.WORLD
         try:
             yield
         finally:
-            distributed._GROUP = previous
+            distributed._GROUP, distributed._JOB = previous
 
     plain_context = distributed.data_parallel
     distributed.data_parallel = forced
@@ -4023,7 +4059,7 @@ def _nccl_forced_sync_check() -> dict:
     try:
         if dist.get_backend() != "nccl":
             raise AssertionError(f"backend {dist.get_backend()}")
-        distributed._GROUP = dist.group.WORLD
+        distributed._GROUP = distributed._JOB = dist.group.WORLD
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         x = torch.randn(4, 8, 9, 11, device="cuda", dtype=torch.float64,
                         generator=gen)
@@ -4062,14 +4098,14 @@ def _nccl_forced_sync_check() -> dict:
             if sync:
                 distributed.convert_global_batchnorm(state.model)
             else:
-                distributed._GROUP = None
+                distributed._GROUP = distributed._JOB = None
             step = make_train_step(19)
             times[name] = cuda_ms(lambda: step(state, *batch), reps=10)
-            distributed._GROUP = dist.group.WORLD
+            distributed._GROUP = distributed._JOB = dist.group.WORLD
             del state
         return {"bn_max_abs_err": errs, "step_ms": times}
     finally:
-        distributed._GROUP = None
+        distributed._GROUP = distributed._JOB = None
         dist.destroy_process_group()
         os.environ.pop("RTSDS_NUM_PROCESSES", None)
 
@@ -4852,9 +4888,572 @@ def phase_spatial_serving(tree: dict, frames: np.ndarray, dl_tree: dict,
     return {"fast_hist_cuda": launches}
 
 
+MODEL_WORLD = 2            # the model axis: two gloo ranks on cuda:0
+MODEL_TIMEOUT_S = 600      # the spawn of the two ranks
+MODEL_DL_BATCH = 2         # DeepLabV2-R101 on the model axis: global b2
+MODEL_DL_STEPS = 2         # one epoch
+MODEL_SERVE_SIZE = (512, 1024)
+MODEL_RANK_LOSS_RTOL = 1e-4  # two ranks' bf16 forwards of one batch
+SPATIAL_BANDS = 2
+SPATIAL_STEP_REPS = 5      # per timed banded / one-device step
+SPATIAL_DA_STEPS = 2       # one epoch
+SPATIAL_DL_F64_SIZE = (64, 96)
+SPATIAL_DL_BATCH = 2
+SPATIAL_DL_STEPS = 2       # one epoch
+SLIDING_WINDOW = (512, 1024)
+SLIDING_REPS = 3           # per timed b1 sliding predict
+F64_UPDATE_SHARE = 1e-10   # bands vs one device: of the largest update
+
+
+def _gathered_bits(state) -> torch.Tensor:
+    """:func:`_param_bits` of a train state's whole parameters (a model
+    axis gathers its shards)."""
+    sd = state.state_dict()["model"]
+    return torch.stack([sd[k].detach().float().contiguous().view(
+        torch.int32).long().sum() for k, _ in state.model.named_parameters()])
+
+
+def _fsdp_bytes(state, model_name: str, config, world: int) -> dict:
+    """A sharded state's resident bytes of parameters and Adam moments
+    beside the replicated figure and the placement rule's reckoning."""
+    from rtsds_tpu_torch.parallel.fsdp import placement_bytes
+
+    whole, _ = make_segmentor(config, model_name, seed=SEED)
+    return {"resident": state.optimizer.sharded.resident_bytes(
+                state.optimizer),
+            "placement_rule": placement_bytes(whole, world, moments=2),
+            "replicated": placement_bytes(whole, 1, moments=2)}
+
+
+def _model_rank(rank: int, world: int, ckpt_dir: str) -> dict:
+    """One rank of the model-axis phase (gloo on CUDA tensors, both ranks
+    on cuda:0, ``{model: world}``): the float64 steps, then bf16 at full
+    width through ``supervised_fit`` on the same frames as the other rank:
+    BiSeNet-R18 (GTA5 720x1280, global b8, colour-coded labels, K2; 2
+    epochs of PAR_STEPS steps validated at 512x1024, K1; rank 0 writes the
+    checkpoint) and DeepLabV2-R101 (global b2, one epoch); each with its
+    bytes, launches and the gathered parameters' checksums."""
+    import torch.distributed as dist
+
+    from rtsds_tpu_torch.parallel.distributed import (
+        axis_groups, data_parallel, job_group)
+    from rtsds_tpu_torch.parallel.mesh import (
+        make_mesh_from_config, place_state)
+
+    torch.cuda.set_device(0)
+    _build.load()
+    dev = torch.device("cuda")
+    out = {}
+    with data_parallel(*axis_groups(world)):
+        mesh = make_mesh_from_config({"model": world})
+        out["f64"] = _par_f64_steps(0, 1, mesh)
+        val_batches = _val_stream()
+        runs = (("bisenet", train_config(), PAR_STEPS * TRAIN_BATCH,
+                 TRAIN_BATCH, TRAIN_EPOCHS),
+                ("deeplab", deeplab_config(), MODEL_DL_STEPS * MODEL_DL_BATCH,
+                 MODEL_DL_BATCH, 1))
+        bits = []
+        for name, config, n, batch, epochs in runs:
+            ds = ColorCodedLabels(SyntheticSegDataset(
+                n, TRAIN_SIZE, CLASSES, seed=SEED + 91, fixed_tints=True),
+                class_colors_for_remap(), unmatched=UNMATCHED, seed=SEED)
+            loader = DataLoader(ds, batch, shuffle=True, num_workers=4,
+                                seed=SEED)
+            tf = make_transform(TRAIN_SIZE, CLASSES, antialias=False,
+                                augment_cfg=AugmentConfig.from_config(
+                                    config), decode_label_colors=True)
+            state = place_state(build_supervised(
+                config, name, len(loader), dev, seed=SEED), mesh)
+            clock = _StepClock()
+            checkpoint = ModelCheckpoint(save_dir=ckpt_dir, save_name=name,
+                                         save_best=False) \
+                if name == "bisenet" else None
+            torch.cuda.reset_peak_memory_stats()
+            (_, history), launches, checked = on_main_path(
+                lambda: supervised_fit(
+                    state, make_train_step(19),
+                    lambda epoch: device_batches(
+                        loader, tf, dev, seed=SEED, epoch=epoch),
+                    val_batches, epochs=epochs, num_classes=CLASSES,
+                    callbacks=[clock], checkpoint=checkpoint, device=dev))
+            out[name] = {
+                "losses": [e["train_loss"] for e in clock.logs],
+                "miou": [h["validation_mIoU"] for h in history],
+                "step_ms": clock.step_ms(), "launches": launches,
+                "k2_checked": checked,
+                "bytes": _fsdp_bytes(state, name, config, world),
+                "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+            bits.append(_gathered_bits(state))
+            if name == "bisenet":
+                out["served_state"] = {k: v.detach().cpu() for k, v in
+                                       state.state_dict()["model"].items()}
+            del state
+            torch.cuda.empty_cache()
+        flat = torch.cat(bits)
+        hi, lo = flat.clone(), flat.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=job_group())
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=job_group())
+        out["params_bit_identical"] = bool(torch.equal(hi, lo))
+    if rank:
+        out.pop("served_state")
+    return out
+
+
+def phase_parallel_model_axis(frames: np.ndarray) -> dict:
+    """(h) The model axis (FSDP, ROADMAP 17.3): two gloo ranks on cuda:0
+    with ``mesh: {model: 2}``, the all_reduce forms of the gather and the
+    reduce-scatter; the float64 supervised and DA v1 steps against one
+    process's replicated steps at the shared-card limits, then the bf16
+    runs of :func:`_model_rank`; every rank's resident bytes equal to the
+    placement rule's, the ranks' gathered parameters bit-identical, and
+    the BiSeNet checkpoint served by ``Predictor.from_checkpoint`` with
+    exactly the masks of a predictor of the gathered (replicated)
+    weights.  Returns the K1/K2 launches of each path, summed over the
+    ranks."""
+    from rtsds_tpu_torch.parallel.launch import run_ranks
+
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_fsdp_")
+    t0 = time.perf_counter()
+    ranks = run_ranks(_model_rank, MODEL_WORLD, (tmp.name,),
+                      timeout_s=MODEL_TIMEOUT_S, threads=None)
+    ranks_s = time.perf_counter() - t0
+    one = _par_f64_steps(0, 1)
+    held = {name: _held_to(ranks[0]["f64"][name], one[name])
+            for name in ("supervised", "da_v1")}
+    launches, bytes_, gaps = {}, {}, {}
+    for name in ("bisenet", "deeplab"):
+        runs = [r[name] for r in ranks]
+        # each rank runs its own forward of the same batch, which cuDNN may
+        # round apart on a shared card; the reductions make the parameters
+        # and BN statistics one (bit-identical, below)
+        gaps[name] = max(abs(a - b) / abs(b) for a, b in zip(
+            runs[0]["losses"], runs[1]["losses"]))
+        if gaps[name] > MODEL_RANK_LOSS_RTOL or not all(
+                math.isfinite(x) for x in runs[0]["losses"]):
+            raise AssertionError(f"model axis {name}: {runs[0]['losses']} "
+                                 f"vs {runs[1]['losses']}")
+        for r in runs:
+            b = r["bytes"]
+            if b["resident"] != b["placement_rule"] or \
+                    b["resident"] >= b["replicated"]:
+                raise AssertionError(f"model axis {name} bytes: {b}")
+        launches[name] = {k: sum(r["launches"][k] for r in runs)
+                          for k in runs[0]["launches"]}
+        bytes_[name] = [r["bytes"] for r in runs]
+    if not all(r["params_bit_identical"] for r in ranks):
+        raise AssertionError("the model axis ranks' gathered parameters "
+                             "are not bit-identical")
+    kw = dict(image_size=MODEL_SERVE_SIZE, batch_size=2,
+              dtype=torch.bfloat16)
+    served = Predictor.from_checkpoint(
+        os.path.join(tmp.name, "bisenet"), **kw).predict(
+        frames[:2, :MODEL_SERVE_SIZE[0], :MODEL_SERVE_SIZE[1]])
+    replicated = Predictor(state=ranks[0]["served_state"], **kw).predict(
+        frames[:2, :MODEL_SERVE_SIZE[0], :MODEL_SERVE_SIZE[1]])
+    if not np.array_equal(served, replicated):
+        raise AssertionError("the model-axis checkpoint serves other masks")
+    tmp.cleanup()
+    emit({"phase": "parallel_model_axis", "ranks": MODEL_WORLD,
+          "mesh": {"model": MODEL_WORLD},
+          "backend": "gloo on CUDA tensors, both ranks on cuda:0 "
+                     "(all_reduce forms of the gather and reduce-scatter)",
+          "float64_vs_one_process": held,
+          "bf16": {"image_size": list(TRAIN_SIZE),
+                   "bisenet_global_batch": TRAIN_BATCH,
+                   "bisenet_steps": TRAIN_EPOCHS * PAR_STEPS,
+                   "deeplab_global_batch": MODEL_DL_BATCH,
+                   "deeplab_steps": MODEL_DL_STEPS},
+          "bisenet_losses": ranks[0]["bisenet"]["losses"],
+          "ranks_loss_max_rel_gap": gaps,
+          "bisenet_miou": ranks[0]["bisenet"]["miou"],
+          "deeplab_losses": ranks[0]["deeplab"]["losses"],
+          "bytes_params_and_adam_moments_per_rank": bytes_,
+          "params_bit_identical_across_ranks": True,
+          "checkpoint_served_masks_equal_replicated": True,
+          "shared_card_step_ms_not_a_scaling_figure": {
+              "bisenet": [r["bisenet"]["step_ms"] for r in ranks]},
+          "peak_mb_per_rank": {name: [r[name]["peak_mb"] for r in ranks]
+                               for name in ("bisenet", "deeplab")},
+          "ranks_s": ranks_s, "launches": launches})
+    return launches
+
+
+def phase_parallel_model_nccl_world1() -> dict:
+    """(i) NCCL at world size 1 with the model axis forced on: the whole
+    job is one model group of one rank, so the shards are the whole
+    tensors and ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
+    run under NCCL.  A float64 BiSeNet-R18 step (b2 at PAR_F64_SIZE) must
+    equal the plain step exactly; then a bf16 step at 720x1280 b8 timed
+    beside the plain step."""
+    import torch.distributed as dist
+
+    from rtsds_tpu_torch.parallel import distributed
+    from rtsds_tpu_torch.parallel.fsdp import shard_state
+    from rtsds_tpu_torch.parallel.mesh import initialize_multihost
+
+    os.environ["RTSDS_NUM_PROCESSES"] = "1"
+    initialize_multihost(device_type="cuda")
+    calls = {"all_gather_into_tensor": 0, "reduce_scatter_tensor": 0}
+    plain = {name: getattr(dist, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return plain[name](*args, **kwargs)
+        return call
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        for name in calls:
+            setattr(dist, name, counted(name))
+        images, labels, _ = _par_f64_inputs()
+        x, y = images[:2].cuda(), labels[:2].cuda()
+        after = []
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            for forced in (False, True):
+                model, _ = make_segmentor(load_config(), "bisenet",
+                                          seed=SEED)
+                model.to("cuda", torch.float64)
+                before = {k: v.detach().clone()
+                          for k, v in model.state_dict().items()}
+                state = TrainState(model, make_optimizer(
+                    "SGD", model.parameters(), 0.01, momentum=0.9))
+                if forced:
+                    sharded = shard_state(state, dist.group.WORLD)
+                    if not sharded.native:
+                        raise AssertionError("NCCL took the all_reduce "
+                                             "forms")
+                make_train_step(19)(state, x, y)
+                after.append(state.state_dict()["model"])
+        # the upsample's backward adds with atomics: each tensor within
+        # F64_UPDATE_SHARE of its largest update (of its magnitude, for the
+        # BN statistics)
+        err = 0.0
+        for k, v in after[0].items():
+            if v.is_floating_point():
+                scale = v.abs().max() if "running" in k \
+                    else (v - before[k]).abs().max()
+                err = max(err, float((after[1][k] - v).abs().max())
+                          / (F64_UPDATE_SHARE * float(scale) + 1e-15))
+        config = train_config()
+        batch = _full_size_batch()
+        times = {}
+        for name, forced in (("plain", False), ("model_axis_forced", True)):
+            state = build_supervised(config, "bisenet", 1, "cuda",
+                                     seed=SEED)
+            if forced:
+                shard_state(state, dist.group.WORLD)
+            step = make_train_step(19)
+            times[name] = cuda_ms(lambda: step(state, *batch), reps=10)
+            del state
+            torch.cuda.empty_cache()
+        if err > 1.0 or not all(calls.values()):
+            raise AssertionError(f"model axis under NCCL: err {err}, "
+                                 f"calls {calls}")
+    finally:
+        for name, fn in plain.items():
+            setattr(dist, name, fn)
+        distributed._GROUP = distributed._JOB = distributed._MODEL = None
+        dist.destroy_process_group()
+        os.environ.pop("RTSDS_NUM_PROCESSES", None)
+    emit({"phase": "parallel_model_nccl_world1", "backend": "nccl",
+          "world_size": 1, "model_axis": "forced on (one rank)",
+          "float64_step_worst_err_over_limit_vs_plain": err,
+          "collective_calls": calls, "image_size": list(TRAIN_SIZE),
+          "batch": TRAIN_BATCH, "step_p50_ms": times})
+    return calls
+
+
+def _band_devices() -> list:
+    return ["cuda:0"] * SPATIAL_BANDS
+
+
+def _f64_step_on_bands(model_name: str, size: tuple, batch: int) -> dict:
+    """One float64 SGD step of ``model_name`` (full depth; DeepLab's BN
+    affines frozen) at ``size`` on the card, on one device and on
+    SPATIAL_BANDS bands of cuda:0; fails unless the loss agrees to 1e-10
+    relative and every tensor (parameters and BN statistics) to
+    F64_UPDATE_SHARE of its largest update (or of its magnitude, for the
+    statistics).  Returns the worst of each over its limit."""
+    from rtsds_tpu_torch.parallel.spatial import split_batch
+
+    ds = SyntheticSegDataset(batch, size, CLASSES, seed=SEED + 95,
+                             fixed_tints=True)
+    x = normalize(torch.from_numpy(np.stack(
+        [ds[i][0] for i in range(batch)])).cuda()).double()
+    y = torch.from_numpy(np.stack([ds[i][1] for i in range(batch)])).cuda()
+    y[:, : size[0] // 4] = 19
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        for banded in (False, True):
+            model, frozen = make_segmentor(load_config(), model_name,
+                                           seed=SEED)
+            model.to("cuda", torch.float64)
+            before = {k: v.detach().clone()
+                      for k, v in model.state_dict().items()}
+            state = TrainState(model, make_optimizer(
+                "SGD", model.parameters(), 0.01, momentum=0.9,
+                frozen=frozen))
+            xi, yi = split_batch(x, y, _band_devices()) if banded else (x, y)
+            loss = float(make_train_step(19)(state, xi, yi)["train_loss"])
+            runs.append((loss, before, {k: v.detach().clone() for k, v in
+                                        model.state_dict().items()}))
+    (loss0, before, one), (loss1, _, bands) = runs
+    worst = 0.0
+    for k, v in one.items():
+        if not v.is_floating_point():
+            continue
+        scale = (v - before[k]).abs().max() if "running" not in k \
+            else v.abs().max()
+        limit = F64_UPDATE_SHARE * float(scale) + 1e-15
+        worst = max(worst, float((bands[k] - v).abs().max()) / limit)
+    result = {"loss_rel_diff": abs(loss1 - loss0) / abs(loss0),
+              "worst_err_over_limit": worst}
+    if result["loss_rel_diff"] > 1e-10 or worst > 1.0:
+        raise AssertionError(f"{model_name} float64 step on bands: {result}")
+    return result
+
+
+def _banded_hist_check(checks: list):
+    """``validate``'s banded K1 with each summed matrix held against the
+    plain version over the gathered labels and masks."""
+    from rtsds_tpu_torch.eval import validate as val_mod
+    from rtsds_tpu_torch.parallel.spatial import gather
+
+    banded = val_mod.banded_hist
+
+    def checked(labels, preds, n):
+        got = banded(labels, preds, n)
+        want = fast_hist(gather(labels), gather(preds), n)
+        if not torch.equal(got.cpu(), want.cpu().to(got.dtype)):
+            raise AssertionError("a banded K1 matrix differs from the "
+                                 "plain one over the gathered masks")
+        checks.append(int(got.sum()))
+        return got
+    return val_mod, banded, checked
+
+
+def phase_parallel_spatial_training(frames: np.ndarray) -> dict:
+    """(j) The spatial axis in training (ROADMAP 17.4): SPATIAL_BANDS bands
+    on cuda:0 in one process.  Float64 steps of BiSeNet-R18 (b2 at
+    PAR_F64_SIZE) and DeepLabV2-R101 (b2 at SPATIAL_DL_F64_SIZE) held to
+    one device's; then bf16 at full width through the trainers, K2 in the
+    transform on the whole batch before banding and K1 per band in the
+    validations (each summed matrix held against the plain version over
+    the gathered masks): BiSeNet-R18 supervised (720x1280 b8, 2 x 4
+    steps), DA v1 (source 720x1280, target 512x1024, b8, 1 x 2 steps) and
+    DeepLabV2-R101 supervised (512x1024 b2, 1 x 2 steps); the bf16 step
+    timed on bands beside one device, with the peak memory.  Returns the
+    K1/K2 launches of each path."""
+    from rtsds_tpu_torch.parallel.spatial import BandedBatches, split_batch
+
+    dev = torch.device("cuda")
+    f64 = {"bisenet": _f64_step_on_bands("bisenet", PAR_F64_SIZE, 2),
+           "deeplab": _f64_step_on_bands("deeplab", SPATIAL_DL_F64_SIZE, 2)}
+    checks = []
+    val_mod, banded_hist, checked = _banded_hist_check(checks)
+    val_mod.banded_hist = checked
+    launches, out = {}, {}
+    try:
+        val = _val_stream()
+
+        def val_batches(epoch):
+            return BandedBatches(val(epoch), _band_devices())
+
+        # BiSeNet-R18 supervised
+        config = train_config()
+        loader, transform = _gta5_stream(TRAIN_STEPS * TRAIN_BATCH,
+                                         SEED + 96)
+        state = build_supervised(config, "bisenet", len(loader), dev,
+                                 seed=SEED)
+        clock = _StepClock()
+        (_, history), launches["bisenet"], checked_k2 = on_main_path(
+            lambda: supervised_fit(
+                state, make_train_step(19),
+                lambda epoch: BandedBatches(device_batches(
+                    loader, transform, dev, seed=SEED, epoch=epoch),
+                    _band_devices()),
+                val_batches, epochs=TRAIN_EPOCHS, num_classes=CLASSES,
+                callbacks=[clock], device=dev))
+        losses = [e["train_loss"] for e in clock.logs]
+        if len(losses) != TRAIN_EPOCHS * TRAIN_STEPS or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"spatial BiSeNet losses {losses}")
+        batch = _full_size_batch()
+        step = make_train_step(19)
+        timed = {}
+        for name, banded in (("one_device", False), ("two_bands", True)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            args = split_batch(*batch, _band_devices()) if banded else batch
+            timed[name] = {"step_p50_ms": cuda_ms(lambda: step(state, *args),
+                                                  reps=SPATIAL_STEP_REPS),
+                           "peak_mb": torch.cuda.max_memory_allocated()
+                           / 2 ** 20}
+        out["bisenet"] = {"losses": losses,
+                          "miou": [h["validation_mIoU"] for h in history],
+                          "k2_checked": checked_k2,
+                          "one_card_not_a_scaling_figure": timed}
+        del state, batch
+        torch.cuda.empty_cache()
+
+        # DA v1, source and target banded apart
+        config = da_config()
+        tcfg = config.training["domain_adaptation"]
+        src_loader, src_tf = _gta5_stream(SPATIAL_DA_STEPS * TRAIN_BATCH,
+                                          SEED + 97, infinite=True)
+        tgt_loader, tgt_tf = _target_stream(SPATIAL_DA_STEPS * TRAIN_BATCH,
+                                            SEED + 98)
+        gen, dis = build_adversarial(config, dev, seed=SEED)
+        source = BandedBatches(device_batches(src_loader, src_tf, dev,
+                                              seed=SEED), _band_devices())
+        target = BandedBatches(device_batches(tgt_loader, tgt_tf, dev),
+                               _band_devices())
+        clock = _StepClock()
+        with contextlib.closing(source), contextlib.closing(target):
+            (_, _, history), launches["da"], _ = on_main_path(
+                lambda: adversarial_fit(
+                    gen, dis, make_adversarial_step(
+                        float(tcfg["lambda"]), SPATIAL_DA_STEPS, 1, 19,
+                        "v1"), iter(source), iter(target), val_batches,
+                    iterations=SPATIAL_DA_STEPS, epochs=1,
+                    num_classes=CLASSES, callbacks=[clock], device=dev))
+        out["da_v1"] = {"losses": clock.logs,
+                        "miou": [h["validation_mIoU"] for h in history]}
+        del gen, dis
+        torch.cuda.empty_cache()
+
+        # DeepLabV2-R101 supervised at 512x1024 b2
+        config = deeplab_config()
+        ds = ColorCodedLabels(SyntheticSegDataset(
+            SPATIAL_DL_STEPS * SPATIAL_DL_BATCH, DEEPLAB_SIZE, CLASSES,
+            seed=SEED + 99, fixed_tints=True), class_colors_for_remap(),
+            unmatched=UNMATCHED, seed=SEED)
+        loader = DataLoader(ds, SPATIAL_DL_BATCH, shuffle=True,
+                            num_workers=4, seed=SEED)
+        tf = make_transform(DEEPLAB_SIZE, CLASSES, antialias=False,
+                            augment_cfg=AugmentConfig.from_config(config),
+                            decode_label_colors=True)
+        state = build_supervised(config, "deeplab", len(loader), dev,
+                                 seed=SEED)
+        clock = _StepClock()
+        (_, history), launches["deeplab"], _ = on_main_path(
+            lambda: supervised_fit(
+                state, make_train_step(19),
+                lambda epoch: BandedBatches(device_batches(
+                    loader, tf, dev, seed=SEED, epoch=epoch),
+                    _band_devices()),
+                val_batches, epochs=1, num_classes=CLASSES,
+                callbacks=[clock], device=dev))
+        dl_batch = next(iter(device_batches(loader, tf, dev, seed=SEED)))
+        timed = {}
+        for name, banded in (("one_device", False), ("two_bands", True)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            args = split_batch(*dl_batch, _band_devices()) if banded \
+                else dl_batch
+            timed[name] = {"step_p50_ms": cuda_ms(lambda: step(state, *args),
+                                                  reps=SPATIAL_STEP_REPS),
+                           "peak_mb": torch.cuda.max_memory_allocated()
+                           / 2 ** 20}
+        out["deeplab"] = {"losses": [e["train_loss"] for e in clock.logs],
+                          "miou": [h["validation_mIoU"] for h in history],
+                          "one_card_not_a_scaling_figure": timed}
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        val_mod.banded_hist = banded_hist
+    if not checks:
+        raise AssertionError("no banded K1 matrix was checked")
+    emit({"phase": "parallel_spatial_training", "bands": SPATIAL_BANDS,
+          "devices": "cuda:0 twice", "float64_vs_one_device": f64,
+          "bisenet_size": list(TRAIN_SIZE), "batch": TRAIN_BATCH,
+          "da_target_size": list(DA_TGT_SIZE),
+          "deeplab_size": list(DEEPLAB_SIZE),
+          "deeplab_batch": SPATIAL_DL_BATCH,
+          "banded_k1_matrices_checked": len(checks), **out,
+          "launches": launches})
+    return launches
+
+
+def phase_spatial_sliding(frames: np.ndarray, dl_tree: dict) -> dict:
+    """(k) The sliding protocol on 2 bands of cuda:0 (ROADMAP 17.2b):
+    DeepLabV2-R101 from its seeded tree on 1024x2048 frames at b1 with a
+    512x1024 window (stride 3/4 of it).  Float64 masks equal to one
+    device's; the bf16 masks' agreement with one device (read from K1's
+    confusion matrix) beside spatial serving's yardstick, one device at
+    b1 against b2, and beside one device whose forwards group the windows
+    as the bands do (``window_chunk``), which the bands must match on
+    MIN_SPATIAL_AGREEMENT of the pixels; the bf16 predict at b1 timed
+    beside one device's.  Returns K1's launches on the path."""
+    from rtsds_tpu_torch.eval.sliding import _grid
+    from rtsds_tpu_torch.parallel.mesh import Mesh
+
+    fast_hist_cuda.launches = 0
+    frame = np.ascontiguousarray(frames[:1])
+    # the first band runs the windows whose first row it holds, in one
+    # forward: a one-device twin with that chunk groups them alike
+    _, tiles = _grid(SIZE, SLIDING_WINDOW, None)
+    first_band = sum(y < SIZE[0] // SPATIAL_BANDS for y, _ in tiles)
+    res = {}
+    for name, dtype in (("float64", torch.float64),
+                        ("bfloat16", torch.bfloat16)):
+        kw = dict(model_name="deeplab", variables=dl_tree, image_size=SIZE,
+                  dtype=dtype, protocol="sliding",
+                  protocol_kwargs={"window": SLIDING_WINDOW})
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            one = Predictor(batch_size=1, **kw)
+            banded = Predictor(batch_size=1, mesh=Mesh(_band_devices()),
+                               sharding="spatial", **kw)
+            want, got = one.predict(frame), banded.predict(frame)
+        if name == "float64":
+            res[name] = {"masks_equal": bool(np.array_equal(got, want))}
+            if not res[name]["masks_equal"]:
+                raise AssertionError("float64 sliding masks on bands differ "
+                                     "from one device's")
+        else:
+            b2 = Predictor(batch_size=2, **kw)
+            twin = Predictor(batch_size=1, **{**kw, "protocol_kwargs": {
+                "window": SLIDING_WINDOW, "window_chunk": first_band}})
+            res[name] = {
+                "mask_agreement": _agreement_k1(got, want),
+                "yardstick_one_device_b1_vs_b2": _agreement_k1(
+                    b2.predict(frame), want),
+                "yardstick_one_device_window_chunk": _agreement_k1(
+                    twin.predict(frame), want),
+                "vs_one_device_same_window_groups": _agreement_k1(
+                    got, twin.predict(frame)),
+                "window_chunk_of_the_groups": first_band,
+                "predict_b1_ms_one_card_not_a_scaling_figure": {
+                    "two_bands": cuda_ms(lambda: banded.predict(frame),
+                                         reps=SLIDING_REPS, warmup=1),
+                    "one_device": cuda_ms(lambda: one.predict(frame),
+                                          reps=SLIDING_REPS, warmup=1)}}
+            del b2, twin
+            # cuDNN rounds a forward of 6 windows apart from one of 9 (on
+            # random weights, near-tied logits flip): the bands are held to
+            # the one-device twin that groups the windows as they do
+            if res[name]["vs_one_device_same_window_groups"] < \
+                    MIN_SPATIAL_AGREEMENT:
+                raise AssertionError(f"bf16 sliding on bands: {res}")
+        del one, banded
+        torch.cuda.empty_cache()
+    launches = fast_hist_cuda.launches
+    emit({"phase": "spatial_sliding", "bands": SPATIAL_BANDS,
+          "devices": "cuda:0 twice", "model": "deeplabv2-resnet101",
+          "image_size": list(SIZE), "window": list(SLIDING_WINDOW),
+          "batch": 1, **res, "k1_agreement_launches": launches})
+    return {"fast_hist_cuda": launches}
+
+
 def parallel_phases(tree: dict, frames: np.ndarray, dl_tree: dict,
                     dl_frames: np.ndarray) -> dict:
-    """The parallel phase (a)-(g); returns the K1 and K2 launches of its
+    """The parallel phase (a)-(k); returns the K1 and K2 launches of its
     main paths (the spatial path launches K1 alone)."""
     t0 = time.perf_counter()
     shared = phase_parallel_shared_card()
@@ -4871,17 +5470,32 @@ def parallel_phases(tree: dict, frames: np.ndarray, dl_tree: dict,
     torch.cuda.empty_cache()
     spatial = phase_spatial_serving(tree, frames, dl_tree, dl_frames)
     torch.cuda.empty_cache()
+    model_axis = phase_parallel_model_axis(frames)
+    torch.cuda.empty_cache()
+    phase_parallel_model_nccl_world1()
+    torch.cuda.empty_cache()
+    spatial_train = phase_parallel_spatial_training(frames)
+    torch.cuda.empty_cache()
+    sliding = phase_spatial_sliding(frames, dl_tree)
+    torch.cuda.empty_cache()
     paths = {"dp2_bisenet_training": shared["supervised"],
              "dp2_bisenet_da": shared["da"],
              "nccl_world1_cli_training": nccl,
              "pipe2_deeplab_training": pipe,
              **{f"dp2_bisenet_{k}": n for k, n in extras.items()},
-             **{f"nccl_world1_cli_{k}": n for k, n in extras_cli.items()}}
+             **{f"nccl_world1_cli_{k}": n for k, n in extras_cli.items()},
+             "model2_bisenet_training": model_axis["bisenet"],
+             "model2_deeplab_training": model_axis["deeplab"],
+             "spatial2_bisenet_training": spatial_train["bisenet"],
+             "spatial2_bisenet_da": spatial_train["da"],
+             "spatial2_deeplab_training": spatial_train["deeplab"]}
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
     launches = {kernel: {path: n[kernel] for path, n in paths.items()}
                 for kernel in ("fast_hist_cuda", "rgb_to_train_ids_cuda")}
     launches["fast_hist_cuda"]["bisenet_deeplab_spatial_serving"] = \
         spatial["fast_hist_cuda"]
+    launches["fast_hist_cuda"]["deeplab_spatial_sliding"] = \
+        sliding["fast_hist_cuda"]
     return launches
 
 
@@ -5094,10 +5708,19 @@ def main() -> int:
     if sys.argv[1:] == ["--kernels-only"]:
         return kernels_only()
     if sys.argv[1:] in (["--int8-only"], ["--tooling-only"],
-                        ["--parallel-only"], ["--spatial-only"]):
+                        ["--parallel-only"], ["--spatial-only"],
+                        ["--axes-only"]):
         phase_device()
         frames, labels, tree, dl_frames, dl_tree = serving_data()
-        if sys.argv[1] == "--int8-only":
+        if sys.argv[1] == "--axes-only":
+            launches = {
+                "model2": phase_parallel_model_axis(frames),
+                "nccl_world1": phase_parallel_model_nccl_world1(),
+                **{f"spatial2_{k}": v for k, v in
+                   phase_parallel_spatial_training(frames).items()},
+                "sliding": phase_spatial_sliding(frames, dl_tree)}
+            emit({"phase": "axes_only", "launches": launches})
+        elif sys.argv[1] == "--int8-only":
             int8_phases(frames, labels, tree, dl_frames, dl_tree)
         elif sys.argv[1] == "--tooling-only":
             tooling_phases(frames, tree, dl_frames, dl_tree)
@@ -5117,7 +5740,7 @@ def main() -> int:
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only | "
                          f"--int8-only | --tooling-only | --parallel-only | "
-                         f"--spatial-only]")
+                         f"--spatial-only | --axes-only]")
     device = phase_device()
     hist_err = phase_hist_check()
     remap_err = phase_remap_check()

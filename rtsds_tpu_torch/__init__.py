@@ -36,17 +36,23 @@ Entry points run on the GPU unless the caller asks for the CPU: see
   DA (self-training and distillation included), QAT and validation over
   processes (``--multihost``, one process per GPU: global-batch
   BatchNorm, global loss denominators and calibration statistics, summed
-  gradients, rank-0 writes), batch-sharded and height-banded (spatial)
-  serving over a mesh of devices (``Predictor(mesh=, sharding=)``,
-  ``--mesh batch|spatial``), and the GPipe-pipelined DeepLabV2 step
-  (``mesh: {pipe: N}``);
+  gradients, rank-0 writes), the model axis over processes (``mesh:
+  {model: M}`` or ``{data: D, model: M}``: FSDP, each rank keeping its
+  shard of every large parameter and of its moments), the spatial axis in
+  training over one process's devices (``mesh: {spatial: S}``: each
+  frame's rows in bands), batch-sharded and height-banded (spatial)
+  serving over a mesh of devices, under every protocol
+  (``Predictor(mesh=, sharding=)``, ``--mesh batch|spatial``), and the
+  GPipe-pipelined DeepLabV2 step (``mesh: {pipe: N}``);
 * tools: ``ckpt_info`` (what a checkpoint directory holds),
   ``export_torch`` (a checkpoint's weights in the reference models'
   layouts), tracing (:mod:`rtsds_tpu_torch.utils.profiling`), and the
   benches (:mod:`rtsds_tpu_torch.bench`; ``python -m
   rtsds_tpu_torch.bench`` prints the one-line record).
 
-Not ported yet: the ``spatial`` and ``model`` mesh axes in training,
-meshes that compose axes, hybrid meshes, and the sliding protocol under
-spatial serving (``ROADMAP.md``, item 17).
+Not ported yet (``ROADMAP.md``): the spatial axis composed with the data
+or model axis, DA on such meshes and the training extras (EMA,
+accumulation, distillation, remat, MinEnt, FDA, the reversal step, DA v2,
+self-training) on the model and spatial axes (item 17.5), and hybrid
+meshes (item 17.6).
 """

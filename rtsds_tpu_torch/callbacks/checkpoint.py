@@ -17,8 +17,12 @@ holding its number, so that ``resume`` replays the epoch from its start.
 Under the data axis every rank holds the same states, and only rank 0
 writes (``parallel/distributed.py:is_main_rank``); a regular save ends
 with a barrier, so no rank reads a checkpoint before it is whole, and on
-``--resume`` every rank reads rank 0's files.  The emergency save has no
-barrier: the ranks stop at the same step and exit after it.
+``--resume`` every rank reads rank 0's files.  Under the model axis a
+state's ``state_dict`` gathers the whole tensors from the ranks' shards
+(``parallel/fsdp.py``), a collective, so every rank takes it and rank 0
+writes the replicated run's file; a restore cuts it back into shards.
+The emergency save has no barrier: the ranks stop at the same step and
+exit after it, saving the epoch-start snapshot every rank took.
 """
 
 from __future__ import annotations
@@ -154,10 +158,12 @@ class CheckpointManager:
 
 class Snapshot:
     """A frozen copy of a state's ``state_dict()`` (its tensors cloned on
-    their devices), itself a checkpoint item."""
+    their devices, unless ``copy`` is off), itself a checkpoint item."""
 
-    def __init__(self, state):
-        self._state = _copy(state.state_dict())
+    def __init__(self, state, copy: bool = True):
+        self._state = state.state_dict()
+        if copy:
+            self._state = _copy(self._state)
 
     def state_dict(self) -> dict:
         return self._state
@@ -236,7 +242,10 @@ class ModelCheckpoint(Callback):
     def _save(self, states: dict, monitor: float | None = None) -> None:
         """A regular save of epoch ``self._epoch`` (rank 0's; every rank
         waits for it); it supersedes an emergency snapshot, so the marker
-        goes."""
+        goes.  Every rank takes the states' dicts (under the model axis
+        that gathers the shards)."""
+        states = {name: Snapshot(state, copy=False)
+                  for name, state in states.items()}
         if is_main_rank():
             self.manager.save(self._epoch, states, monitor=monitor)
             try:

@@ -45,14 +45,25 @@ torchrun, or with ``RTSDS_COORDINATOR_ADDRESS`` (``host:port``),
 sizes are then GLOBAL: each rank loads its slice of every global batch,
 BatchNorm, the losses and the gradients are the global batch's
 (``parallel/distributed.py``), every rank reports the same metrics and
-mIoU, and rank 0 alone writes checkpoints, logs and prints.  ``mesh:
-{pipe: N}`` pipelines DeepLab's layer3 over N of this process's GPUs
-(``train/pipelined.py``).  Self-training (CBST calibration on each
-rank's shards of the same global batches), distillation (the int8
-teacher calibrated over the ranks) and every DA extra run on several
-ranks too.  What stays refused, with a message saying so: the ``spatial``
-and ``model`` mesh axes (ROADMAP item 17) and the JAX CLI's own refusals
-of the pipe.
+mIoU, and rank 0 alone writes checkpoints, logs and prints.  Self-training
+(CBST calibration on each rank's shards of the same global batches),
+distillation (the int8 teacher calibrated over the ranks) and every DA
+extra run on several ranks too.
+
+``mesh: {model: M}`` or ``{data: D, model: M}`` (with ``--multihost``,
+``D * M`` ranks, rank ``r`` at data index ``r // M`` and model index ``r %
+M``) shards the large parameters and their moments over each model group
+of ranks (FSDP, ``parallel/fsdp.py``); its ranks load the same frames.
+``mesh: {spatial: S}`` (one process) bands each frame's rows over S of its
+devices (``parallel/spatial.py``): the transform (K2) runs on the whole
+batch on the first device, then the rows are split, and validation runs K1
+per band.  ``mesh: {pipe: N}`` pipelines DeepLab's layer3 over N of this
+process's GPUs (``train/pipelined.py``).  What stays refused, with a
+message naming ROADMAP item 17.5: the spatial axis composed with the data
+or model axis, and the training extras (EMA, accumulation, distillation,
+remat, MinEnt, FDA, the reversal step, DA v2, self-training, and under
+the spatial axis the validation protocols) on the model and spatial
+axes; and the JAX CLI's own refusals of the pipe.
 """
 
 from __future__ import annotations
@@ -106,9 +117,9 @@ def argument_parser(argv=None):
     return parser.parse_args(argv)
 
 
-def _not_ported(what: str) -> SystemExit:
+def _not_ported(what: str, item: str = "17.5") -> SystemExit:
     return SystemExit(f"{what} is not ported yet to rtsds_tpu_torch "
-                      f"(ROADMAP item 17); use the JAX package (python "
+                      f"(ROADMAP item {item}); use the JAX package (python "
                       f"main.py) for it")
 
 
@@ -158,13 +169,62 @@ def _check_domain_adaptation(config) -> None:
                              f"{net} with {want}")
 
 
+def _axis_extras(args, config) -> list[str]:
+    """The switches on that the model and spatial axes do not run yet."""
+    on = []
+    if args.domain_adaptation:
+        tcfg = config.training["domain_adaptation"]
+        adv = config.model["adversarial_model"]
+        gen = adv["generator"]["name"]
+        if str(tcfg.get("variant", "v1")) != "v1":
+            on.append("DA v2")
+        if _enabled(adv["discriminator"].get("grl")):
+            on.append("the gradient-reversal step")
+        for key, name in (("ema", "EMA"), ("entropy_min", "MinEnt"),
+                          ("fda", "FDA"), ("self_training",
+                                           "self-training")):
+            if _enabled(tcfg.get(key)):
+                on.append(name)
+    else:
+        tcfg = config.training["segmentation"]
+        gen = args.model
+        if _enabled(tcfg.get("ema")):
+            on.append("EMA")
+        if int(tcfg.get("accumulate_steps", 1)) > 1:
+            on.append("gradient accumulation")
+        if _enabled(tcfg.get("distillation")):
+            on.append("distillation")
+    if bool((config.model.get(gen) or {}).get("remat", False)):
+        on.append("remat")
+    return on
+
+
 def _check_mesh(args, config) -> None:
-    """The mesh axes the port runs: ``data`` (over ``--multihost``'s
-    processes) and ``pipe`` (alone, one process)."""
+    """The mesh axes the port runs: ``data`` and ``model`` (over
+    ``--multihost``'s processes), ``spatial`` (alone, one process) and
+    ``pipe`` (alone, one process)."""
     mesh = dict(config.get("mesh") or {})
-    for axis in ("spatial", "model"):
-        if int(mesh.get(axis, 1) or 1) > 1:
-            raise _not_ported(f"mesh {mesh}: the {axis} axis")
+    spatial = int(mesh.get("spatial", 1) or 1)
+    model = int(mesh.get("model", 1) or 1)
+    data = int(mesh.get("data", -1) or -1)
+    if spatial > 1 and (model > 1 or data > 1 or args.multihost):
+        raise _not_ported(f"mesh {mesh}: the spatial axis composed with "
+                          f"the data or model axis (--multihost)")
+    if model > 1 and not args.multihost:
+        raise SystemExit(
+            f"mesh {mesh}: the model axis spans processes, one per GPU: "
+            f"launch one process per GPU with torchrun (or --multihost "
+            f"and the RTSDS_* variables)")
+    if spatial > 1 or model > 1:
+        axis = "spatial" if spatial > 1 else "model"
+        extras = _axis_extras(args, config)
+        vcfg = config.get("validation") or {}
+        if spatial > 1 and (_enabled(vcfg.get("ensemble"))
+                            or _enabled(vcfg.get("sliding"))):
+            extras.append("a validation protocol")
+        if extras:
+            raise _not_ported(f"mesh {mesh}: {', '.join(extras)} on the "
+                              f"{axis} axis")
     pipe = int(mesh.get("pipe", 1) or 1)
     if pipe != 1 and args.multihost:
         raise SystemExit(
@@ -197,13 +257,15 @@ def _device_type(config) -> str:
 
 def device_from_config(config) -> torch.device:
     """``device: cpu`` -> the CPU; anything else -> the GPU (or raise).  One
-    process trains on one GPU: with more on the box it warns that they
-    idle (``--multihost`` runs one process per GPU)."""
+    process trains on one GPU, unless a spatial mesh bands over several:
+    with more on the box it warns that they idle (``--multihost`` runs
+    one process per GPU)."""
     if _device_type(config) == "cpu":
         return torch.device("cpu")
     device = resolve_device(None)
     n = torch.cuda.device_count()
-    if n > 1:
+    spatial = int(dict(config.get("mesh") or {}).get("spatial", 1) or 1)
+    if n > 1 and spatial <= 1:  # a spatial mesh bands over the GPUs
         import warnings
 
         warnings.warn(
@@ -221,11 +283,12 @@ def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
     transforms (``make_transform``) and sizes.  ``infinite`` makes the two
     training loaders endless, for domain adaptation.  In a job of several
     processes the batch sizes are global and each loader is this rank's
-    :class:`~rtsds_tpu_torch.data.multihost.MultiHostDataLoader`;
+    :class:`~rtsds_tpu_torch.data.multihost.MultiHostDataLoader` of its
+    place on the data axis;
     ``train_micro_batches`` ``(name, K)`` lays the ``cs_train`` or
     ``gta5_train`` loader's shares out for a K-step accumulation."""
     from rtsds_tpu_torch.data.multihost import MultiHostDataLoader
-    from rtsds_tpu_torch.parallel.mesh import process_count
+    from rtsds_tpu_torch.parallel.distributed import world_size
     from rtsds_tpu_torch.data.indexing import (
         build_cityscapes_index, build_gta5_index)
     from rtsds_tpu_torch.data.pipeline import DataLoader, SegmentationDataset
@@ -265,7 +328,9 @@ def datasets_loader(config, is_augmented: bool, synthetic: bool = False,
 
     aug_cfg = AugmentConfig.from_config(config) if is_augmented else None
     correct = bool(config.data.get("correct_preprocessing", False))
-    multi = process_count() > 1
+    # the data axis's ranks load their shards; a model group's ranks load
+    # the same frames
+    multi = world_size() > 1
     mk = partial(MultiHostDataLoader if multi else DataLoader,
                  num_workers=cs["num_workers"], seed=seed)
     name, k = train_micro_batches
@@ -573,7 +638,8 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
                                 num_classes, return_preds=_plots(callbacks))
 
     def val_batches(_epoch):
-        return device_batches(data["cs_val"], data["cs_transform"], device)
+        return _banded(device_batches(data["cs_val"], data["cs_transform"],
+                                      device), mesh)
 
     if args.validate_only:
         return run_validation_only(states, "generator", checkpoint,
@@ -623,11 +689,13 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
         per_pass = max(len(loader), 1)
         loader.set_epoch(consumed // per_pass)
         loader.skip_batches(consumed % per_pass)
-    source_iter = device_batches(
+    # under the spatial axis source and target frames are banded apart
+    source_iter = _banded(device_batches(
         data["gta5_train"], data["gta5_transform"], device,
-        seed=args.seed if args.augmented else None, start_index=consumed)
-    target_iter = device_batches(data["cs_train"], data["cs_transform"],
-                                 device)
+        seed=args.seed if args.augmented else None, start_index=consumed),
+        mesh)
+    target_iter = _banded(device_batches(data["cs_train"],
+                                         data["cs_transform"], device), mesh)
     try:
         _, _, history = adversarial_fit(
             gen_state, dis_state, da_step, source_iter, target_iter,
@@ -790,45 +858,72 @@ def main(argv=None):
         restore_handlers(previous)
 
 
+def job_mesh(config, device_type: str):
+    """The config's mesh by the JAX CLI's rules: config batch sizes are
+    global, and the data axis must divide the smaller of the two."""
+    from rtsds_tpu_torch.parallel.mesh import make_mesh_from_config
+
+    return make_mesh_from_config(
+        dict(config.get("mesh") or {}), device_type=device_type,
+        batch_size=min(int(config.data["cityscapes"]["batch_size"]),
+                       int(config.data["gta5_modified"]["batch_size"])))
+
+
 def _main(args):
     config = load_config(args.config)
     check_ported(args, config)
     if not args.multihost:
-        return _run(args, config, device_from_config(config))
+        device = device_from_config(config)
+        return _run(args, config, device, job_mesh(config, device.type))
     import torch.distributed as dist
 
     from rtsds_tpu_torch.parallel.distributed import (
-        data_parallel, is_main_rank)
+        axis_groups, data_parallel, is_main_rank)
     from rtsds_tpu_torch.parallel.mesh import initialize_multihost
 
     device = initialize_multihost(device_type=_device_type(config))
     try:
-        with data_parallel(), contextlib.ExitStack() as stack:
+        mesh = job_mesh(config, device.type)
+        groups = (None, None)
+        if mesh.axis_size("model") > 1:
+            if mesh.size != dist.get_world_size():
+                raise SystemExit(
+                    f"mesh {dict(config.mesh)}: the model axis needs every "
+                    f"rank in the (data, model) grid: {mesh.size} of "
+                    f"{dist.get_world_size()} ranks would train")
+            groups = axis_groups(mesh.axis_size("model"))
+        with data_parallel(*groups), contextlib.ExitStack() as stack:
             if not is_main_rank():  # rank 0 alone prints
                 stack.enter_context(contextlib.redirect_stdout(
                     stack.enter_context(open(os.devnull, "w"))))
-            return _run(args, config, device)
+            return _run(args, config, device, mesh)
     finally:
         dist.destroy_process_group()
 
 
-def _run(args, config, device):
+def _banded(batches, mesh):
+    """``batches`` split into bands of rows over a spatial ``mesh``'s
+    devices (``parallel/spatial.py:split_batch``), else as they are."""
+    if mesh.axis_size("spatial") <= 1:
+        return batches
+    from rtsds_tpu_torch.parallel.spatial import BandedBatches
+
+    return BandedBatches(batches, mesh.devices)
+
+
+def _run(args, config, device, mesh):
     from rtsds_tpu_torch.data.pipeline import device_batches
     from rtsds_tpu_torch.parallel.distributed import is_main_rank
-    from rtsds_tpu_torch.parallel.mesh import (
-        make_mesh_from_config, place_state)
+    from rtsds_tpu_torch.parallel.mesh import place_state
     from rtsds_tpu_torch.train.ema import setup_ema
     from rtsds_tpu_torch.train.factory import build_supervised
     from rtsds_tpu_torch.train.loop import supervised_fit
     from rtsds_tpu_torch.utils.debug import name_modules
     from rtsds_tpu_torch.utils.preemption import Preempted
 
-    # the JAX CLI's mesh rules: config batch sizes are global, and the
-    # data axis must divide the smaller of the two
-    mesh = make_mesh_from_config(
-        dict(config.get("mesh") or {}), device_type=device.type,
-        batch_size=min(int(config.data["cityscapes"]["batch_size"]),
-                       int(config.data["gta5_modified"]["batch_size"])))
+    if mesh.axis_size("spatial") > 1:
+        # the state and the transforms on the first band's device
+        device = mesh.devices[0]
     if args.domain_adaptation and "pipe" in mesh.axis_names:
         raise SystemExit(
             "mesh: {pipe: N} supports supervised DeepLab training only (the "
@@ -875,9 +970,9 @@ def _run(args, config, device):
     ema_decay = _ema_decay_from(tcfg)
 
     def train_batches(epoch):
-        return device_batches(train_loader, train_transform, device,
-                              seed=args.seed if augment else None,
-                              epoch=epoch)
+        return _banded(device_batches(train_loader, train_transform, device,
+                                      seed=args.seed if augment else None,
+                                      epoch=epoch), mesh)
 
     train_step = supervised_train_step(args, config, tcfg, train_loader,
                                        device, lambda: train_batches(0),
@@ -886,7 +981,8 @@ def _run(args, config, device):
                                 return_preds=_plots(callbacks))
 
     def val_batches(_epoch):
-        return device_batches(data["cs_val"], data["cs_transform"], device)
+        return _banded(device_batches(data["cs_val"], data["cs_transform"],
+                                      device), mesh)
 
     if args.validate_only:
         return run_validation_only({"model": state}, "model", checkpoint,

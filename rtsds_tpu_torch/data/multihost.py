@@ -10,6 +10,11 @@ into one global array; in the port each rank keeps its slice on its own
 device and the step's collectives (``parallel/distributed.py``) make it a
 share of the global batch's step.
 
+Under a ``model`` axis the ranks of one model group load the same frames,
+as JAX replicates the batch over ``model``: a rank's shard follows its
+place on the data axis (its data group's rank and size,
+``parallel/distributed.py``), not its rank in the job.
+
 With one process the "global" batch is the local one.  The JAX package's
 ``global_batches`` (stitching the slices into global arrays) has no
 counterpart: a rank's batches are ``data/pipeline.py:device_batches`` of
@@ -24,6 +29,7 @@ from typing import Iterator
 import numpy as np
 
 from rtsds_tpu_torch.data.pipeline import DataLoader
+from rtsds_tpu_torch.parallel import distributed as _dist
 from rtsds_tpu_torch.parallel import mesh as _mesh
 from rtsds_tpu_torch.parallel.distributed import shard_positions
 
@@ -33,11 +39,12 @@ class MultiHostDataLoader(DataLoader):
 
     ``global_batch_size`` is the GLOBAL batch; each rank stacks ``global /
     process_count`` samples per step.  All ranks must pass the same
-    ``seed``.  ``process_index``/``process_count`` default to the process
-    group's and are overridable, for tests that play several ranks in one
-    process.  ``micro_batches`` K > 1 lays each rank's batch out for a
-    K-step accumulation: its share of global micro-batch k is its k-th
-    slice (this needs ``drop_last``, whole global batches).
+    ``seed``.  ``process_index``/``process_count`` default to the data
+    axis's (the data group's rank and size inside ``data_parallel``, else
+    the process group's) and are overridable, for tests that play several
+    ranks in one process.  ``micro_batches`` K > 1 lays each rank's batch
+    out for a K-step accumulation: its share of global micro-batch k is
+    its k-th slice (this needs ``drop_last``, whole global batches).
     """
 
     def __init__(self, dataset, global_batch_size: int, shuffle: bool = True,
@@ -46,8 +53,13 @@ class MultiHostDataLoader(DataLoader):
                  process_index: int | None = None,
                  process_count: int | None = None,
                  micro_batches: int = 1):
-        pc = _mesh.process_count() if process_count is None else process_count
-        pi = _mesh.process_index() if process_index is None else process_index
+        in_job = _dist.job_group() is not None
+        if process_count is None:
+            process_count = (_dist.world_size() if in_job
+                             else _mesh.process_count())
+        if process_index is None:
+            process_index = _dist.rank() if in_job else _mesh.process_index()
+        pc, pi = process_count, process_index
         if global_batch_size % pc != 0:
             raise ValueError(
                 f"global batch {global_batch_size} must divide evenly over "

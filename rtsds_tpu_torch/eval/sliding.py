@@ -6,6 +6,13 @@ mean over the windows that cover it.
 The window grid depends only on the frame size, so it is fixed when the
 predict function is made.  Windows run ``window_chunk`` at a time (all at
 once by default): one forward of ``window_chunk * N`` tiles each.
+
+:func:`make_banded_sliding_predict` runs the protocol on frames whose rows
+are banded over devices (``parallel/spatial.py``, spatial serving): each
+window's rows are gathered onto the band that holds its first row, the
+window runs through that device's forward, and its probabilities are
+scattered back into each band's accumulator beside the band's count map;
+the argmax is per band.  No device ever holds the whole frame.
 """
 
 from __future__ import annotations
@@ -16,6 +23,25 @@ import torch
 from torch import nn
 
 from rtsds_tpu_torch.eval.validate import make_eval_step
+
+
+def _grid(image_size: tuple[int, int], window: tuple[int, int],
+          stride: tuple[int, int] | None):
+    """The window ``(wh, ww)`` clipped to the image and the tiles' top-left
+    corners, with the stride checks."""
+    h, w = image_size
+    wh, ww = min(window[0], h), min(window[1], w)
+    if stride is None:
+        stride = (max(wh * 3 // 4, 1), max(ww * 3 // 4, 1))
+    if stride[0] <= 0 or stride[1] <= 0:
+        raise ValueError(f"stride {stride} must be positive")
+    if stride[0] > wh or stride[1] > ww:
+        raise ValueError(
+            f"stride {stride} exceeds window ({wh}, {ww}): uncovered "
+            f"pixels would divide 0/0")
+    tiles = [(y, x) for y in _positions(h, wh, stride[0])
+             for x in _positions(w, ww, stride[1])]
+    return (wh, ww), tiles
 
 
 def _positions(total: int, window: int, stride: int) -> list[int]:
@@ -48,17 +74,7 @@ def make_sliding_predict(forward: Callable, image_size: tuple[int, int],
         ``1`` one window at a time.
     """
     h, w = image_size
-    wh, ww = min(window[0], h), min(window[1], w)
-    if stride is None:
-        stride = (max(wh * 3 // 4, 1), max(ww * 3 // 4, 1))
-    if stride[0] <= 0 or stride[1] <= 0:
-        raise ValueError(f"stride {stride} must be positive")
-    if stride[0] > wh or stride[1] > ww:
-        raise ValueError(
-            f"stride {stride} exceeds window ({wh}, {ww}): uncovered "
-            f"pixels would divide 0/0")
-    tiles = [(y, x) for y in _positions(h, wh, stride[0])
-             for x in _positions(w, ww, stride[1])]
+    (wh, ww), tiles = _grid(image_size, window, stride)
     if window_chunk is None:
         window_chunk = len(tiles)
     if window_chunk < 1:
@@ -83,6 +99,73 @@ def make_sliding_predict(forward: Callable, image_size: tuple[int, int],
         if return_probs:
             return probs
         return probs.argmax(dim=1).to(torch.int32)
+
+    return predict
+
+
+def make_banded_sliding_predict(forwards, image_size: tuple[int, int],
+                                window: tuple[int, int] = (512, 1024),
+                                stride: tuple[int, int] | None = None,
+                                return_probs: bool = False,
+                                window_chunk: int | None = None
+                                ) -> Callable:
+    """:func:`make_sliding_predict` on banded frames: ``predict(x) ->
+    masks`` over (N, C, H, W) :class:`~rtsds_tpu_torch.parallel.spatial.
+    Bands` of ``image_size``, the masks (or with ``return_probs`` the mean
+    probabilities) as bands on the same rows.
+
+    ``forwards[i]`` runs (M, C, h, w) windows on device ``i`` of the bands
+    (a model replica there).  A window runs on the band that holds its
+    first row, its rows gathered there; the windows of one band run
+    ``window_chunk`` at a time (all at once by default).  Each band adds
+    the probabilities of every window that covers its rows in the window
+    order of :func:`make_sliding_predict`, so a pixel's sum is the one
+    device's sum in the same order."""
+    from rtsds_tpu_torch.parallel.spatial import _rows
+
+    h, w = image_size
+    (wh, ww), tiles = _grid(image_size, window, stride)
+    if window_chunk is not None and window_chunk < 1:
+        raise ValueError(f"window_chunk {window_chunk} must be >= 1")
+
+    def predict(x):
+        n, nb = x.shape[0], len(x.parts)
+        home = [next(i for i in range(nb) if x.bounds(i)[0] <= y
+                     < x.bounds(i)[1]) for y, _ in tiles]
+        probs = [None] * len(tiles)
+        for b in range(nb):
+            mine = [t for t, hb in enumerate(home) if hb == b]
+            chunk = window_chunk or max(len(mine), 1)
+            for start in range(0, len(mine), chunk):
+                group = mine[start:start + chunk]
+                batch = torch.cat([
+                    _rows(x, tiles[t][0], tiles[t][0] + wh, b)[
+                        ..., tiles[t][1]:tiles[t][1] + ww] for t in group])
+                out = torch.softmax(forwards[b](batch).float(), dim=1)
+                for i, t in enumerate(group):
+                    probs[t] = out[i * n:(i + 1) * n]
+        accs, counts = [], []
+        for j in range(nb):
+            a, e = x.bounds(j)
+            dev = x.layout.devices[j]
+            acc = torch.zeros((n, probs[0].shape[1], e - a, w),
+                              dtype=torch.float32, device=dev)
+            count = torch.zeros((1, 1, e - a, w), dtype=torch.float32,
+                                device=dev)
+            for t, (y, x0) in enumerate(tiles):
+                s_, e_ = max(y, a), min(y + wh, e)
+                if s_ >= e_:
+                    continue
+                acc[:, :, s_ - a:e_ - a, x0:x0 + ww] += \
+                    probs[t][:, :, s_ - y:e_ - y].to(dev)
+                count[:, :, s_ - a:e_ - a, x0:x0 + ww] += 1.0
+            accs.append(acc)
+            counts.append(count)
+        mean = x._like([acc / count for acc, count in zip(accs, counts)])
+        if return_probs:
+            return mean
+        return mean._per_band(
+            lambda p: p.argmax(dim=1).to(torch.int32))
 
     return predict
 

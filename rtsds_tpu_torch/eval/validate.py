@@ -7,8 +7,12 @@ shaped like the reference training script's.
 
 Under the data axis (``parallel/distributed.py``) each rank validates its
 own shards of the validation batches, and the ranks' matrices are summed
-once at the end (an int32 all-reduce), so every rank reports the mIoU of
-the whole set.
+once at the end (an int32 all-reduce over the data group: the ranks of a
+model group validate the same shards), so every rank reports the mIoU of
+the whole set.  Under the spatial axis the batches arrive as bands of
+rows (``parallel/spatial.py:split_batch``): the argmax is per band, the
+kernel runs on each band's device, and the bands' matrices are summed on
+the first device (:func:`~rtsds_tpu_torch.parallel.spatial.banded_hist`).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.ops.cuda.hist import fast_hist_cuda
 from rtsds_tpu_torch.parallel.distributed import global_sum
 from rtsds_tpu_torch.parallel.pipeline import to_device
+from rtsds_tpu_torch.parallel.spatial import (
+    Bands, FrameBands, banded_hist, gathered)
 from rtsds_tpu_torch.utils.dtypes import model_dtype
 from rtsds_tpu_torch.utils.metrics import per_class_iou
 
@@ -66,7 +72,10 @@ def make_eval_step(model: nn.Module, num_classes: int,
                              dtype=compute_dtype) if autocast
               else contextlib.nullcontext()):
             preds = predict(images.to(dtype).permute(0, 3, 1, 2))
-        new_hist = hist + fast_hist_cuda(labels, preds, num_classes)
+        if isinstance(preds, Bands):
+            new_hist = hist + banded_hist(labels, preds, num_classes)
+        else:
+            new_hist = hist + fast_hist_cuda(labels, preds, num_classes)
         if return_preds:
             return new_hist, preds
         return new_hist
@@ -105,13 +114,17 @@ def validate(model: nn.Module, val_iter: Iterable, num_classes: int,
         hist = torch.zeros((num_classes, num_classes), dtype=torch.int32,
                            device=device)
         for batch_idx, (images, labels) in enumerate(val_iter):
-            images = torch.as_tensor(images).to(device, non_blocking=True)
-            labels = torch.as_tensor(labels).to(device, non_blocking=True)
+            if not isinstance(images, FrameBands):  # bands stay put
+                images = torch.as_tensor(images).to(device,
+                                                    non_blocking=True)
+                labels = torch.as_tensor(labels).to(device,
+                                                    non_blocking=True)
             result = eval_step(images, labels, hist)
             if isinstance(result, tuple):
                 hist, preds = result
                 if plot_cbs:
-                    host = [t.cpu().numpy() for t in (images, labels, preds)]
+                    host = [gathered(t).cpu().numpy()
+                            for t in (images, labels, preds)]
                     for cb in plot_cbs:
                         cb.set_epoch(epoch)
                         cb.add_sample(*host)

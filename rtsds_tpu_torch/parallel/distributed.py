@@ -25,6 +25,14 @@ per update (the adversarial steps, gradient accumulation), which its
 reducer does not expect, and ``nn.SyncBatchNorm`` needs CUDA tensors and
 ``all_gather``.
 
+Under a ``model`` axis (``parallel/fsdp.py``) the ranks of one model
+group share a batch, so every collective above runs over the DATA group
+only (the ranks that share a model index): over the whole job it would
+count that batch once per model rank.  :func:`data_parallel` takes both
+groups; :func:`axis_groups` builds them from the (data, model) grid.  The
+job-wide acts (rank 0 writes, the barriers after its saves, the initial
+broadcast, the stop flag of a shutdown signal) span every rank.
+
 Everything here is the identity until :func:`data_parallel` names a
 process group of more than one rank.
 """
@@ -40,27 +48,68 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from rtsds_tpu_torch.utils.dtypes import at_least_f32
 
-_GROUP = None
+_GROUP = None   # the data axis's group, None at one rank
+_MODEL = None   # the model axis's group, None at one rank
+_JOB = None     # every rank of the job, None at one rank
 
 
 @contextlib.contextmanager
-def data_parallel(group=None):
+def data_parallel(group=None, model_group=None):
     """Inside the block the data axis spans ``group`` (default: the whole
-    process group); a no-op at world size 1, or with no process group."""
-    global _GROUP
-    previous = _GROUP
+    process group) and the model axis ``model_group`` (default: none); a
+    no-op at world size 1, or with no process group."""
+    global _GROUP, _MODEL, _JOB
+    previous = _GROUP, _MODEL, _JOB
     if dist.is_initialized():
         group = group if group is not None else dist.group.WORLD
         _GROUP = group if dist.get_world_size(group) > 1 else None
+        _MODEL = (model_group if model_group is not None
+                  and dist.get_world_size(model_group) > 1 else None)
+        _JOB = dist.group.WORLD if dist.get_world_size() > 1 else None
     try:
         yield
     finally:
-        _GROUP = previous
+        _GROUP, _MODEL, _JOB = previous
+
+
+def axis_groups(model_size: int) -> tuple:
+    """``(data_group, model_group)`` of this rank in the job's (data,
+    model) grid of ``world / model_size`` x ``model_size`` ranks, laid out
+    row-major as the JAX package reshapes its devices: rank ``r`` has data
+    index ``r // model_size`` and model index ``r % model_size``.  Every
+    rank creates every group (``dist.new_group`` is collective)."""
+    world, me = dist.get_world_size(), dist.get_rank()
+    if model_size < 1 or world % model_size:
+        raise ValueError(f"a model axis of {model_size} does not divide "
+                         f"the {world} ranks")
+    data_size = world // model_size
+    mine = {}
+    for m in range(model_size):  # the ranks that share a model index
+        ranks = [d * model_size + m for d in range(data_size)]
+        group = dist.new_group(ranks)
+        if me in ranks:
+            mine["data"] = group
+    for d in range(data_size):  # the ranks that share a data index
+        ranks = [d * model_size + m for m in range(model_size)]
+        group = dist.new_group(ranks)
+        if me in ranks:
+            mine["model"] = group
+    return mine["data"], mine["model"]
 
 
 def data_group():
     """The data axis's process group, or None when it is one rank."""
     return _GROUP
+
+
+def model_group():
+    """The model axis's process group, or None when it is one rank."""
+    return _MODEL
+
+
+def job_group():
+    """Every rank of the job, or None when it is one process."""
+    return _JOB
 
 
 def world_size() -> int:
@@ -72,13 +121,14 @@ def rank() -> int:
 
 
 def is_main_rank() -> bool:
-    """Whether this rank writes: rank 0, or the only process."""
-    return rank() == 0
+    """Whether this rank writes: the job's rank 0, or the only process."""
+    return _JOB is None or dist.get_rank(_JOB) == 0
 
 
 def barrier() -> None:
-    if _GROUP is not None:
-        dist.barrier(group=_GROUP)
+    """Every rank of the job waits for the others."""
+    if _JOB is not None:
+        dist.barrier(group=_JOB)
 
 
 def shard_positions(global_n: int, index: int, count: int,
@@ -170,22 +220,29 @@ def cyclic_partners(partner: torch.Tensor, n: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def all_reduce_gradients(params) -> None:
-    """Sum the gradients of ``params`` over the ranks, in place, with one
-    all-reduce per (device, dtype) bucket.  Parameters without a gradient
-    are skipped; every rank runs the same graph, so they agree on which."""
-    if _GROUP is None:
+def all_reduce_gradients(params, group=None) -> None:
+    """Sum the gradients of ``params`` over the data axis's ranks (or over
+    ``group``), in place, with one all-reduce per (device, dtype) bucket.
+    Parameters without a gradient are skipped; every rank runs the same
+    graph, so they agree on which."""
+    group = _GROUP if group is None else group
+    if group is None:
         return
+    all_reduce_tensors([p.grad for p in params if p.grad is not None],
+                       group)
+
+
+def all_reduce_tensors(tensors, group) -> None:
+    """Sum ``tensors`` over ``group``, in place, one all-reduce per
+    (device, dtype) bucket."""
     buckets: dict = {}
-    for p in params:
-        if p.grad is not None:
-            buckets.setdefault((p.grad.device, p.grad.dtype),
-                               []).append(p.grad)
-    for grads in buckets.values():
-        flat = _flatten_dense_tensors(grads)
-        dist.all_reduce(flat, group=_GROUP)
-        for g, reduced in zip(grads, _unflatten_dense_tensors(flat, grads)):
-            g.copy_(reduced)
+    for t in tensors:
+        buckets.setdefault((t.device, t.dtype), []).append(t)
+    for ts in buckets.values():
+        flat = _flatten_dense_tensors(ts)
+        dist.all_reduce(flat, group=group)
+        for t, reduced in zip(ts, _unflatten_dense_tensors(flat, ts)):
+            t.copy_(reduced)
 
 
 # integer metrics that count a shape's elements: equal on every rank
@@ -196,9 +253,11 @@ def reduce_metrics(metrics: dict) -> dict:
     """A step's metrics summed over the ranks: its tensors (the loss
     shares, the pixel counts) in one all-reduce, its shape counts times
     the world size; a float (a schedule's value) is every rank's.  Adds
-    ``preempted``, the count of ranks that received a shutdown signal
-    (``utils/preemption.py``), so that all of them stop at one step."""
-    if _GROUP is None:
+    ``preempted``, the count of ranks of the whole job that received a
+    shutdown signal (``utils/preemption.py``), so that all of them stop at
+    one step.  The metrics are summed over the data group alone: the
+    ranks of a model group ran the same batch."""
+    if _JOB is None:
         return metrics
     from rtsds_tpu_torch.utils.preemption import stop_requested
 
@@ -208,7 +267,12 @@ def reduce_metrics(metrics: dict) -> dict:
                         device=device)
     packed = torch.cat([metrics[k].detach().reshape(1).to(torch.float64)
                         for k in keys] + [flag])
-    dist.all_reduce(packed, group=_GROUP)
+    if _MODEL is None:  # the data group is the job
+        dist.all_reduce(packed, group=_JOB)
+    else:
+        if _GROUP is not None:
+            dist.all_reduce(packed[:-1], group=_GROUP)
+        dist.all_reduce(packed[-1:], group=_JOB)
     out = dict(metrics)
     for i, k in enumerate(keys):
         out[k] = packed[i].to(metrics[k].dtype)
@@ -220,14 +284,14 @@ def reduce_metrics(metrics: dict) -> dict:
 
 
 def broadcast_state(module: nn.Module, src: int = 0) -> None:
-    """Every parameter and buffer of ``module`` broadcast from rank
-    ``src``, in place: after the init or a restore every rank holds rank
-    0's weights."""
-    if _GROUP is None:
+    """Every parameter and buffer of ``module`` broadcast from the job's
+    rank ``src`` to every rank, in place: after the init or a restore
+    every rank holds rank 0's weights."""
+    if _JOB is None:
         return
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, src=src, group=_GROUP)
+            dist.broadcast(t.data, src=src, group=_JOB)
 
 
 def _channel_view(x: torch.Tensor):
@@ -327,13 +391,13 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
 
 
 def replicate(*models: nn.Module) -> None:
-    """Under the data axis of several ranks: every model's BatchNorm made
-    global-batch and its parameters and buffers rank 0's; nothing at one
-    rank.  Run after the init and after a restore."""
-    if _GROUP is None:
-        return
+    """In a job of several ranks: every model's parameters and buffers
+    rank 0's, and under a data axis of several ranks its BatchNorm made
+    global-batch; nothing at one rank.  Run after the init and after a
+    restore."""
     for model in models:
-        convert_global_batchnorm(model)
+        if _GROUP is not None:
+            convert_global_batchnorm(model)
         broadcast_state(model)
 
 

@@ -1,75 +1,102 @@
-"""Meshes of the port: the ``data`` axis over processes and the ``pipe``
-axis over one process's devices.
+"""Meshes of the port: the ``data`` and ``model`` axes over processes,
+the ``spatial`` and ``pipe`` axes over one process's devices.
 
 Counterpart of ``rtsds_tpu/parallel/mesh.py``.  JAX builds one mesh over
-every chip of the job and lets XLA insert the collectives; the port runs
-one process per GPU (``--multihost``: torchrun's or the ``RTSDS_*``
-variables), and the data axis is the process group: each rank holds its
-contiguous shard of every global batch on its own device, BatchNorm reads
-global-batch statistics, the losses divide by global counts and the
-gradients are summed across ranks (``parallel/distributed.py``).  The pipe
-axis is one process over a list of stage devices (``parallel/pipeline.py``,
-``train/pipelined.py``).  Serving's batch mesh is one process over a list
-of devices too, one model replica on each (``serve.py``).
+every chip of the job and lets XLA insert the collectives; the port maps
+each axis onto what PyTorch runs:
 
-A :class:`Mesh` is a device list and its axis name.  On the data axis it
-has one entry per rank, and a rank knows its own device only, so every
+* ``data`` and ``model`` span processes (``--multihost``: torchrun's or
+  the ``RTSDS_*`` variables, one process per GPU).  A rank's place in the
+  (data, model) grid follows JAX's row-major reshape of its device list:
+  ``rank = data_index * M + model_index``.  The ranks that share a model
+  index form the data group: each holds its contiguous shard of every
+  global batch, BatchNorm reads global-batch statistics, the losses divide
+  by global counts and the gradients are summed over the group
+  (``parallel/distributed.py``).  The ranks that share a data index form
+  the model group: they load the same frames (JAX replicates the batch
+  over ``model``) and each keeps only its shard of every large parameter
+  and of its optimizer moments, gathered before the forward and
+  reduce-scattered after the backward (``parallel/fsdp.py``).  Without
+  ``--multihost`` a model axis exits, as a data axis of several GPUs
+  idles them: launch one process per GPU.
+* ``spatial`` and ``pipe`` span one process's local devices: a spatial
+  mesh bands each frame's rows over them (``parallel/spatial.py``, for
+  serving and for training), a pipe mesh pipelines DeepLab's layer3
+  (``parallel/pipeline.py``, ``train/pipelined.py``).  Serving's batch
+  mesh is one process over a list of devices too, one model replica on
+  each (``serve.py``).
+
+A :class:`Mesh` is a row-major device grid with its axis names and sizes.
+On the axes over processes a rank knows its own device only, so every
 entry is that device.  The CPU counts as ``RTSDS_CPU_DEVICES`` devices
 (default 1), as XLA's host platform device count does for the JAX
-package's tests, so that a pipe or serving mesh of several stages runs
-there.
-
-Serving's spatial mesh is one process over a list of devices too, each
-holding a band of every frame's rows (:func:`shard_spatial`,
-``parallel/spatial.py``).  The ``spatial`` and ``model`` axes in training,
-and meshes that compose axes, are not ported yet (ROADMAP item 17):
-:func:`make_mesh_from_config` raises on them.
+package's tests, so that a spatial, pipe or serving mesh of several
+devices runs there.  :func:`make_mesh_from_config` builds any ``{data,
+spatial, model, pipe}`` mesh by the JAX package's rules; what the trainer
+runs on it is the CLI's to decide (``cli.py:_check_mesh``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import warnings
 
+import numpy as np
 import torch
 import torch.distributed as dist
-
-NOT_PORTED = "not ported yet to rtsds_tpu_torch (ROADMAP item 17)"
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: ``devices`` along the axis ``axis_names[0]``."""
+    """An N-D mesh: ``devices`` laid out row-major over ``axis_names``,
+    whose sizes are ``axis_sizes`` (default: one axis of every device)."""
 
     devices: tuple
     axis_names: tuple = ("data",)
+    axis_sizes: tuple | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "devices",
                            tuple(torch.device(d) for d in self.devices))
         object.__setattr__(self, "axis_names", tuple(self.axis_names))
-        if len(self.axis_names) != 1:
-            raise ValueError(f"the port's meshes are 1-D, got axes "
-                             f"{self.axis_names}; composed meshes are "
-                             f"{NOT_PORTED}")
+        sizes = (len(self.devices),) if self.axis_sizes is None \
+            else tuple(int(n) for n in self.axis_sizes)
+        object.__setattr__(self, "axis_sizes", sizes)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        if len(sizes) != len(self.axis_names) or \
+                math.prod(sizes) != len(self.devices):
+            raise ValueError(f"axes {self.axis_names} of sizes {sizes} do "
+                             f"not lay out {len(self.devices)} devices")
 
     @property
     def shape(self) -> dict:
-        return {self.axis_names[0]: len(self.devices)}
+        return dict(zip(self.axis_names, self.axis_sizes))
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def grid(self) -> np.ndarray:
+        """The devices as an array of the axes' sizes."""
+        grid = np.empty(len(self.devices), dtype=object)
+        grid[:] = self.devices
+        return grid.reshape(self.axis_sizes)
+
+    def axis_size(self, name: str) -> int:
+        """The size of axis ``name``; 1 when the mesh lacks it."""
+        return self.shape.get(name, 1)
+
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """Where a tensor lives on a mesh: ``spec`` () is replicated on every
-    device, ``("data",)`` split along the batch dimension."""
+    device, ``("data",)`` split along the batch dimension, ``("data",
+    "spatial")`` the batch over ``data`` and the rows over ``spatial``."""
 
     mesh: Mesh
     spec: tuple = ()
@@ -131,25 +158,40 @@ def make_mesh(devices=None, axis_name: str = "data",
     return Mesh(tuple(devices), (axis_name,))
 
 
+def make_mesh_2d(shape: tuple, axis_names=("data", "spatial"),
+                 devices=None) -> Mesh:
+    """A named N-D mesh over the first ``prod(shape)`` of ``devices``
+    (default: one per rank), as the JAX package's ``make_mesh_2d``."""
+    if devices is None:
+        devices = job_devices(_current_device("cuda"))
+    devices = list(devices)
+    n = int(np.prod(shape))
+    if len(devices) < n:
+        raise ValueError(f"mesh {tuple(shape)} needs {n} devices, have "
+                         f"{len(devices)}")
+    return Mesh(tuple(devices[:n]), tuple(axis_names), tuple(shape))
+
+
 def make_mesh_from_config(spec: dict, devices=None,
                           batch_size: int | None = None,
                           device_type: str = "cuda") -> Mesh:
     """The job's mesh from the config's ``mesh:`` section, by the JAX
-    package's rules: ``data: -1`` fills the devices (trimmed to divide
-    ``batch_size``); ``pipe: N`` pipelines DeepLab's layer3 over N of this
-    process's devices (``-1``: all of them; one device warns and runs as a
-    data mesh), alone and in one process only.  ``devices`` defaults to one
-    per rank for the data axis and to :func:`local_devices` for the pipe
-    axis."""
+    package's rules.  A pure-data spec (``data: -1`` fills the devices)
+    keeps :func:`make_mesh`'s batch-divisibility trimming; ``pipe: N``
+    pipelines DeepLab's layer3 over N of this process's devices (``-1``:
+    all of them; one device warns and runs as a data mesh), alone and in
+    one process only; a spec with ``spatial: S`` or ``model: M`` is a
+    ``(data, [spatial,] [model])`` grid: ``data: -1`` fills to
+    ``len(devices) // (S * M)``, surplus devices warn that they idle, and
+    the global batch must divide the data axis.  ``devices`` defaults to
+    :func:`local_devices` for the pipe and spatial axes (one process) and
+    to one per rank otherwise."""
     d = int(spec.get("data", -1))
     s = int(spec.get("spatial", 1))
     m = int(spec.get("model", 1))
     p = int(spec.get("pipe", 1))
-    if s > 1 or m > 1:
-        raise NotImplementedError(
-            f"mesh spec {spec}: the spatial and model axes are {NOT_PORTED}")
     if devices is None:
-        devices = (local_devices(device_type) if p != 1
+        devices = (local_devices(device_type) if p != 1 or s > 1
                    else job_devices(_current_device(device_type)))
     devices = list(devices)
     if p in (-1, 0):
@@ -165,7 +207,7 @@ def make_mesh_from_config(spec: dict, devices=None,
         raise ValueError(f"mesh spec {spec}: pipe must be a positive "
                          f"stage count or -1 (all devices)")
     if p > 1:
-        if d not in (-1, 0, 1):
+        if s > 1 or m > 1 or d not in (-1, 0, 1):
             raise ValueError(
                 f"mesh spec {spec}: pipe does not compose with data/"
                 f"spatial/model axes (BN statistics would become "
@@ -183,8 +225,34 @@ def make_mesh_from_config(spec: dict, devices=None,
                 f"mesh spec {spec} uses {p} of {len(devices)} devices; "
                 f"{len(devices) - p} chip(s) will idle.", stacklevel=2)
         return Mesh(tuple(devices[:p]), ("pipe",))
-    return make_mesh(devices if d in (-1, 0) else devices[:d],
-                     batch_size=batch_size)
+    if s <= 1 and m <= 1:
+        return make_mesh(devices if d in (-1, 0) else devices[:d],
+                         batch_size=batch_size)
+    if d in (-1, 0):
+        d = len(devices) // (s * m)
+        if d == 0:
+            raise ValueError(
+                f"mesh spec {spec} needs at least {s * m} devices, "
+                f"have {len(devices)}")
+    if d * s * m < len(devices):
+        warnings.warn(
+            f"mesh spec {spec} uses {d * s * m} of {len(devices)} devices; "
+            f"{len(devices) - d * s * m} chip(s) will idle. Adjust the "
+            f"spec (or use data: -1) for full utilization.", stacklevel=2)
+    if batch_size is not None and batch_size % d != 0:
+        raise ValueError(
+            f"global batch {batch_size} does not divide over the {d}-wide "
+            f"data axis of mesh spec {spec}; set the batch size to a "
+            f"multiple of {d} or shrink the data axis")
+    shape, axes = [d], ["data"]
+    if s > 1:
+        shape.append(s)
+        axes.append("spatial")
+    if m > 1:
+        shape.append(m)
+        axes.append("model")
+    return make_mesh_2d(tuple(shape), axis_names=tuple(axes),
+                        devices=devices)
 
 
 def _current_device(device_type: str) -> torch.device:
@@ -211,6 +279,13 @@ def spatial_sharding(mesh: Mesh, axis_name: str = "data") -> Sharding:
     return Sharding(mesh, (None, axis_name))
 
 
+def dp_spatial_sharding(mesh: Mesh, data_axis: str = "data",
+                        spatial_axis: str = "spatial") -> Sharding:
+    """The batch over ``data`` and the height over ``spatial`` at once
+    (NHWC frames and NHW label maps alike)."""
+    return Sharding(mesh, (data_axis, spatial_axis))
+
+
 def row_starts(height: int, n: int) -> list[int]:
     """The first row of each of ``n`` equal bands of ``height`` rows (the
     height must divide)."""
@@ -234,10 +309,14 @@ def shard_spatial(batch, mesh: Mesh) -> list:
 
 
 def input_sharding(mesh: Mesh) -> Sharding:
-    """Input batches: split over ``data``; replicated on a ``pipe`` mesh,
-    whose schedule splits the batch into microbatches itself."""
+    """Input batches: split over ``data``, and their rows over ``spatial``
+    when the mesh has that axis (the ``model`` axis never shards inputs:
+    it shards parameters); replicated on a ``pipe`` mesh, whose schedule
+    splits the batch into microbatches itself."""
     if "pipe" in mesh.axis_names:
         return replicated_sharding(mesh)
+    if "spatial" in mesh.axis_names:
+        return dp_spatial_sharding(mesh)
     return batch_sharding(mesh, mesh.axis_names[0])
 
 
@@ -256,14 +335,31 @@ def shard_batch(batch, mesh: Mesh) -> list:
 
 
 def place_state(state, mesh: Mesh):
-    """A train state on the job mesh: on the data axis of several ranks
-    its BatchNorm made global-batch and its parameters and buffers rank
-    0's (``parallel/distributed.py:replicate``); a pipe mesh places its
-    stages when the pipelined step is made (``train/pipelined.py``)."""
+    """A train state on the job mesh: in a job of several ranks its
+    parameters and buffers rank 0's, under a data axis of several ranks
+    its BatchNorm global-batch (``parallel/distributed.py:replicate``),
+    and FSDP-sharded over ``model`` when that axis is larger than 1
+    (``parallel/fsdp.py:shard_state``: each rank keeps its shard of every
+    large parameter and of its moments).  A spatial mesh keeps the state on
+    its first device; a pipe mesh places its stages when the pipelined
+    step is made (``train/pipelined.py``).  Placing a state twice (after a
+    restore) changes nothing more."""
     if "data" in mesh.axis_names:
-        from rtsds_tpu_torch.parallel.distributed import replicate
+        from rtsds_tpu_torch.parallel.distributed import (
+            model_group, replicate)
 
+        if getattr(state.optimizer, "sharded", None) is not None:
+            return state  # a restore re-shards through load_state_dict
         replicate(state.model)
+        if mesh.axis_size("model") > 1:
+            from rtsds_tpu_torch.parallel.fsdp import shard_state
+
+            group = model_group()
+            if group is None:
+                raise ValueError(
+                    f"a {mesh.axis_size('model')}-wide model axis needs a "
+                    f"process group of that many ranks (--multihost)")
+            shard_state(state, group)
     return state
 
 

@@ -1,5 +1,5 @@
-"""Height-band (spatial) inference: one frame's rows split over the
-devices of a mesh, for frames too large for one device.
+"""Height-band (spatial) inference and training: one frame's rows split
+over the devices of a mesh, for frames too large for one device.
 
 Counterpart of what XLA's SPMD partitioner does to the JAX package's
 serving forward under ``rtsds_tpu/parallel/mesh.py:spatial_sharding``
@@ -34,10 +34,21 @@ runs on a band alone when it reads across rows.
   torch's own kernel.  ``mean`` over H sums each band in at least float32,
   adds the sums on the first device and divides by the global count
   (BiSeNet's ARM/FFM gates, the ResNet tail): a plain tensor.
+* Train-mode ``batch_norm`` reads the whole batch: each band's sums in at
+  least float32, added on the first device, the mean, then the centred
+  squares the same way (a two-pass variance, as
+  ``parallel/distributed.py:GlobalBatchNorm2d`` computes it), the running
+  mean and the unbiased running variance from the global count; its
+  backward, as every op's here, is autograd's over the bands' tensors and
+  their copies, which is the whole batch's.  ``cross_entropy`` sums each
+  band's losses and counts its valid pixels, and divides on the first
+  device; ``sum`` over every dim is a plain tensor there too.  The
+  discriminators pool their logits over H (a plain tensor), so their BCE
+  never meets a band.
 * Every other op is per band: elementwise ops (a plain operand must not
   vary along H: the pooled gates), eval-mode ``batch_norm``, ``softmax``,
-  ``argmax`` and ``cat`` over the channel or batch dims, batch slicing and
-  width flips.
+  ``leaky_relu``, ``argmax``, comparisons and ``cat`` over the channel or
+  batch dims, batch slicing and width flips.
 
 The int8 walks (``models/{bisenet,deeplab}_int8.py``) take their convs
 through an ``op(name, x, stride, padding, dilation)`` argument:
@@ -46,9 +57,13 @@ replica's quantized conv on the band's rows with the padding ``(0, pw)``;
 the quantize and dequantize steps are elementwise, so per band.
 
 Bands move between devices by device copies (``Tensor.to``), in one
-process, and every op is a differentiable torch op: the spatial axis in
-training (ROADMAP item 17.4) keeps this engine, swaps :func:`_rows`'s
-copies for collectives, and adds batch norm over the bands.
+process, and every op is a differentiable torch op, so a training step
+runs on bands as it runs on a tensor (ROADMAP item 17.4): the weights stay
+on the first device, ``Tensor.to`` copies carry them to the others, and
+the backward carries each copy's gradient back to the first device's
+parameter.  :class:`FrameBands` holds NHWC frames banded the same way,
+whose ``permute(0, 3, 1, 2)`` is the model's input;
+:func:`split_batch` bands a training or validation batch.
 """
 
 from __future__ import annotations
@@ -59,7 +74,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.modules.utils import _pair
 
-NOT_BANDED = "has no height-band form (ROADMAP item 17)"
+NOT_BANDED = "has no height-band form (ROADMAP item 17.5)"
 
 
 class _Layout:
@@ -207,6 +222,38 @@ class Bands:
 
     def __truediv__(self, other):
         return _binary(torch.div, self, other)
+
+    def __eq__(self, other):  # noqa: D105 -- elementwise, as a tensor's
+        return _binary(torch.eq, self, other)
+
+    def __ne__(self, other):
+        return _binary(torch.ne, self, other)
+
+    __hash__ = object.__hash__
+
+    def long(self) -> "Bands":
+        return self.to(torch.long)
+
+    def detach(self) -> "Bands":
+        return self._per_band(torch.Tensor.detach)
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def sum(self, dim=None, keepdim: bool = False, dtype=None):
+        """Per band over dims without H; over every dim the bands' sums
+        added on the first device: a plain tensor."""
+        if dim is not None and not self._hdim(dim):
+            return self._per_band(lambda p: p.sum(dim, keepdim=keepdim,
+                                                  dtype=dtype))
+        if dim is not None:
+            raise NotImplementedError(f"a sum over H but not every dim "
+                                      f"{NOT_BANDED}")
+        total = None
+        for p in self.parts:
+            s = p.sum(dtype=dtype).to(self.device)
+            total = s if total is None else total + s
+        return total
 
     # --- torch functions ----------------------------------------------------
 
@@ -476,7 +523,8 @@ def _cat(tensors, dim=0):
 def _batch_norm(input, running_mean, running_var, weight=None, bias=None,
                 training=False, momentum=0.1, eps=1e-5):
     if training:
-        raise NotImplementedError(f"train-mode batch norm {NOT_BANDED}")
+        return _batch_norm_train(input, running_mean, running_var, weight,
+                                 bias, momentum, eps)
     lay = input.layout
     return input._like([
         F.batch_norm(p, lay.on(running_mean, i), lay.on(running_var, i),
@@ -484,16 +532,185 @@ def _batch_norm(input, running_mean, running_var, weight=None, bias=None,
                      eps) for i, p in enumerate(input.parts)])
 
 
+def _batch_norm_train(x: Bands, running_mean, running_var, weight, bias,
+                      momentum, eps) -> Bands:
+    """Train-mode batch norm with the whole batch's statistics over the
+    bands (see the module docstring); the running statistics, when given,
+    advance by ``momentum`` as ``F.batch_norm``'s do."""
+    lay, dev = x.layout, x.device
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dims = [0] + list(range(2, x.ndim))
+    view = [1, x.shape[1]] + [1] * (x.ndim - 2)
+    count = x.numel() // x.shape[1]
+    mean = sum(p.to(acc).sum(dims).to(dev) for p in x.parts) / count
+    means = [lay.on(mean, i).view(view) for i in range(len(x.parts))]
+    centred = [p.to(acc) - m for p, m in zip(x.parts, means)]
+    sq = sum((c * c).sum(dims).to(dev) for c in centred)
+    invstd = torch.rsqrt(sq / count + eps)
+    if running_mean is not None:
+        with torch.no_grad():
+            running_mean.mul_(1.0 - momentum).add_(
+                mean.detach().to(running_mean.dtype), alpha=momentum)
+            running_var.mul_(1.0 - momentum).add_(
+                (sq.detach() / max(count - 1, 1)).to(running_var.dtype),
+                alpha=momentum)
+    parts = []
+    for i, (p, c) in enumerate(zip(x.parts, centred)):
+        y = c * lay.on(invstd, i).view(view)
+        if weight is not None:
+            y = y * lay.on(weight, i).to(acc).view(view)
+        if bias is not None:
+            y = y + lay.on(bias, i).to(acc).view(view)
+        parts.append(y.to(p.dtype))
+    return x._like(parts)
+
+
+def _cross_entropy(input, target, weight=None, size_average=None,
+                   ignore_index=-100, reduce=None, reduction="mean",
+                   label_smoothing=0.0):
+    """The cross entropy of banded logits against banded labels: each
+    band's summed loss, added on the first device, over the count of valid
+    pixels (``mean``) or alone (``sum``)."""
+    if weight is not None or label_smoothing or size_average is not None \
+            or reduce is not None or reduction not in ("mean", "sum"):
+        raise NotImplementedError(f"cross_entropy with weight, smoothing "
+                                  f"or reduction={reduction!r} "
+                                  f"{NOT_BANDED}")
+    target = _repartition(target, input.starts)
+    total = sum(F.cross_entropy(p, t, ignore_index=ignore_index,
+                                reduction="sum").to(input.device)
+                for p, t in zip(input.parts, target.parts))
+    if reduction == "sum":
+        return total
+    return total / (target != ignore_index).sum().to(total.dtype)
+
+
 _HANDLERS = {
     F.conv2d: _conv2d,
     F.max_pool2d: _max_pool2d,
     F.interpolate: _interpolate,
     F.batch_norm: _batch_norm,
+    F.cross_entropy: _cross_entropy,
     F.relu: _unary(F.relu),
+    F.leaky_relu: _unary(F.leaky_relu),
     torch.sigmoid: _unary(torch.sigmoid),
     torch.softmax: _softmax(torch.softmax),
+    F.softmax: _softmax(F.softmax),
     torch.cat: _cat,
 }
+
+
+class FrameBands:
+    """NHWC frames split by rows over devices (``parts[i]`` the global rows
+    ``[starts[i], starts[i + 1])``), as a training or validation batch
+    arrives: ``permute(0, 3, 1, 2)`` gives the NCHW :class:`Bands` a model
+    takes, and ``to`` casts each band."""
+
+    def __init__(self, parts, starts, height: int, layout: _Layout):
+        self.parts = list(parts)
+        self.starts = tuple(int(s) for s in starts)
+        self.height = int(height)
+        self.layout = layout
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.parts[0].shape)
+        s[1] = self.height
+        return torch.Size(s)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.layout.devices[0]
+
+    def to(self, *args, **kwargs) -> "FrameBands":
+        if "device" in kwargs or any(isinstance(a, (torch.device, str))
+                                     for a in args):
+            raise NotImplementedError("a banded batch stays on its "
+                                      "devices; gather it first")
+        return FrameBands([p.to(*args, **kwargs) for p in self.parts],
+                          self.starts, self.height, self.layout)
+
+    def permute(self, *dims) -> Bands:
+        if tuple(dims) != (0, 3, 1, 2):
+            raise NotImplementedError(f"permute{tuple(dims)} of banded "
+                                      f"frames {NOT_BANDED}")
+        return Bands([p.permute(0, 3, 1, 2) for p in self.parts],
+                     self.starts, self.height, self.layout)
+
+    def gather(self, device=None) -> torch.Tensor:
+        device = self.device if device is None else torch.device(device)
+        return torch.cat([p.to(device) for p in self.parts], dim=1)
+
+
+def split_batch(images: torch.Tensor, labels: torch.Tensor, devices
+                ) -> tuple[FrameBands, Bands]:
+    """A batch of NHWC ``images`` and (N, H, W) ``labels`` on one device ->
+    their bands of rows over ``devices`` (equal bands; a band may be
+    empty at a deep level), on a fresh layout: ``(frames, labels)``."""
+    layout = _Layout(devices)
+    height = images.shape[1]
+    n = len(layout.devices)
+    starts = [i * height // n for i in range(n)]
+    frames = FrameBands(split_rows(images, layout.devices, dim=1,
+                                   starts=starts), starts, height, layout)
+    bands = Bands(split_rows(labels, layout.devices, dim=-2, starts=starts),
+                  starts, height, layout)
+    return frames, bands
+
+
+class BandedBatches:
+    """``batches`` of ``(images, labels)`` on the first device, each split
+    into bands over ``devices`` (:func:`split_batch`) as it is drawn;
+    ``close`` closes ``batches``."""
+
+    def __init__(self, batches, devices):
+        self.batches = batches
+        self.devices = list(devices)
+        self._it = None
+
+    def __iter__(self):
+        self._it = iter(self.batches)
+        return self
+
+    def __next__(self):
+        if self._it is None:
+            self._it = iter(self.batches)
+        images, labels = next(self._it)
+        return split_batch(images, labels, self.devices)
+
+    def close(self) -> None:
+        close = getattr(self.batches, "close", None)
+        if close is not None:
+            close()
+
+
+def banded_hist(labels: Bands, preds: Bands, num_classes: int
+                ) -> torch.Tensor:
+    """The confusion matrix of banded labels and predictions: the
+    confusion-matrix kernel (K1) on each band's device, the matrices summed
+    on the first device; a band with no row adds nothing."""
+    from rtsds_tpu_torch.ops.cuda.hist import fast_hist_cuda
+
+    preds = _repartition(preds, labels.starts)
+    total = None
+    for lab, pred in zip(labels.parts, preds.parts):
+        if lab.numel() == 0:
+            continue
+        h = fast_hist_cuda(lab, pred, num_classes).to(labels.device)
+        total = h if total is None else total + h
+    return total
+
+
+def gathered(t) -> torch.Tensor:
+    """``t`` whole on its first device: a banded map or batch gathered, a
+    tensor as it is."""
+    if isinstance(t, (Bands, FrameBands)):
+        return gather(t) if isinstance(t, Bands) else t.gather()
+    return t
 
 
 class SpatialModel:

@@ -29,8 +29,10 @@ mesh; any batch size): the model's own forward, or the int8 walk, runs on
 the bands (``parallel/spatial.py``: halos of rows for the convs and the
 pool, pooled sums over the bands, resizes from the global heights), and
 the masks are gathered on the first device; ``--mesh spatial`` builds it
-over every device, untrimmed.  The sliding protocol is not banded yet
-(ROADMAP item 17).
+over every device, untrimmed.  The sliding protocol runs on the bands too
+(``eval/sliding.py:make_banded_sliding_predict``): each window on the band
+that holds its first row, through that device's replica, its
+probabilities scattered back into the bands.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from rtsds_tpu_torch.callbacks.checkpoint import CheckpointManager
 from rtsds_tpu_torch.config import parse_float_list, parse_int_list
 from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.eval.ensemble import make_ensemble_predict
-from rtsds_tpu_torch.eval.sliding import make_sliding_predict
+from rtsds_tpu_torch.eval.sliding import (
+    make_banded_sliding_predict, make_sliding_predict)
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
 from rtsds_tpu_torch.models.pretrained import (
@@ -171,11 +174,6 @@ def colorize_masks(masks: np.ndarray) -> np.ndarray:
     return np.stack([apply_color_map(m) for m in masks])
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to rtsds_tpu_torch;"
-                               f" use rtsds_tpu for it")
-
-
 class Predictor:
     """Device-resident segmentation predictor.
 
@@ -221,7 +219,7 @@ class Predictor:
       sharding: ``"batch"``, the batch split over the mesh (``batch_size``
         a multiple of its size), or ``"spatial"``, each frame's rows split
         into one band per device (the height must divide over the mesh;
-        the plain and ensemble protocols).
+        every protocol).
       device: ``None`` serves on the GPU and raises without one; pass
         ``"cpu"`` to serve on the CPU.
     """
@@ -259,9 +257,6 @@ class Predictor:
                         f"{mesh.size}-device mesh for batch-sharded serving")
             elif sharding == "spatial":
                 row_starts(tuple(image_size)[0], mesh.size)
-                if protocol == "sliding":
-                    raise _not_ported("the sliding protocol under spatial "
-                                      "serving (ROADMAP item 17)")
             else:
                 raise ValueError(f"unknown serving sharding {sharding!r}")
         if variables is not None and state is not None:
@@ -328,9 +323,19 @@ class Predictor:
             return make_ensemble_predict(forward, self.image_size,
                                          **(protocol_kwargs or {}))
         if protocol == "sliding":
+            if isinstance(model, SpatialModel):
+                # each window runs whole on one band's device
+                return make_banded_sliding_predict(
+                    [self._forward_on(r) for r in model.replicas],
+                    self.image_size, **(protocol_kwargs or {}))
             return make_sliding_predict(forward, self.image_size,
                                         **(protocol_kwargs or {}))
         return None
+
+    def _forward_on(self, replica):
+        def forward(x):
+            return replica(x.to(self.dtype))
+        return forward
 
     def _normalized(self, frames: np.ndarray, device=None) -> torch.Tensor:
         """(N, H, W, 3) uint8 host frames -> normalized float32 (N, 3, H,

@@ -5,10 +5,15 @@ The update rule, in order:
   0. under the data axis (``parallel/distributed.py``), every gradient is
      summed over the ranks (the ranks' losses are shares of the global
      batch's), so every step reduces them here, once, before the update;
-     then the gradients of the ``frozen`` parameters (DeepLabV2's
-     batch-norm affines) are set to zero, a missing one created as zero;
+     under the model axis (``parallel/fsdp.py``, ``sharded``) the
+     optimizer holds each large parameter's shard, and the whole
+     gradients are then reduce-scattered into the shards; then the
+     gradients of the ``frozen`` parameters (DeepLabV2's batch-norm
+     affines) are set to zero, a missing one created as zero;
   1. ``grad_clip``: when the global norm of all gradients exceeds it, every
-     gradient is scaled by ``grad_clip / norm`` (before the moments);
+     gradient is scaled by ``grad_clip / norm`` (before the moments); the
+     norm is taken in at least float32, and under the model axis from the
+     shards' squares summed over the model group;
   2. Adam (betas 0.9, 0.999, eps 1e-8, ``weight_decay`` added to the
      gradient before the moments, not decoupled AdamW) or SGD with
      heavy-ball momentum (no dampening, no Nesterov, and no weight decay,
@@ -36,6 +41,7 @@ import torch
 from torch import nn
 
 from rtsds_tpu_torch.parallel.distributed import all_reduce_gradients
+from rtsds_tpu_torch.utils.dtypes import at_least_f32
 from rtsds_tpu_torch.utils.schedules import Schedule
 
 
@@ -54,6 +60,8 @@ class ScheduledOptimizer:
         self.grad_clip = float(grad_clip)
         self.frozen = list(frozen)
         self.count = 0
+        # the model axis's shards (parallel/fsdp.py), set by its install
+        self.sharded = None
 
     @property
     def param_groups(self) -> list[dict]:
@@ -72,17 +80,18 @@ class ScheduledOptimizer:
         lr = self.current_lr()
         for group in self.param_groups:
             group["lr"] = lr * group.get("lr_mult", 1.0)
-        all_reduce_gradients(p for g in self.param_groups
-                             for p in g["params"])
+        params = [p for g in self.param_groups for p in g["params"]]
+        if self.sharded is not None:
+            self.sharded.reduce_gradients(params)
+        else:
+            all_reduce_gradients(params)
         for p in self.frozen:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             else:
                 p.grad.zero_()
         if self.grad_clip:
-            clip_by_global_norm(
-                [p for g in self.param_groups for p in g["params"]],
-                self.grad_clip)
+            clip_by_global_norm(params, self.grad_clip, self.sharded)
         self.optimizer.step()
         self.count += 1
 
@@ -96,16 +105,23 @@ class ScheduledOptimizer:
 
 @torch.no_grad()
 def clip_by_global_norm(params: Iterable[torch.Tensor],
-                        max_norm: float) -> None:
+                        max_norm: float, sharded=None) -> None:
     """Scale the gradients in place by ``max_norm / norm`` when their global
-    L2 norm exceeds ``max_norm``; no host sync.  The gradients may lie on
-    several devices (a pipelined model's stages)."""
+    L2 norm exceeds ``max_norm``, the norm in at least float32; no host
+    sync.  The gradients may lie on several devices (a pipelined model's
+    stages).  ``sharded`` (``parallel/fsdp.py``) takes the norm of the
+    whole gradient from this rank's shards and replicated parts."""
+    params = list(params)
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     device = grads[0].device
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()).to(device) for g in grads]))
+    if sharded is not None:
+        norm = sharded.global_norm(params)
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(at_least_f32(g)).to(device)
+             for g in grads]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:

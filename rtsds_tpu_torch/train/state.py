@@ -3,7 +3,9 @@
 The model and the optimizer are updated in place by each train step;
 ``step`` is the optimizer's count of steps taken, which also drives the
 learning-rate schedule.  ``state_dict``/``load_state_dict`` carry all of
-it, for checkpoints.
+it, for checkpoints; under the model axis (``parallel/fsdp.py``) they
+gather the whole tensors and cut them back into this rank's shards, so a
+checkpoint is the replicated run's.
 """
 
 from __future__ import annotations
@@ -45,9 +47,18 @@ class TrainState:
                               dtype=self.compute_dtype)
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        sharded = getattr(self.optimizer, "sharded", None)
+        if sharded is None:
+            return {"step": self.step, "model": self.model.state_dict(),
+                    "optimizer": self.optimizer.state_dict()}
+        return {"step": self.step, "model": sharded.model_state_dict(),
+                "optimizer": sharded.optimizer_state_dict(self.optimizer)}
 
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        sharded = getattr(self.optimizer, "sharded", None)
+        if sharded is None:
+            self.model.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
+            return
+        sharded.load_model_state_dict(state["model"])
+        sharded.load_optimizer_state_dict(self.optimizer, state["optimizer"])

@@ -6,7 +6,7 @@ DA generator, validated under the sliding and ensemble protocols; the
 training extras (EMA, gradient accumulation, distillation, MinEnt, FDA,
 self-training with CBST calibration and ClassMix) and the JAX CLI's
 refusals of their combinations; the checkpoint and early-stopping
-callbacks; and the switches not ported yet."""
+callbacks; and the switches not ported yet (ROADMAP item 17.5)."""
 
 import shutil
 
@@ -149,21 +149,28 @@ def test_validate_only_without_a_checkpoint_exits(tmp_path):
 
 
 @pytest.mark.parametrize("argv,extra,match", [
-    # --multihost runs (tests/test_torch_multihost.py); the mesh axes it
-    # does not run yet exit before the process group is joined
+    # --multihost runs (tests/test_torch_multihost.py), and so do the
+    # model axis over its ranks (test_torch_fsdp.py) and the spatial axis
+    # in one process (test_torch_spatial_train.py); the spatial axis
+    # composed with the processes' axes exits before the process group is
+    # joined, naming ROADMAP item 17.5
     pytest.param(["--multihost"], "mesh: {spatial: 2}", "spatial",
                  id="argv0----multihost"),
-    (["--multihost"], "mesh: {model: 2}", "model"),
+    pytest.param(["--multihost"], "mesh: {model: 2, spatial: 2}", "model",
+                 id="argv1-mesh: {model: 2}-model"),
     ([], "mesh: {data: 2, spatial: 2}", "spatial"),
 ])
 def test_not_ported_switches_exit(tmp_path, argv, extra, match):
-    """Only the spatial and model mesh axes are left (``--multihost``,
-    ``--wandb``, ``--debug`` and ``callbacks.history`` run:
-    test_torch_multihost.py, test_torch_tooling.py)."""
+    """Only the spatial axis composed with the data or model axis is left
+    of the mesh (``--multihost``, ``--wandb``, ``--debug`` and
+    ``callbacks.history`` run: test_torch_multihost.py,
+    test_torch_tooling.py; the other refusals of ROADMAP item 17.5:
+    test_torch_mesh_nd.py)."""
     with pytest.raises(SystemExit, match=match) as info:
         cli.main(["--config", _config(tmp_path, extra), "--synthetic",
                   *argv])
     assert "not ported yet" in str(info.value)
+    assert "ROADMAP item 17.5" in str(info.value)
 
 
 def _da_config(tmp_path, da="", extra=""):
@@ -241,8 +248,8 @@ def test_supervised_and_da_checkpoints_keep_apart(tmp_path):
 
 
 @pytest.mark.parametrize("da,extra,match", [
-    # a data mesh runs (tests/test_torch_multihost.py); the spatial axis
-    # does not yet
+    # a data mesh runs (tests/test_torch_multihost.py), and the spatial
+    # axis alone (test_torch_spatial_train.py); composed with data, not yet
     pytest.param("", "mesh: {data: 2, spatial: 2}", "mesh",
                  id="-mesh: {data: 2}-mesh"),
 ])
@@ -251,6 +258,7 @@ def test_not_ported_da_switches_exit(tmp_path, da, extra, match):
         cli.main(["--config", _da_config(tmp_path, da, extra), "--synthetic",
                   "--domain_adaptation"])
     assert "not ported yet" in str(info.value)
+    assert "ROADMAP item 17.5" in str(info.value)
 
 
 @pytest.mark.parametrize("da,extra", [

@@ -3,9 +3,8 @@ and against the JAX package on a 2-device data mesh, at small size.
 
 * The meshes: ``make_mesh`` and ``make_mesh_from_config`` give the JAX
   package's axis, device count, warning and error, case by case, on lists
-  of as many devices as its virtual CPU devices; the spatial and model
-  axes in training are refused as not ported (spatial serving is ported:
-  test_torch_spatial.py).
+  of as many devices as its virtual CPU devices, the spatial and model
+  axes included (their composed rules: test_torch_mesh_nd.py).
 * The global-batch BatchNorm on 2 ranks (gloo, CPU) equals one process's
   ``nn.BatchNorm2d`` on the global batch in float64: the output, the
   running statistics and the gradients, at rtol 1e-9 / atol 1e-12.
@@ -178,9 +177,15 @@ def test_make_mesh_of_several_processes_raises_instead_of_trimming(
 @pytest.mark.parametrize("spec", [{"spatial": 2}, {"model": 2},
                                   {"data": 2, "spatial": 2}])
 def test_spatial_and_model_axes_are_not_ported(spec):
-    jax_mesh.make_mesh_from_config(spec, devices=jax.devices()[:4])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_mesh.make_mesh_from_config(spec, devices=["cpu"] * 4)
+    """The spatial and model axes are ported now (ROADMAP 17.3-17.4): the
+    port builds JAX's mesh for each spec (test_torch_mesh_nd.py holds
+    the composed rules case by case; the CLI's refusals of what is left,
+    ROADMAP item 17.5, test_torch_cli.py)."""
+    want = _mesh_outcome(lambda: jax_mesh.make_mesh_from_config(
+        spec, devices=jax.devices()[:4]))
+    got = _mesh_outcome(lambda: port_mesh.make_mesh_from_config(
+        spec, devices=["cpu"] * 4))
+    assert got == want
 
 
 def test_shard_batch_gives_each_device_its_chunk():

@@ -19,9 +19,14 @@ device and against the JAX package's spatial ``Predictor``.
   devices, float32: the logits over their peak magnitude (~1e3 from a
   random init) at rtol 1e-4 / atol 1e-4 (tests/test_spatial_sharding.py's
   limit), the masks on all but 1e-3 of the pixels.
+* The sliding protocol on bands (``eval/sliding.py:
+  make_banded_sliding_predict``), float64, on 2 and 4 CPU devices: the
+  masks of one device's sliding ``Predictor`` exactly, and a thin
+  DeepLab's mean probabilities within rtol 1e-10 (atol 1e-13 of the peak)
+  of one device's, with windows that span up to three bands.
 * JAX's errors: a height that does not divide over the mesh, an unknown
-  sharding; the sliding protocol and ops with no banded form are refused
-  naming ROADMAP item 17.
+  sharding; ops with no banded form are refused naming ROADMAP item
+  17.5.
 * ``from_checkpoint`` and ``predict_iter`` on bands; ``--mesh spatial``
   through the serve CLI and the server.
 """
@@ -160,6 +165,37 @@ def test_ensemble_on_bands_equals_one_device(n):
     _close(got, want)
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_sliding_on_bands_equals_one_device(n):
+    """BiSeNet through the ``Predictor``'s sliding protocol (masks), thin
+    DeepLab's mean probabilities through the banded predict (40-row
+    windows over 16-row bands: a window reads three bands)."""
+    from rtsds_tpu_torch.eval.sliding import (
+        make_banded_sliding_predict, make_sliding_predict)
+
+    frames = _frames(2, 64, 96, seed=8)
+    kw = dict(image_size=(64, 96), batch_size=2, dtype=torch.float64,
+              protocol="sliding", protocol_kwargs={"window": (32, 48)})
+    one = Predictor(device="cpu", **kw)
+    banded = Predictor(mesh=Mesh(["cpu"] * n), sharding="spatial", **kw)
+    np.testing.assert_array_equal(banded.predict(frames),
+                                  one.predict(frames))
+
+    model = _thin_deeplab()
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(2, 3, 64,
+                                                                 96)))
+    grid = dict(window=(40, 48), stride=(12, 36), return_probs=True)
+    with torch.inference_mode():
+        want = make_sliding_predict(model, (64, 96), **grid)(x)
+        bands = spatial.bands_of(spatial.split_rows(
+            x, ["cpu"] * n, starts=row_starts(64, n)),
+            spatial.SpatialModel([model] * n, ["cpu"] * n).layout())
+        got = make_banded_sliding_predict([model] * n, (64, 96),
+                                          window_chunk=2, **grid)(bands)
+    _close(spatial.gather(got), want)
+    assert torch.equal(spatial.gather(got).argmax(1), want.argmax(1))
+
+
 @pytest.mark.parametrize("model,height,n", [
     ("bisenet", 64, 2), ("bisenet", 64, 4), ("deeplab", 32, 2),
     ("deeplab", 16, 4)])
@@ -243,10 +279,10 @@ def test_jax_errors_and_what_has_no_banded_form():
     with pytest.raises(ValueError, match="unknown serving sharding"):
         Predictor(image_size=(64, 64), mesh=Mesh(["cpu"] * 2),
                   sharding="rows")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        Predictor(image_size=(64, 64), mesh=Mesh(["cpu"] * 2),
-                  sharding="spatial", protocol="sliding",
-                  protocol_kwargs={"window": (32, 32)})
+    # the sliding protocol is banded now (test_sliding_on_bands_...)
+    Predictor(image_size=(64, 64), mesh=Mesh(["cpu"] * 2),
+              sharding="spatial", protocol="sliding",
+              protocol_kwargs={"window": (32, 32)}, device="cpu")
     x = torch.zeros(1, 3, 8, 8)
     eng = spatial.SpatialModel([torch.nn.Identity()] * 2, ["cpu"] * 2)
     bands = spatial.bands_of(spatial.split_rows(x, eng.devices),
@@ -254,9 +290,8 @@ def test_jax_errors_and_what_has_no_banded_form():
     assert bands.shape == x.shape
     for fn in (lambda b: b.flip(-2), lambda b: torch.cumsum(b, 2),
                lambda b: b.argmax(-2), lambda b: b * torch.ones(1, 1, 8, 1),
-               lambda b: torch.nn.functional.batch_norm(
-                   b, None, None, training=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+               lambda b: b.sum(dim=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 17.5"):
             fn(bands)
 
 
