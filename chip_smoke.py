@@ -7,6 +7,7 @@
     python3 chip_smoke.py --tooling-only  # artifacts, tooling, converter
     python3 chip_smoke.py --parallel-only # data, model, spatial, pipe axes
     python3 chip_smoke.py --axes-only     # the model and spatial axes alone
+    python3 chip_smoke.py --composed-only # the composed meshes alone
 
 Kernels are timed on the device alone with the L2 cold: each timed launch
 follows a write of a 256 MB buffer, as K2 follows the transform's write of
@@ -144,7 +145,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
      step on bands timed beside one device, with the peak memory) and
      spatial_sliding (DeepLabV2-R101 at 1024x2048 b1 with a 512x1024
      window on 2 bands: float64 masks equal to one device's, the bf16
-     agreement beside one device's b1-vs-b2 yardstick, both timed);
+     agreement beside one device's b1-vs-b2 yardstick, both timed); then
+     the composed meshes (``--composed-only`` runs these two alone, and
+     ``--axes-only`` runs them too): parallel_composed (two gloo ranks on
+     cuda:0 with 2 bands each: float64 BiSeNet-R18 supervised and DA v1
+     steps on ``{data: 2, spatial: 2}`` and ``{spatial: 2, model: 2}``
+     against one process, DeepLabV2-R101 bf16 512x1024 global b2 on
+     ``{spatial: 2, model: 2}``, and on ``{model: 2}`` the float64 steps
+     of the nine training extras (EMA, accumulation, remat, MinEnt + FDA,
+     v2, the reversal step, self-training, distillation under a float
+     and an int8 teacher) against one process, CBST's thresholds equal,
+     each rank's EMA bytes the placement rule's, and bf16 EMA +
+     accumulation and self-training at full width; four gloo ranks on
+     ``{data: 2, spatial: 2, model: 2}``: BiSeNet-R18 720x1280 global b8
+     and DA v1 (target 512x1024) through the trainers; every bf16 path
+     with K2 before banding and K1 per band, its losses finite and its
+     ranks' gathered parameters bit-identical) and
+     parallel_composed_nccl_world1 (the CLI's ``--multihost`` on ``mesh:
+     {spatial: 2}`` under NCCL at world size 1 with the data axis forced,
+     its checkpoint served by ``Predictor.from_checkpoint``; a float64
+     step on 2 bands with the data and model axes' collectives forced
+     against the plain step, and the bf16 720x1280 b8 composed step
+     timed beside the plain one, not a scaling figure);
   15. train_profile: torch.profiler over a few train steps: the device's
      idle share and kernel time by group, and each hand-written kernel's
      device time per launch beside the timer's (run after the kernel
@@ -3700,13 +3722,16 @@ def _par_f64_inputs() -> tuple:
     return images, labels, target
 
 
-def _par_f64_steps(rank: int, world: int, mesh=None) -> dict:
+def _par_f64_steps(rank: int, world: int, mesh=None, bands: int = 0
+                   ) -> dict:
     """One float64 supervised step of BiSeNet-R18 and one DA v1 step (the
     Tiny discriminator) on this rank's shard of :func:`_par_f64_inputs`,
     on the card; with ``world`` 1, the whole global batch.  The states are
     replicated over the ranks, or with ``mesh`` placed on it
-    (``place_state``: a model axis shards them).  Returns the losses, the
-    states before and after (whole, CPU tensors)."""
+    (``place_state``: a model axis shards them); ``bands`` splits the
+    shard's rows (source and target apart) over that many bands of
+    cuda:0.  Returns the losses, the states before and after (whole, CPU
+    tensors)."""
     from rtsds_tpu_torch.parallel.distributed import replicate
     from rtsds_tpu_torch.parallel.mesh import place_state
 
@@ -3721,6 +3746,13 @@ def _par_f64_steps(rank: int, world: int, mesh=None) -> dict:
     n = images.shape[0] // world
     part = slice(rank * n, (rank + 1) * n)
     x, y, t = (a[part].cuda() for a in (images, labels, target))
+    if bands:
+        from rtsds_tpu_torch.parallel.spatial import split_batch
+
+        devices = ["cuda:0"] * bands
+        x, y = split_batch(x, y, devices)
+        t, _ = split_batch(t, torch.zeros(t.shape[:3], dtype=torch.long,
+                                          device=t.device), devices)
     config = load_config()
     out = {}
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
@@ -5451,9 +5483,682 @@ def phase_spatial_sliding(frames: np.ndarray, dl_tree: dict) -> dict:
     return {"fast_hist_cuda": launches}
 
 
+# --- composed meshes and the model axis's extras (ROADMAP 17.5a) -----------
+
+COMPOSED_STEPS = 2          # bf16 steps of each composed path, one epoch
+COMPOSED_TIMEOUT_S = 720    # each spawn of the ranks
+COMPOSED_QUAD = {"data": 2, "spatial": 2, "model": 2}   # 4 gloo ranks
+COMPOSED_PAIRS = ({"data": 2, "spatial": 2}, {"spatial": 2, "model": 2})
+AXIS_EXTRA_STEPS = 2        # bf16 steps of each model-axis extra's path
+AXIS_F64_CASES = ("ema", "accumulate", "remat", "minent_fda", "v2", "grl",
+                  "self_training", "distillation", "distillation_int8")
+
+
+def _spec_name(spec: dict) -> str:
+    return "_".join(f"{k}{v}" for k, v in spec.items())
+
+
+def _axis_extras_f64(mesh=None) -> dict:
+    """Float64 steps of every training extra of ROADMAP 17.5a on the card
+    at PAR_F64_SIZE on the global batch 4 of :func:`_par_f64_inputs`
+    (a model group's ranks take the same frames), each state placed on
+    ``mesh`` (``{model: 2}``: sharded) or, without one, whole: the EMA
+    after a supervised step (its chunks gathered whole), 2-micro-batch
+    accumulation, remat, DA v1 with MinEnt + FDA, v2 with both, the
+    reversal step, self-training (ClassMix, FDA, MinEnt, the EMA teacher),
+    distillation under a float DeepLabV2-R101 teacher and under its int8
+    form; and the CBST thresholds of the (sharded) generator.  Each entry
+    holds the losses and the tensors before and after, for
+    :func:`_held_to`."""
+    from rtsds_tpu_torch.parallel.fsdp import sharded_of
+    from rtsds_tpu_torch.parallel.mesh import place_state
+    from rtsds_tpu_torch.train.accumulate import (
+        make_accumulating_train_step, split_microbatches)
+    from rtsds_tpu_torch.train.distill import (
+        make_distill_step, quantize_teacher)
+    from rtsds_tpu_torch.train.ema import EMA, ema_init, ema_update
+    from rtsds_tpu_torch.train.self_training import (
+        calibrate_class_thresholds, classmix_scores, make_self_training_step)
+
+    images, labels, target = _par_f64_inputs()
+    x, y, t = (a.cuda() for a in (images, labels, target))
+    config = load_config()
+    out = {}
+
+    def sgd(model, lr=0.01, momentum=0.0):
+        st = TrainState(model, make_optimizer("SGD", model.parameters(), lr,
+                                              momentum=momentum))
+        return place_state(st, mesh) if mesh is not None else st
+
+    def losses(metrics):
+        return {k: float(v) for k, v in metrics.items()
+                if k.startswith("loss_") or k.endswith("coverage")
+                or k == "train_loss"}
+
+    def pair():
+        gen, _ = _f64_model(config, "bisenet", SEED)
+        dis = make_discriminator(
+            config.model["adversarial_model"]["discriminator"],
+            seed=SEED + 1).to("cuda", torch.float64)
+        before = _named(gen, dis)
+        return sgd(gen), sgd(dis, lr=0.02), before
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        # the EMA of a supervised step
+        model, _ = _f64_model(config, "bisenet", SEED)
+        before = _named(model)
+        st = sgd(model, momentum=0.9)
+        ema = EMA(ema_init(st.model), sharded_of(st.model))
+        metrics = make_train_step(19)(st, x, y)
+        ema_update(ema.params, st.model, 0.99, st.step)
+        out["ema"] = {"losses": losses(metrics), "before": before,
+                      "after": [{k: v.cpu() for k, v in
+                                 ema.state_dict()["params"].items()}]}
+        out["ema_bytes"] = sum(v.numel() * v.element_size()
+                               for v in ema.params.values())
+        # accumulation, remat
+        for name, cfg, step in (
+                ("accumulate", config, lambda st: make_accumulating_train_step(
+                    19)(st, split_microbatches(x, 2),
+                        split_microbatches(y, 2))),
+                ("remat", load_config(overrides={
+                    "model": {"bisenet": {"remat": True}}}),
+                 lambda st: make_train_step(19)(st, x, y))):
+            model, _ = _f64_model(cfg, "bisenet", SEED)
+            before = _named(model)
+            st = sgd(model, momentum=0.9)
+            metrics = step(st)
+            out[name] = {"losses": losses(metrics), "before": before,
+                         "after": _states(st.model) if mesh is None else
+                         [{k: v.cpu() for k, v in
+                           st.state_dict()["model"].items()}]}
+        # the DA extras
+        for name, kw in (("minent_fda", dict(lambda_ent=0.05,
+                                             fda_beta=0.05)),
+                         ("v2", dict(variant="v2", lambda_ent=0.05,
+                                     fda_beta=0.05)),
+                         ("grl", dict(grl_alpha=0.5))):
+            g, d, before = pair()
+            metrics = make_adversarial_step(0.1, DA_ITERATIONS, DA_EPOCHS,
+                                            19, **kw)(g, d, x, y, t)
+            out[name] = {"losses": losses(metrics), "before": before,
+                         "after": [{k: v.cpu() for k, v in
+                                    s.state_dict()["model"].items()}
+                                   for s in (g, d)]}
+        g, d, before = pair()
+        out["cbst"] = calibrate_class_thresholds(g.model, [t],
+                                                 CLASSES).tolist()
+        ema = ema_init(g.model)
+        metrics = make_self_training_step(
+            0.1, DA_ITERATIONS, 19, threshold=0.1, ema_decay=0.99,
+            lambda_ent=0.05, fda_beta=0.05, classmix=True,
+            classmix_seed=SEED)(g, d, ema, x, y, t,
+                                scores=classmix_scores(SEED, 0, 4, CLASSES))
+        out["self_training"] = {
+            "losses": losses(metrics), "before": before,
+            "after": [{k: v.cpu() for k, v in s.state_dict()["model"].items()}
+                      for s in (g, d)]}
+        del g, d, ema
+        # distillation: a float DeepLabV2-R101 teacher and its int8 form,
+        # replicated
+        teacher, _ = _f64_model(config, "deeplab", SEED + 22)
+        teacher.eval()
+        t32 = {k: v.float() for k, v in teacher.state_dict().items()}
+        int8_teacher = quantize_teacher(
+            "deeplab", t32, [x.float().permute(0, 3, 1, 2)], device="cuda")
+        for name, tch in (("distillation", teacher),
+                          ("distillation_int8", int8_teacher)):
+            model, _ = _f64_model(config, "bisenet", SEED)
+            before = _named(model)
+            st = sgd(model)
+            metrics = make_distill_step(tch, 19)(st, x, y)
+            out[name] = {"losses": losses(metrics), "before": before,
+                         "after": [{k: v.cpu() for k, v in
+                                    st.state_dict()["model"].items()}]}
+    return out
+
+
+def _ranks_bit_identical(states: list) -> bool:
+    """Whether every rank of the job holds the same whole parameters of
+    ``states`` (a collective: the model axis gathers its shards)."""
+    import torch.distributed as dist
+
+    from rtsds_tpu_torch.parallel.distributed import job_group
+
+    flat = torch.cat([_gathered_bits(st) for st in states])
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=job_group())
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=job_group())
+    return bool(torch.equal(hi, lo))
+
+
+def _banded_val(dev):
+    """The trainers' validation batches on this rank's data shard, banded
+    over _band_devices()."""
+    from rtsds_tpu_torch.parallel.spatial import BandedBatches
+
+    loader = _par_loader(TRAIN_VAL_BATCHES * TRAIN_BATCH, TRAIN_VAL_SIZE,
+                         SEED + 5, False, shuffle=False, drop_last=False)
+    tf = make_transform(TRAIN_VAL_SIZE, CLASSES, antialias=True)
+    return lambda epoch: BandedBatches(device_batches(loader, tf, dev),
+                                       _band_devices())
+
+
+def _composed_fit(out: dict, name: str, run, clock, states) -> None:
+    """``run()``, a trainer's fit, as a main path of this rank (K1's and
+    K2's counts from zero, every K2 output held against the plain remap):
+    its losses, mIoU, launches and whether the ranks' gathered parameters
+    are bit-identical after it."""
+    result, launches, checked = on_main_path(run)
+    history = result[-1]
+    losses = [v for e in clock.logs for k, v in e.items()
+              if k.startswith("loss_gen") or k == "train_loss"]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {clock.logs}")
+    out[name] = {"losses": clock.logs,
+                 "miou": [h["validation_mIoU"] for h in history],
+                 "launches": launches, "k2_checked": checked,
+                 "params_bit_identical": _ranks_bit_identical(states)}
+
+
+@contextlib.contextmanager
+def _one_process():
+    """Inside the block this rank's collectives skip themselves, as in a
+    process of its own: for a one-process reference step beside the
+    ranks' steps."""
+    from rtsds_tpu_torch.parallel import distributed
+
+    saved = distributed._GROUP, distributed._MODEL, distributed._JOB
+    distributed._GROUP = distributed._MODEL = distributed._JOB = None
+    try:
+        yield
+    finally:
+        distributed._GROUP, distributed._MODEL, distributed._JOB = saved
+
+
+def _composed_pair_rank(rank: int, world: int) -> dict:
+    """One of two gloo ranks on cuda:0: the float64 composed steps on
+    ``{data: 2, spatial: 2}`` and ``{spatial: 2, model: 2}`` (2 bands
+    each), then the bf16 DeepLabV2-R101 run on ``{spatial: 2, model: 2}``
+    (512x1024, global b2, K2 before banding, K1 per band), then on
+    ``{model: 2}`` the float64 steps of every extra (the int8-teacher
+    distillation among them) and the bf16 runs of two of them at full
+    width: EMA + accumulation, and self-training.  Rank 0 then takes the
+    one-process float64 steps and holds its own to them
+    (:func:`_held_to`)."""
+    from rtsds_tpu_torch.parallel import distributed
+    from rtsds_tpu_torch.parallel.mesh import (
+        make_mesh_from_config, place_state)
+    from rtsds_tpu_torch.parallel.spatial import BandedBatches
+    from rtsds_tpu_torch.train.accumulate import (
+        make_accumulating_train_step, split_microbatches)
+    from rtsds_tpu_torch.train.self_training import (
+        calibrate_class_thresholds, make_self_training_step)
+
+    torch.cuda.set_device(0)
+    _build.load()
+    dev = torch.device("cuda")
+    out = {"f64": {}, "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        out["seconds"][name] = now - t0
+        t0 = now
+    spec = COMPOSED_PAIRS[0]
+    out["f64"][_spec_name(spec)] = _par_f64_steps(
+        distributed.rank(), distributed.world_size(),
+        make_mesh_from_config(spec), bands=SPATIAL_BANDS)
+    with distributed.data_parallel(*distributed.axis_groups(2)):
+        spec = COMPOSED_PAIRS[1]
+        mesh = make_mesh_from_config(spec)
+        out["f64"][_spec_name(spec)] = _par_f64_steps(
+            0, 1, mesh, bands=SPATIAL_BANDS)
+        lap("float64_composed")
+
+        # DeepLabV2-R101 on {spatial: 2, model: 2}
+        config = deeplab_config()
+        ds = ColorCodedLabels(SyntheticSegDataset(
+            MODEL_DL_STEPS * MODEL_DL_BATCH, DEEPLAB_SIZE, CLASSES,
+            seed=SEED + 99, fixed_tints=True), class_colors_for_remap(),
+            unmatched=UNMATCHED, seed=SEED)
+        loader = DataLoader(ds, MODEL_DL_BATCH, shuffle=True, num_workers=4,
+                            seed=SEED)
+        tf = make_transform(DEEPLAB_SIZE, CLASSES, antialias=False,
+                            augment_cfg=AugmentConfig.from_config(config),
+                            decode_label_colors=True)
+        state = place_state(build_supervised(config, "deeplab", len(loader),
+                                             dev, seed=SEED), mesh)
+        clock = _StepClock()
+        torch.cuda.reset_peak_memory_stats()
+        _composed_fit(out, "deeplab_spatial2_model2", lambda: supervised_fit(
+            state, make_train_step(19), lambda epoch: BandedBatches(
+                device_batches(loader, tf, dev, seed=SEED, epoch=epoch),
+                _band_devices()), _banded_val(dev), epochs=1,
+            num_classes=CLASSES, callbacks=[clock], device=dev), clock,
+            [state])
+        out["deeplab_spatial2_model2"]["peak_mb"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 20
+        del state
+        torch.cuda.empty_cache()
+        lap("deeplab_spatial2_model2")
+
+        # the extras on {model: 2}
+        mesh = make_mesh_from_config({"model": 2})
+        out["f64_extras"] = _axis_extras_f64(mesh)
+        lap("float64_extras")
+        val = _val_stream()
+        aug = AugmentConfig.from_config(load_config())
+        src_tf = make_transform(TRAIN_SIZE, CLASSES, antialias=False,
+                                augment_cfg=aug, decode_label_colors=True)
+        tgt_tf = make_transform(DA_TGT_SIZE, CLASSES, antialias=True)
+
+        def loader_of(n, size, seed, colour, infinite=False):
+            ds = SyntheticSegDataset(n, size, CLASSES, seed=seed,
+                                     fixed_tints=True)
+            if colour:
+                ds = ColorCodedLabels(ds, class_colors_for_remap(),
+                                      unmatched=UNMATCHED, seed=SEED)
+            return DataLoader(ds, TRAIN_BATCH, shuffle=True, num_workers=4,
+                              seed=SEED, infinite=infinite)
+
+        # EMA + accumulation
+        config = _extras_config(segmentation={"epochs": 1,
+                                              "do_validation": 1})
+        loader = loader_of(AXIS_EXTRA_STEPS * TRAIN_BATCH, TRAIN_SIZE,
+                           SEED + 92, True)
+        state = place_state(build_supervised(config, "bisenet", len(loader),
+                                             dev, seed=SEED), mesh)
+        acc = make_accumulating_train_step(19)
+        clock = _StepClock()
+        _composed_fit(out, "model2_ema_accumulate", lambda: supervised_fit(
+            state, lambda st, xb, yb: acc(st, split_microbatches(xb, 2),
+                                          split_microbatches(yb, 2)),
+            lambda epoch: device_batches(loader, src_tf, dev, seed=SEED,
+                                         epoch=epoch),
+            val, epochs=1, num_classes=CLASSES, callbacks=[clock],
+            device=dev, ema_decay=0.999), clock, [state])
+        del state
+        lap("ema_accumulate")
+
+        # self-training: CBST on the sharded generator, ClassMix, the EMA
+        # teacher gathered for its forward
+        config = _extras_config(domain_adaptation={
+            "epochs": 1, "iterations": AXIS_EXTRA_STEPS, "do_validation": 1})
+        gen, dis = build_adversarial(config, dev, seed=SEED)
+        place_state(gen, mesh)
+        place_state(dis, mesh)
+        cal = loader_of(2 * TRAIN_BATCH, DA_TGT_SIZE, SEED + 87, False)
+        thr = calibrate_class_thresholds(
+            gen.model, device_batches(cal, tgt_tf, dev), CLASSES,
+            compute_dtype=gen.compute_dtype)
+        src = loader_of(AXIS_EXTRA_STEPS * TRAIN_BATCH, TRAIN_SIZE,
+                        SEED + 88, True, infinite=True)
+        tgt = loader_of(AXIS_EXTRA_STEPS * TRAIN_BATCH, DA_TGT_SIZE,
+                        SEED + 89, False, infinite=True)
+        step = make_self_training_step(
+            float(config.training["domain_adaptation"]["lambda"]),
+            AXIS_EXTRA_STEPS, 19, threshold=thr, ema_decay=0.999,
+            lambda_ent=0.005, fda_beta=0.01, classmix=True,
+            classmix_seed=SEED)
+        clock = _StepClock()
+        source_iter = device_batches(src, src_tf, dev, seed=SEED)
+        target_iter = device_batches(tgt, tgt_tf, dev)
+        with contextlib.closing(source_iter), contextlib.closing(target_iter):
+            _composed_fit(out, "model2_self_training", lambda: adversarial_fit(
+                gen, dis, step, source_iter, target_iter, val,
+                iterations=AXIS_EXTRA_STEPS, epochs=1, num_classes=CLASSES,
+                callbacks=[clock], device=dev, ema_decay=0.999,
+                ema_in_step=True), clock, [gen, dis])
+        out["model2_self_training"]["thresholds"] = thr.tolist()
+        del gen, dis, step
+        torch.cuda.empty_cache()
+        lap("self_training")
+    f64, extras = out.pop("f64"), out.pop("f64_extras")
+    out["cbst"], out["ema_bytes"] = extras["cbst"], extras["ema_bytes"]
+    if rank == 0:
+        # the float64 states stay in this process: shipping them to the
+        # parent (GBs through a pipe) took minutes
+        with _one_process():
+            one = _par_f64_steps(0, 1)
+            one_extras = _axis_extras_f64()
+        out["held"] = {mesh: {name: _held_to(f64[mesh][name], one[name])
+                              for name in ("supervised", "da_v1")}
+                       for mesh in f64}
+        out["held"]["model2_extras"] = {
+            name: _held_to(extras[name], one_extras[name])
+            for name in AXIS_F64_CASES}
+        out["one_process"] = {"cbst": one_extras["cbst"],
+                              "ema_bytes": one_extras["ema_bytes"]}
+        lap("one_process_references")
+    return out
+
+
+def _composed_quad_rank(rank: int, world: int) -> dict:
+    """One of four gloo ranks on cuda:0, ``{data: 2, spatial: 2, model:
+    2}`` (2 bands each): BiSeNet-R18 supervised at 720x1280, global b8 (4
+    frames a data shard), and DA v1 (target 512x1024) through the
+    trainers on MultiHostDataLoader shards, K2 in the transforms before
+    banding, K1 per band in the validations (each summed matrix held
+    against the plain version over the gathered masks)."""
+    from rtsds_tpu_torch.parallel import distributed
+    from rtsds_tpu_torch.parallel.mesh import (
+        make_mesh_from_config, place_state)
+    from rtsds_tpu_torch.parallel.spatial import BandedBatches
+
+    torch.cuda.set_device(0)
+    _build.load()
+    dev = torch.device("cuda")
+    out = {}
+    checks = []
+    val_mod, banded_hist, checked = _banded_hist_check(checks)
+    val_mod.banded_hist = checked
+    try:
+        with distributed.data_parallel(*distributed.axis_groups(
+                COMPOSED_QUAD["model"])):
+            mesh = make_mesh_from_config(COMPOSED_QUAD)
+            val = _banded_val(dev)
+            aug = AugmentConfig.from_config(load_config())
+            src_tf = make_transform(TRAIN_SIZE, CLASSES, antialias=False,
+                                    augment_cfg=aug, decode_label_colors=True)
+            config = train_config()
+            loader = _par_loader(COMPOSED_STEPS * TRAIN_BATCH, TRAIN_SIZE,
+                                 SEED + 93, True)
+            state = place_state(build_supervised(config, "bisenet",
+                                                 len(loader), dev,
+                                                 seed=SEED), mesh)
+            clock = _StepClock()
+            torch.cuda.reset_peak_memory_stats()
+            _composed_fit(out, "bisenet", lambda: supervised_fit(
+                state, make_train_step(19), lambda epoch: BandedBatches(
+                    device_batches(loader, src_tf, dev, seed=SEED,
+                                   epoch=epoch), _band_devices()),
+                val, epochs=1, num_classes=CLASSES, callbacks=[clock],
+                device=dev), clock, [state])
+            out["bisenet"]["peak_mb"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 20
+            del state
+            torch.cuda.empty_cache()
+
+            config = da_config()
+            tcfg = config.training["domain_adaptation"]
+            gen, dis = build_adversarial(config, dev, seed=SEED)
+            place_state(gen, mesh)
+            place_state(dis, mesh)
+            src = _par_loader(COMPOSED_STEPS * TRAIN_BATCH, TRAIN_SIZE,
+                              SEED + 94, True, infinite=True)
+            tgt = _par_loader(COMPOSED_STEPS * TRAIN_BATCH, DA_TGT_SIZE,
+                              SEED + 95, False, infinite=True)
+            tgt_tf = make_transform(DA_TGT_SIZE, CLASSES, antialias=True)
+            source = BandedBatches(device_batches(src, src_tf, dev,
+                                                  seed=SEED), _band_devices())
+            target = BandedBatches(device_batches(tgt, tgt_tf, dev),
+                                   _band_devices())
+            clock = _StepClock()
+            with contextlib.closing(source), contextlib.closing(target):
+                _composed_fit(out, "da_v1", lambda: adversarial_fit(
+                    gen, dis, make_adversarial_step(
+                        float(tcfg["lambda"]), COMPOSED_STEPS, 1, 19, "v1"),
+                    iter(source), iter(target), val,
+                    iterations=COMPOSED_STEPS, epochs=1, num_classes=CLASSES,
+                    callbacks=[clock], device=dev), clock, [gen, dis])
+            del gen, dis
+            torch.cuda.empty_cache()
+    finally:
+        val_mod.banded_hist = banded_hist
+    if not checks:
+        raise AssertionError("no banded K1 matrix was checked")
+    out["banded_k1_matrices_checked"] = len(checks)
+    return out
+
+
+def phase_parallel_composed() -> dict:
+    """(l) Composed meshes (ROADMAP 17.5a) on one card, every rank's bands
+    on cuda:0, gloo on CUDA tensors: two ranks (:func:`_composed_pair_rank`)
+    and four (:func:`_composed_quad_rank`); the float64 composed steps and
+    every float64 model-axis extra held to one process's at the
+    shared-card limits (:func:`_held_to`), CBST's thresholds exactly one
+    process's, each rank's EMA bytes the placement rule's, every bf16
+    path's losses finite and its ranks' gathered parameters bit-identical.
+    Returns the K1/K2 launches of each bf16 path, summed over the ranks;
+    its step times are a shared card's, not scaling figures."""
+    from rtsds_tpu_torch.parallel.fsdp import placement_bytes
+    from rtsds_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    pair = run_ranks(_composed_pair_rank, 2, timeout_s=COMPOSED_TIMEOUT_S,
+                     threads=None)
+    pair_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quad = run_ranks(_composed_quad_rank, 4, timeout_s=COMPOSED_TIMEOUT_S,
+                     threads=None)
+    quad_s = time.perf_counter() - t0
+    held, one = pair[0]["held"], pair[0]["one_process"]
+    model, _ = make_segmentor(load_config(), "bisenet", seed=SEED)
+    ema_rule = placement_bytes(model.double(), 2, moments=0)
+    for r in pair:
+        if r["cbst"] != one["cbst"]:
+            raise AssertionError(f"CBST on the model axis: {r['cbst']}")
+        if r["ema_bytes"] != ema_rule:
+            raise AssertionError(f"EMA bytes {r['ema_bytes']} vs the "
+                                 f"placement rule's {ema_rule}")
+    paths = {}
+    for ranks, names, prefix in (
+            (pair, ("deeplab_spatial2_model2", "model2_ema_accumulate",
+                    "model2_self_training"), ""),
+            (quad, ("bisenet", "da_v1"), "data2_spatial2_model2_")):
+        for name in names:
+            runs = [r[name] for r in ranks]
+            if not all(r["params_bit_identical"] for r in runs):
+                raise AssertionError(f"{name}: the ranks' parameters differ")
+            paths[prefix + name] = {
+                k: sum(r["launches"][k] for r in runs)
+                for k in ("fast_hist_cuda", "rgb_to_train_ids_cuda")}
+    emit({"phase": "parallel_composed",
+          "backend": "gloo on CUDA tensors, every rank's 2 bands on cuda:0",
+          "float64_vs_one_process": held,
+          "cbst_thresholds_equal": True,
+          "ema_bytes_per_rank": {"model2": pair[0]["ema_bytes"],
+                                 "placement_rule": ema_rule,
+                                 "replicated": one["ema_bytes"]},
+          "quad": {"mesh": COMPOSED_QUAD, "image_size": list(TRAIN_SIZE),
+                   "global_batch": TRAIN_BATCH,
+                   "da_target_size": list(DA_TGT_SIZE),
+                   "steps": COMPOSED_STEPS,
+                   **{name: {k: v for k, v in quad[0][name].items()
+                             if k != "launches"}
+                      for name in ("bisenet", "da_v1")},
+                   "banded_k1_matrices_checked": [
+                       r["banded_k1_matrices_checked"] for r in quad],
+                   "peak_mb_per_rank": [r["bisenet"]["peak_mb"]
+                                        for r in quad]},
+          "pair": {name: {k: v for k, v in pair[0][name].items()
+                          if k != "launches"}
+                   for name in ("deeplab_spatial2_model2",
+                                "model2_ema_accumulate",
+                                "model2_self_training")},
+          "deeplab_size": list(DEEPLAB_SIZE),
+          "deeplab_global_batch": MODEL_DL_BATCH,
+          "pair_s": pair_s, "pair_seconds_by_part": pair[0]["seconds"],
+          "quad_s": quad_s, "launches": paths})
+    return paths
+
+
+def phase_parallel_composed_nccl_world1() -> dict:
+    """(m) NCCL at world size 1 on a composed mesh.  First the CLI:
+    ``--multihost`` with ``mesh: {spatial: 2}`` and the data axis forced
+    on (:func:`forced_data_axis`), BiSeNet-R18 at 720x1280 b8 bf16 on
+    colour-coded labels for 2 steps on 2 bands of cuda:0 (K2 before
+    banding; the banded BN's all-reduces under NCCL) and a validation (K1
+    per band, the matrix all-reduced), its checkpoint served by
+    ``Predictor.from_checkpoint`` with the masks of a predictor of the
+    checkpoint's weights.  Then one composed step with every collective
+    forced on (the data axis, and the model axis over the one rank, so
+    that NCCL's gather and reduce-scatter run) on 2 bands: in float64
+    (b2 at PAR_F64_SIZE) against the plain one-device step, within
+    F64_UPDATE_SHARE of each update, and in bf16 (b8 at 720x1280) timed
+    beside the plain step.  Returns the CLI path's launches."""
+    import torch.distributed as dist
+
+    from rtsds_tpu_torch import cli
+    from rtsds_tpu_torch.parallel import distributed
+    from rtsds_tpu_torch.parallel.fsdp import shard_state
+    from rtsds_tpu_torch.parallel.mesh import initialize_multihost
+    from rtsds_tpu_torch.parallel.spatial import split_batch
+
+    tmp = tempfile.TemporaryDirectory(prefix="rtsds_smoke_composed_")
+    config = os.path.join(tmp.name, "config.yaml")
+    with open(config, "w") as f:
+        f.write(f"""
+precision: {{compute_dtype: bfloat16}}
+mesh: {{spatial: {SPATIAL_BANDS}}}
+data:
+  cityscapes: {{image_size: "{TRAIN_VAL_SIZE[0]}, {TRAIN_VAL_SIZE[1]}",
+               batch_size: {TRAIN_BATCH}, num_workers: 4}}
+  gta5_modified: {{image_size: "{TRAIN_SIZE[0]}, {TRAIN_SIZE[1]}",
+                  batch_size: {TRAIN_BATCH}, num_workers: 4,
+                  decode_label_colors: true}}
+training:
+  segmentation: {{epochs: 1, do_validation: 1}}
+callbacks:
+  model_checkpoint: {{save_dir: "{tmp.name}", save_name: "m",
+                     save_best: true}}
+""")
+    os.environ["RTSDS_NUM_PROCESSES"] = "1"
+    try:
+        with forced_data_axis() as collectives:
+            t0 = time.perf_counter()
+            history, launches, checked = on_main_path(lambda: cli.main(
+                ["--config", config, "--synthetic", "--dataset", "gta5",
+                 "--multihost"]))
+            cli_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("RTSDS_NUM_PROCESSES", None)
+    if len(history) != 1 or not math.isfinite(history[0]["train_loss"]) \
+            or not collectives["all_reduce"]:
+        raise AssertionError(f"the composed --multihost run: {history}, "
+                             f"{collectives}")
+    frames = np.stack([SyntheticSegDataset(
+        2, MODEL_SERVE_SIZE, CLASSES, seed=SEED + 3, fixed_tints=True)[i][0]
+        for i in range(2)])
+    kw = dict(image_size=MODEL_SERVE_SIZE, batch_size=2,
+              dtype=torch.bfloat16)
+    ckpt = os.path.join(tmp.name, "m")
+    served = Predictor.from_checkpoint(ckpt, **kw).predict(frames)
+    saved = torch.load(os.path.join(ckpt, "epoch_0.pt"), map_location="cpu",
+                       weights_only=True)["model"]["model"]
+    if not np.array_equal(served, Predictor(state=saved, **kw).predict(
+            frames)):
+        raise AssertionError("the composed checkpoint serves other masks")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    os.environ["RTSDS_NUM_PROCESSES"] = "1"
+    initialize_multihost(device_type="cuda", spatial=SPATIAL_BANDS)
+    calls = {"all_reduce": 0, "all_gather_into_tensor": 0,
+             "reduce_scatter_tensor": 0}
+    plain = {name: getattr(dist, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return plain[name](*args, **kwargs)
+        return call
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        for name in calls:
+            setattr(dist, name, counted(name))
+        images, labels, _ = _par_f64_inputs()
+        x, y = images[:2].cuda(), labels[:2].cuda()
+        after = []
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            for composed in (False, True):
+                distributed._GROUP = distributed._JOB = (
+                    dist.group.WORLD if composed else None)
+                model, _ = make_segmentor(load_config(), "bisenet",
+                                          seed=SEED)
+                model.to("cuda", torch.float64)
+                before = {k: v.detach().clone()
+                          for k, v in model.state_dict().items()}
+                state = TrainState(model, make_optimizer(
+                    "SGD", model.parameters(), 0.01, momentum=0.9))
+                args = (x, y)
+                if composed:
+                    distributed.convert_global_batchnorm(model)
+                    shard_state(state, dist.group.WORLD)
+                    args = split_batch(x, y, _band_devices())
+                make_train_step(19)(state, *args)
+                after.append(state.state_dict()["model"])
+        err = 0.0
+        for k, v in after[0].items():
+            if v.is_floating_point():
+                scale = v.abs().max() if "running" in k \
+                    else (v - before[k]).abs().max()
+                err = max(err, float((after[1][k] - v).abs().max())
+                          / (F64_UPDATE_SHARE * float(scale) + 1e-15))
+        batch = _full_size_batch()
+        times = {}
+        for name, composed in (("plain_one_device", False),
+                               ("composed_forced_two_bands", True)):
+            distributed._GROUP = distributed._JOB = (
+                dist.group.WORLD if composed else None)
+            state = build_supervised(train_config(), "bisenet", 1, "cuda",
+                                     seed=SEED)
+            args = batch
+            if composed:
+                distributed.convert_global_batchnorm(state.model)
+                shard_state(state, dist.group.WORLD)
+                args = split_batch(*batch, _band_devices())
+            step = make_train_step(19)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            times[name] = {
+                "step_p50_ms": cuda_ms(lambda: step(state, *args), reps=10),
+                "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+            del state
+        if err > 1.0 or not all(calls.values()):
+            raise AssertionError(f"composed step under NCCL: err {err}, "
+                                 f"calls {calls}")
+    finally:
+        for name, fn in plain.items():
+            setattr(dist, name, fn)
+        distributed._GROUP = distributed._JOB = distributed._MODEL = None
+        dist.destroy_process_group()
+        os.environ.pop("RTSDS_NUM_PROCESSES", None)
+    emit({"phase": "parallel_composed_nccl_world1", "backend": "nccl",
+          "world_size": 1, "bands": SPATIAL_BANDS,
+          "cli": {"mesh": {"spatial": SPATIAL_BANDS}, "argv": "--multihost",
+                  "data_axis": "forced on", "history": history,
+                  "cli_s": cli_s, "collectives": collectives,
+                  "k2_checked": checked,
+                  "checkpoint_served_masks_equal": True},
+          "float64_step_worst_err_over_limit_vs_plain": err,
+          "collective_calls": calls, "image_size": list(TRAIN_SIZE),
+          "batch": TRAIN_BATCH,
+          "one_card_not_a_scaling_figure": times, "launches": launches})
+    return launches
+
+
+def composed_phases() -> dict:
+    """The composed meshes (l) and (m); returns the K1 and K2 launches of
+    their main paths, by path."""
+    t0 = time.perf_counter()
+    paths = phase_parallel_composed()
+    torch.cuda.empty_cache()
+    paths["nccl_world1_cli_spatial2"] = phase_parallel_composed_nccl_world1()
+    torch.cuda.empty_cache()
+    emit({"phase": "composed", "seconds": time.perf_counter() - t0})
+    return paths
+
+
 def parallel_phases(tree: dict, frames: np.ndarray, dl_tree: dict,
                     dl_frames: np.ndarray) -> dict:
-    """The parallel phase (a)-(k); returns the K1 and K2 launches of its
+    """The parallel phase (a)-(m); returns the K1 and K2 launches of its
     main paths (the spatial path launches K1 alone)."""
     t0 = time.perf_counter()
     shared = phase_parallel_shared_card()
@@ -5478,6 +6183,7 @@ def parallel_phases(tree: dict, frames: np.ndarray, dl_tree: dict,
     torch.cuda.empty_cache()
     sliding = phase_spatial_sliding(frames, dl_tree)
     torch.cuda.empty_cache()
+    composed = composed_phases()
     paths = {"dp2_bisenet_training": shared["supervised"],
              "dp2_bisenet_da": shared["da"],
              "nccl_world1_cli_training": nccl,
@@ -5488,7 +6194,8 @@ def parallel_phases(tree: dict, frames: np.ndarray, dl_tree: dict,
              "model2_deeplab_training": model_axis["deeplab"],
              "spatial2_bisenet_training": spatial_train["bisenet"],
              "spatial2_bisenet_da": spatial_train["da"],
-             "spatial2_deeplab_training": spatial_train["deeplab"]}
+             "spatial2_deeplab_training": spatial_train["deeplab"],
+             **composed}
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
     launches = {kernel: {path: n[kernel] for path, n in paths.items()}
                 for kernel in ("fast_hist_cuda", "rgb_to_train_ids_cuda")}
@@ -5704,9 +6411,23 @@ def tooling_phases(frames, tree, dl_frames, dl_tree) -> dict:
                 "convert_gta5": convert["rgb_to_train_ids_cuda"]}}
 
 
+def _check_launched(paths: dict) -> None:
+    """Fail unless K1 and K2 launched on every path of ``{path: {kernel:
+    launches}}``."""
+    for path, counts in paths.items():
+        missed = [k for k, n in counts.items() if n < 1]
+        if missed:
+            raise AssertionError(f"{path} never launched {missed}")
+
+
 def main() -> int:
     if sys.argv[1:] == ["--kernels-only"]:
         return kernels_only()
+    if sys.argv[1:] == ["--composed-only"]:
+        phase_device()
+        _check_launched(composed_phases())
+        print(gpu_name_and_power_limit(), flush=True)
+        return 0
     if sys.argv[1:] in (["--int8-only"], ["--tooling-only"],
                         ["--parallel-only"], ["--spatial-only"],
                         ["--axes-only"]):
@@ -5719,6 +6440,9 @@ def main() -> int:
                 **{f"spatial2_{k}": v for k, v in
                    phase_parallel_spatial_training(frames).items()},
                 "sliding": phase_spatial_sliding(frames, dl_tree)}
+            composed = composed_phases()
+            _check_launched(composed)
+            launches.update(composed)
             emit({"phase": "axes_only", "launches": launches})
         elif sys.argv[1] == "--int8-only":
             int8_phases(frames, labels, tree, dl_frames, dl_tree)
@@ -5740,7 +6464,7 @@ def main() -> int:
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only | "
                          f"--int8-only | --tooling-only | --parallel-only | "
-                         f"--spatial-only | --axes-only]")
+                         f"--spatial-only | --axes-only | --composed-only]")
     device = phase_device()
     hist_err = phase_hist_check()
     remap_err = phase_remap_check()
@@ -5811,9 +6535,10 @@ def main() -> int:
     # self-training, distillation (bf16 and int8 teachers) and QAT; the
     # CLI's --multihost under NCCL at world size 1 (training,
     # self-training, int8-teacher distillation); the pipelined DeepLab
-    # step; spatial serving, whose mask agreements K1 reads (counts reset
-    # inside each, just before, on every rank); the batch-mesh serving
-    # runs no hand-written kernel
+    # step; spatial serving, whose mask agreements K1 reads; the model and
+    # spatial axes; the composed meshes and the model axis's extras (counts
+    # reset inside each, just before, on every rank); the batch-mesh
+    # serving runs no hand-written kernel
     par = parallel_phases(tree, frames, dl_tree, dl_frames)
 
     hist_paths = {"bisenet_serving_validation": serve_launches,

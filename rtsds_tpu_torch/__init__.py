@@ -50,9 +50,9 @@ Entry points run on the GPU unless the caller asks for the CPU: see
   benches (:mod:`rtsds_tpu_torch.bench`; ``python -m
   rtsds_tpu_torch.bench`` prints the one-line record).
 
-Not ported yet (``ROADMAP.md``): the spatial axis composed with the data
-or model axis, DA on such meshes and the training extras (EMA,
-accumulation, distillation, remat, MinEnt, FDA, the reversal step, DA v2,
-self-training) on the model and spatial axes (item 17.5), and hybrid
-meshes (item 17.6).
+Not ported yet (``ROADMAP.md``): the training extras (EMA, accumulation,
+distillation, remat, MinEnt, FDA, the reversal step, DA v2,
+self-training) and the validation protocols on the spatial axis, alone
+or composed with the data and model axes, which run them (item 17.5b),
+and hybrid meshes (item 17.6).
 """

@@ -53,17 +53,25 @@ extra run on several ranks too.
 ``mesh: {model: M}`` or ``{data: D, model: M}`` (with ``--multihost``,
 ``D * M`` ranks, rank ``r`` at data index ``r // M`` and model index ``r %
 M``) shards the large parameters and their moments over each model group
-of ranks (FSDP, ``parallel/fsdp.py``); its ranks load the same frames.
-``mesh: {spatial: S}`` (one process) bands each frame's rows over S of its
-devices (``parallel/spatial.py``): the transform (K2) runs on the whole
-batch on the first device, then the rows are split, and validation runs K1
-per band.  ``mesh: {pipe: N}`` pipelines DeepLab's layer3 over N of this
-process's GPUs (``train/pipelined.py``).  What stays refused, with a
-message naming ROADMAP item 17.5: the spatial axis composed with the data
-or model axis, and the training extras (EMA, accumulation, distillation,
-remat, MinEnt, FDA, the reversal step, DA v2, self-training, and under
-the spatial axis the validation protocols) on the model and spatial
-axes; and the JAX CLI's own refusals of the pipe.
+of ranks (FSDP, ``parallel/fsdp.py``); its ranks load the same frames,
+and every training extra runs on it (the EMA keeps its chunks as the
+parameters do).  ``mesh: {spatial: S}`` bands each frame's rows over S of
+a process's devices (``parallel/spatial.py``): the transform (K2) runs on
+the whole batch on the first device, then the rows are split, and
+validation runs K1 per band.  The spatial axis composes with the others
+under ``--multihost`` (``{data: D, spatial: S}``, ``{spatial: S, model:
+M}``, ``{data: D, spatial: S, model: M}``): each process bands over S
+GPUs of its own (local rank ``r`` holds ``cuda:r*S`` to ``cuda:r*S+S-1``;
+on a box with one GPU every band is ``cuda:0``; too few GPUs raise; on
+the CPU, ``RTSDS_CPU_DEVICES`` counts the devices), BatchNorm sums the
+bands' statistics and then the data group's, and validation sums K1's
+band matrices, then the data group's.  ``mesh: {pipe: N}`` pipelines
+DeepLab's layer3 over N of this process's GPUs (``train/pipelined.py``).
+What stays refused, with a message naming ROADMAP item 17.5: the
+training extras (EMA, accumulation, distillation, remat, MinEnt, FDA,
+the reversal step, DA v2, self-training) and the validation protocols on
+the spatial axis, alone or composed; and the JAX CLI's own refusals of
+the pipe.
 """
 
 from __future__ import annotations
@@ -170,7 +178,7 @@ def _check_domain_adaptation(config) -> None:
 
 
 def _axis_extras(args, config) -> list[str]:
-    """The switches on that the model and spatial axes do not run yet."""
+    """The switches on that the spatial axis does not run yet."""
     on = []
     if args.domain_adaptation:
         tcfg = config.training["domain_adaptation"]
@@ -196,35 +204,31 @@ def _axis_extras(args, config) -> list[str]:
             on.append("distillation")
     if bool((config.model.get(gen) or {}).get("remat", False)):
         on.append("remat")
+    vcfg = config.get("validation") or {}
+    if _enabled(vcfg.get("ensemble")) or _enabled(vcfg.get("sliding")):
+        on.append("a validation protocol")
     return on
 
 
 def _check_mesh(args, config) -> None:
-    """The mesh axes the port runs: ``data`` and ``model`` (over
-    ``--multihost``'s processes), ``spatial`` (alone, one process) and
-    ``pipe`` (alone, one process)."""
+    """The mesh axes the port runs: ``data`` and ``model`` over
+    ``--multihost``'s processes, ``spatial`` over each process's devices
+    (alone or composed with both), and ``pipe`` (alone, one process).  The
+    training extras and the validation protocols do not run on the
+    spatial axis yet."""
     mesh = dict(config.get("mesh") or {})
     spatial = int(mesh.get("spatial", 1) or 1)
     model = int(mesh.get("model", 1) or 1)
-    data = int(mesh.get("data", -1) or -1)
-    if spatial > 1 and (model > 1 or data > 1 or args.multihost):
-        raise _not_ported(f"mesh {mesh}: the spatial axis composed with "
-                          f"the data or model axis (--multihost)")
     if model > 1 and not args.multihost:
         raise SystemExit(
             f"mesh {mesh}: the model axis spans processes, one per GPU: "
             f"launch one process per GPU with torchrun (or --multihost "
             f"and the RTSDS_* variables)")
-    if spatial > 1 or model > 1:
-        axis = "spatial" if spatial > 1 else "model"
+    if spatial > 1:
         extras = _axis_extras(args, config)
-        vcfg = config.get("validation") or {}
-        if spatial > 1 and (_enabled(vcfg.get("ensemble"))
-                            or _enabled(vcfg.get("sliding"))):
-            extras.append("a validation protocol")
         if extras:
             raise _not_ported(f"mesh {mesh}: {', '.join(extras)} on the "
-                              f"{axis} axis")
+                              f"spatial axis", item="17.5b")
     pipe = int(mesh.get("pipe", 1) or 1)
     if pipe != 1 and args.multihost:
         raise SystemExit(
@@ -255,24 +259,36 @@ def _device_type(config) -> str:
         else "cuda"
 
 
+def _spatial_size(config) -> int:
+    return int(dict(config.get("mesh") or {}).get("spatial", 1) or 1)
+
+
 def device_from_config(config) -> torch.device:
     """``device: cpu`` -> the CPU; anything else -> the GPU (or raise).  One
-    process trains on one GPU, unless a spatial mesh bands over several:
-    with more on the box it warns that they idle (``--multihost`` runs
-    one process per GPU)."""
+    process trains on one GPU, or bands over S of them under a ``spatial:
+    S`` mesh (``parallel/mesh.py:band_devices``: on a box with one GPU the
+    bands share it; too few GPUs raise); this returns the first band's.
+    With more GPUs on the box it warns that they idle (``--multihost`` runs
+    one process per GPU, or per S of them)."""
+    from rtsds_tpu_torch.parallel.mesh import band_devices
+
     if _device_type(config) == "cpu":
         return torch.device("cpu")
     device = resolve_device(None)
+    spatial = _spatial_size(config)
+    if spatial > 1:
+        device = band_devices("cuda", spatial, local_rank=0)[0]
     n = torch.cuda.device_count()
-    spatial = int(dict(config.get("mesh") or {}).get("spatial", 1) or 1)
-    if n > 1 and spatial <= 1:  # a spatial mesh bands over the GPUs
+    if n > spatial:
         import warnings
 
+        used, per = (("one GPU", "GPU") if spatial == 1
+                     else (f"{spatial} GPUs", f"{spatial} GPUs"))
         warnings.warn(
-            f"one process trains on one GPU: {n - 1} of {n} GPUs idle; "
-            f"launch one process per GPU with torchrun (or --multihost "
-            f"and the RTSDS_* variables) to train on all of them",
-            stacklevel=2)
+            f"one process trains on {used}: {n - spatial} of {n} GPUs "
+            f"idle; launch one process per {per} with torchrun (or "
+            f"--multihost and the RTSDS_* variables) to train on all of "
+            f"them", stacklevel=2)
     return device
 
 
@@ -881,34 +897,45 @@ def _main(args):
         axis_groups, data_parallel, is_main_rank)
     from rtsds_tpu_torch.parallel.mesh import initialize_multihost
 
-    device = initialize_multihost(device_type=_device_type(config))
+    spatial = _spatial_size(config)
+    device = initialize_multihost(device_type=_device_type(config),
+                                  spatial=spatial)
     try:
         mesh = job_mesh(config, device.type)
-        groups = (None, None)
-        if mesh.axis_size("model") > 1:
-            if mesh.size != dist.get_world_size():
+        world = dist.get_world_size()
+        if mesh.axis_size("model") > 1 or spatial > 1:
+            if mesh.size != world * spatial:
                 raise SystemExit(
-                    f"mesh {dict(config.mesh)}: the model axis needs every "
-                    f"rank in the (data, model) grid: {mesh.size} of "
-                    f"{dist.get_world_size()} ranks would train")
-            groups = axis_groups(mesh.axis_size("model"))
+                    f"mesh {dict(config.mesh)}: every rank must hold a "
+                    f"place in the (data, model) grid, with {spatial} "
+                    f"band(s) each: {mesh.size // spatial} of {world} "
+                    f"ranks would train")
+        groups = (axis_groups(mesh.axis_size("model"))
+                  if mesh.axis_size("model") > 1 else (None, None))
         with data_parallel(*groups), contextlib.ExitStack() as stack:
             if not is_main_rank():  # rank 0 alone prints
                 stack.enter_context(contextlib.redirect_stdout(
                     stack.enter_context(open(os.devnull, "w"))))
+            if spatial > 1:
+                # the bands' backward on one thread: the banded BN's
+                # all-reduces then come in one order on every rank, which
+                # per-device autograd threads would not guarantee
+                stack.enter_context(
+                    torch.autograd.set_multithreading_enabled(False))
             return _run(args, config, device, mesh)
     finally:
         dist.destroy_process_group()
 
 
 def _banded(batches, mesh):
-    """``batches`` split into bands of rows over a spatial ``mesh``'s
-    devices (``parallel/spatial.py:split_batch``), else as they are."""
+    """``batches`` split into bands of rows over the devices of this
+    process's spatial axis (``parallel/spatial.py:split_batch``), else as
+    they are."""
     if mesh.axis_size("spatial") <= 1:
         return batches
     from rtsds_tpu_torch.parallel.spatial import BandedBatches
 
-    return BandedBatches(batches, mesh.devices)
+    return BandedBatches(batches, mesh.axis_devices("spatial"))
 
 
 def _run(args, config, device, mesh):
@@ -923,7 +950,7 @@ def _run(args, config, device, mesh):
 
     if mesh.axis_size("spatial") > 1:
         # the state and the transforms on the first band's device
-        device = mesh.devices[0]
+        device = mesh.axis_devices("spatial")[0]
     if args.domain_adaptation and "pipe" in mesh.axis_names:
         raise SystemExit(
             "mesh: {pipe: N} supports supervised DeepLab training only (the "

@@ -18,6 +18,7 @@ from rtsds_tpu_torch.parallel.distributed import (  # noqa: F401
 )
 from rtsds_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
+    band_devices,
     batch_sharding,
     dp_spatial_sharding,
     initialize_multihost,

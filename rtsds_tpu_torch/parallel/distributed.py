@@ -159,6 +159,36 @@ def global_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """``t`` summed over ``group``; its gradient is the ranks' gradients
+    of the sum summed too (each rank's loss is a share of the global loss,
+    so the gradient of the sum is the sum of the shares' gradients)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def summed_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    """:func:`global_sum` through which autograd differentiates: the
+    backward all-reduces the gradient over the data axis's ranks.  The
+    banded BatchNorm sums its statistics with it (``parallel/spatial.py``),
+    so that its backward's ``sum dy`` and ``sum dy * xhat`` are the global
+    batch's, as :class:`GlobalBatchNorm2d`'s are."""
+    if _GROUP is None:
+        return t
+    return _SumOverRanks.apply(t, _GROUP)
+
+
 def global_count(n) -> torch.Tensor | int:
     """A count summed over the ranks: a tensor is all-reduced, an int (a
     shape's size, equal on every rank) multiplied by the world size."""
@@ -372,10 +402,14 @@ class _GlobalBatchNorm(torch.autograd.Function):
 class GlobalBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode reads the global batch of the
     data axis (:func:`data_parallel`); in eval mode, and at world size 1,
-    it is ``nn.BatchNorm2d`` itself.  The state dict is unchanged."""
+    it is ``nn.BatchNorm2d`` itself.  On the bands of a spatial axis (a
+    ``parallel/spatial.py:Bands``, not a tensor) ``F.batch_norm``'s banded
+    form runs, which sums the bands' statistics and then the data axis's
+    (:func:`summed_over_ranks`).  The state dict is unchanged."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or _GROUP is None:
+        if not self.training or _GROUP is None \
+                or not isinstance(x, torch.Tensor):
             return super().forward(x)
         self._check_input_dim(x)
         momentum = 0.0 if self.momentum is None else self.momentum

@@ -32,7 +32,13 @@ port does the same by hand over the model group of processes
   chunk;
 * a train state's ``state_dict`` gathers the full parameters and
   moments, so a checkpoint is the replicated run's file, and
-  ``load_state_dict`` cuts a full one back into this rank's chunks.
+  ``load_state_dict`` cuts a full one back into this rank's chunks;
+* an EMA of the model (``train/ema.py``) keeps a chunk of each sharded
+  parameter's average, split as the parameter is (JAX's EMA tree follows
+  the parameters' sharding): :meth:`ShardedParameters.local_parameters`
+  are what it averages, :meth:`ShardedParameters.gather_like` and
+  :meth:`ShardedParameters.cut` move its chunks to whole tensors and
+  back.  :func:`sharded_of` finds a model's shards.
 
 The collectives come in two forms, chosen by the group's backend, never
 by catching a failure: NCCL runs ``all_gather_into_tensor`` and
@@ -121,10 +127,12 @@ class ShardedParameters:
                 chunk, requires_grad=p.requires_grad), p.shape))
         self._by_param = {id(e.param): e for e in self.entries}
         self._by_shard = {id(e.shard): e for e in self.entries}
+        self._by_name = {e.name: e for e in self.entries}
         self.gathered = True
         self.free()
         self._hook = model.register_forward_pre_hook(
             lambda module, args: self.gather())
+        model._rtsds_sharded = self
 
     # --- the collectives --------------------------------------------------
 
@@ -221,6 +229,30 @@ class ShardedParameters:
         return sq.sqrt().to(torch.promote_types(grads[0].dtype,
                                                 torch.float32))
 
+    # --- tensors split as the parameters are (the EMA) --------------------
+
+    def local_parameters(self) -> dict:
+        """``{name: tensor}`` of what this rank holds of every parameter,
+        in ``named_parameters`` order: a sharded one's shard, a replicated
+        one itself."""
+        return {name: (self._by_name[name].shard if name in self._by_name
+                       else p) for name, p in self.model.named_parameters()}
+
+    def gather_like(self, name: str, chunk: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of which ``chunk`` is this rank's chunk, split
+        as parameter ``name`` is (a collective over the model group);
+        ``chunk`` itself for a replicated parameter."""
+        e = self._by_name.get(name)
+        if e is None:
+            return chunk
+        return self._gather(dataclasses.replace(e, shard=chunk.detach()))
+
+    def cut(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of ``full``, split as parameter ``name`` is
+        (a view; ``full`` itself for a replicated parameter)."""
+        e = self._by_name.get(name)
+        return full if e is None else self._chunk(full, e)
+
     # --- the optimizer and the state dicts --------------------------------
 
     def install(self, optimizer) -> None:
@@ -266,14 +298,11 @@ class ShardedParameters:
         for e in self.entries:
             i = index[id(e.shard)]
             if i in moments:
-                moments[i] = {k: self._gather_like(v, e)
+                moments[i] = {k: self.gather_like(e.name, v)
+                              if isinstance(v, torch.Tensor)
+                              and v.shape == e.shard.shape else v
                               for k, v in moments[i].items()}
         return state
-
-    def _gather_like(self, v, e: _Entry):
-        if not isinstance(v, torch.Tensor) or v.shape != e.shard.shape:
-            return v
-        return self._gather(dataclasses.replace(e, shard=v))
 
     @torch.no_grad()
     def load_model_state_dict(self, state: dict) -> None:
@@ -319,6 +348,12 @@ class ShardedParameters:
                 if isinstance(v, torch.Tensor) and v.dim() > 0:
                     total += v.numel() * v.element_size()
         return total
+
+
+def sharded_of(model: nn.Module) -> ShardedParameters | None:
+    """The :class:`ShardedParameters` of ``model``, or None when its
+    parameters are whole."""
+    return getattr(model, "_rtsds_sharded", None)
 
 
 def shard_state(state, group, min_size: int = MIN_SIZE) -> ShardedParameters:

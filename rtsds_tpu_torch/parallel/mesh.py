@@ -24,16 +24,21 @@ each axis onto what PyTorch runs:
   serving and for training), a pipe mesh pipelines DeepLab's layer3
   (``parallel/pipeline.py``, ``train/pipelined.py``).  Serving's batch
   mesh is one process over a list of devices too, one model replica on
-  each (``serve.py``).
+  each (``serve.py``).  A spatial axis of S composes with the axes over
+  processes: each process bands its frames over S devices of its own
+  (:func:`band_devices`: local rank r holds ``cuda:r*S`` to
+  ``cuda:r*S+S-1``; on a box with one GPU every band of every rank is
+  ``cuda:0``; too few GPUs raise).
 
 A :class:`Mesh` is a row-major device grid with its axis names and sizes.
-On the axes over processes a rank knows its own device only, so every
-entry is that device.  The CPU counts as ``RTSDS_CPU_DEVICES`` devices
-(default 1), as XLA's host platform device count does for the JAX
-package's tests, so that a spatial, pipe or serving mesh of several
-devices runs there.  :func:`make_mesh_from_config` builds any ``{data,
-spatial, model, pipe}`` mesh by the JAX package's rules; what the trainer
-runs on it is the CLI's to decide (``cli.py:_check_mesh``).
+On the axes over processes a rank knows its own devices only, so every
+entry is this rank's device at that entry's spatial index.  The CPU
+counts as ``RTSDS_CPU_DEVICES`` devices (default 1), as XLA's host
+platform device count does for the JAX package's tests, so that a
+spatial, pipe or serving mesh of several devices runs there.
+:func:`make_mesh_from_config` builds any ``{data, spatial, model, pipe}``
+mesh by the JAX package's rules; what the trainer runs on it is the
+CLI's to decide (``cli.py:_check_mesh``).
 """
 
 from __future__ import annotations
@@ -91,6 +96,16 @@ class Mesh:
         """The size of axis ``name``; 1 when the mesh lacks it."""
         return self.shape.get(name, 1)
 
+    def axis_devices(self, name: str) -> list[torch.device]:
+        """The devices along axis ``name`` at index 0 of every other axis
+        (a spatial axis: the devices one process bands its frames
+        over)."""
+        if name not in self.axis_names:
+            return [self.devices[0]]
+        index = tuple(slice(None) if a == name else 0
+                      for a in self.axis_names)
+        return list(self.grid[index])
+
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
@@ -120,6 +135,39 @@ def local_devices(device_type: str = "cuda") -> list[torch.device]:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def band_devices(device_type: str = "cuda", spatial: int = 1,
+                 local_rank: int | None = None) -> list[torch.device]:
+    """The ``spatial`` devices a process bands its frames over.  On the
+    CPU, the first ``spatial`` of the CPU counted ``RTSDS_CPU_DEVICES``
+    times.  On GPUs, local rank ``r`` (default: read off the current
+    device, which :func:`initialize_multihost` sets to the first band's)
+    holds ``cuda:r*S`` to ``cuda:r*S+S-1``; on a box with one GPU every
+    band of every rank is ``cuda:0``.  Too few devices raise: there is no
+    fallback."""
+    spatial = max(int(spatial), 1)
+    if device_type == "cpu":
+        devices = local_devices("cpu")
+        if len(devices) < spatial:
+            raise ValueError(
+                f"a {spatial}-wide spatial axis needs {spatial} CPU devices "
+                f"a process, have {len(devices)}: set RTSDS_CPU_DEVICES="
+                f"{spatial}")
+        return devices[:spatial]
+    n = len(local_devices(device_type))
+    if n == 1:
+        return [torch.device("cuda", 0)] * spatial
+    if local_rank is None:
+        local_rank = torch.cuda.current_device() // spatial
+    first = local_rank * spatial
+    if first + spatial > n:
+        raise ValueError(
+            f"local rank {local_rank} bands over cuda:{first} to "
+            f"cuda:{first + spatial - 1} for a {spatial}-wide spatial axis, "
+            f"but this box has {n} GPUs: launch at most {n // spatial} "
+            f"process(es) per box")
+    return [torch.device("cuda", first + i) for i in range(spatial)]
 
 
 def job_devices(device: torch.device) -> list[torch.device]:
@@ -184,15 +232,17 @@ def make_mesh_from_config(spec: dict, devices=None,
     ``(data, [spatial,] [model])`` grid: ``data: -1`` fills to
     ``len(devices) // (S * M)``, surplus devices warn that they idle, and
     the global batch must divide the data axis.  ``devices`` defaults to
-    :func:`local_devices` for the pipe and spatial axes (one process) and
-    to one per rank otherwise."""
+    :func:`local_devices` for the pipe axis and a spatial axis in one
+    process (a box with one GPU bands on it S times), to one per rank on
+    the data and model axes, and, when a spatial axis spans several
+    processes, to each rank's :func:`band_devices` at every (data,
+    spatial, model) entry of its spatial index."""
     d = int(spec.get("data", -1))
     s = int(spec.get("spatial", 1))
     m = int(spec.get("model", 1))
     p = int(spec.get("pipe", 1))
     if devices is None:
-        devices = (local_devices(device_type) if p != 1 or s > 1
-                   else job_devices(_current_device(device_type)))
+        devices = _default_devices(device_type, p, s, m)
     devices = list(devices)
     if p in (-1, 0):
         p = len(devices)
@@ -253,6 +303,23 @@ def make_mesh_from_config(spec: dict, devices=None,
         axes.append("model")
     return make_mesh_2d(tuple(shape), axis_names=tuple(axes),
                         devices=devices)
+
+
+def _default_devices(device_type: str, p: int, s: int, m: int) -> list:
+    """:func:`make_mesh_from_config`'s devices when the caller names
+    none."""
+    if s > 1 and process_count() > 1:
+        bands = band_devices(device_type, s)
+        # row-major (data, spatial, model): entry i's spatial index is
+        # (i // M) % S
+        return [bands[(i // max(m, 1)) % s]
+                for i in range(process_count() * s)]
+    if p != 1 or s > 1:
+        devices = local_devices(device_type)
+        if s > 1 and device_type != "cpu" and len(devices) == 1:
+            devices = band_devices(device_type, s)
+        return devices
+    return job_devices(_current_device(device_type))
 
 
 def _current_device(device_type: str) -> torch.device:
@@ -376,15 +443,19 @@ def initialize_multihost(coordinator_address: str | None = None,
                          process_id: int | None = None,
                          device_type: str = "cuda",
                          backend: str | None = None,
-                         timeout_s: float | None = None) -> torch.device:
-    """Join the job's process group and return this rank's device.
+                         timeout_s: float | None = None,
+                         spatial: int = 1) -> torch.device:
+    """Join the job's process group and return this rank's device (its
+    first band's, under a ``spatial`` axis of several: :func:`band_devices`
+    of its local rank, which raises when the box has too few GPUs).
 
     The arguments default to ``RTSDS_COORDINATOR_ADDRESS`` (``host:port``),
     ``RTSDS_NUM_PROCESSES`` and ``RTSDS_PROCESS_ID``, as the JAX package
     reads them, else to torchrun's ``MASTER_ADDR``/``MASTER_PORT``,
-    ``WORLD_SIZE`` and ``RANK``.  The device is ``cuda:LOCAL_RANK``
-    (``LOCAL_RANK``, else the rank modulo the GPU count) under NCCL, or the
-    CPU under gloo with ``device_type="cpu"``.  ``backend`` overrides the
+    ``WORLD_SIZE`` and ``RANK``.  The device is ``cuda:LOCAL_RANK * S``
+    (``LOCAL_RANK``, else the rank modulo the GPU count over S; NCCL's
+    ``device_id``) under NCCL, or the CPU under gloo with
+    ``device_type="cpu"``.  ``backend`` overrides the
     choice (gloo on CUDA tensors runs all_reduce, broadcast and barrier,
     all this module needs).  Without a GPU, and not asked for the CPU, it
     raises: it never falls back to gloo or to the CPU on its own."""
@@ -413,9 +484,11 @@ def initialize_multihost(coordinator_address: str | None = None,
             raise RuntimeError(
                 "--multihost: no CUDA device is available; set device: cpu "
                 "in the config to run the process group (gloo) on the CPU")
+        n = torch.cuda.device_count()
         local = int(env.get("LOCAL_RANK",
-                            process_id % torch.cuda.device_count()))
-        device = torch.device("cuda", local)
+                            process_id % max(n // max(spatial, 1), 1)))
+        device = (band_devices("cuda", spatial, local)[0] if spatial > 1
+                  else torch.device("cuda", local))
         torch.cuda.set_device(device)
         backend = backend or "nccl"
     kwargs = {}

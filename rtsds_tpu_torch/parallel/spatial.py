@@ -40,7 +40,15 @@ runs on a band alone when it reads across rows.
   ``parallel/distributed.py:GlobalBatchNorm2d`` computes it), the running
   mean and the unbiased running variance from the global count; its
   backward, as every op's here, is autograd's over the bands' tensors and
-  their copies, which is the whole batch's.  ``cross_entropy`` sums each
+  their copies, which is the whole batch's.  Under the data axis each of
+  the two sums is then all-reduced over the data group by an op whose
+  backward all-reduces its gradient
+  (``distributed.py:summed_over_ranks``), and the count is the global
+  batch's, so the statistics and the backward's ``sum dy`` and ``sum dy
+  * xhat`` are the global batch's; those all-reduces run in the backward
+  in autograd's order, which one autograd thread keeps alike on every
+  rank (the CLI turns off autograd's per-device threads when the spatial
+  axis spans processes).  ``cross_entropy`` sums each
   band's losses and counts its valid pixels, and divides on the first
   device; ``sum`` over every dim is a plain tensor there too.  The
   discriminators pool their logits over H (a plain tensor), so their BCE
@@ -61,8 +69,11 @@ process, and every op is a differentiable torch op, so a training step
 runs on bands as it runs on a tensor (ROADMAP item 17.4): the weights stay
 on the first device, ``Tensor.to`` copies carry them to the others, and
 the backward carries each copy's gradient back to the first device's
-parameter.  :class:`FrameBands` holds NHWC frames banded the same way,
-whose ``permute(0, 3, 1, 2)`` is the model's input;
+parameter.  A training layout (:func:`split_batch`'s) caches no copy: a
+parameter the model axis gathers anew each step (``parallel/fsdp.py``)
+may reuse a freed pointer, which a cache keyed by ``data_ptr`` would
+take for the old copy.  :class:`FrameBands` holds NHWC frames banded
+the same way, whose ``permute(0, 3, 1, 2)`` is the model's input;
 :func:`split_batch` bands a training or validation batch.
 """
 
@@ -535,17 +546,25 @@ def _batch_norm(input, running_mean, running_var, weight=None, bias=None,
 def _batch_norm_train(x: Bands, running_mean, running_var, weight, bias,
                       momentum, eps) -> Bands:
     """Train-mode batch norm with the whole batch's statistics over the
-    bands (see the module docstring); the running statistics, when given,
-    advance by ``momentum`` as ``F.batch_norm``'s do."""
+    bands (see the module docstring) and, under the data axis, over its
+    ranks' bands: each sum of the bands is all-reduced over the data group
+    (``parallel/distributed.py:summed_over_ranks``, whose backward sums the
+    gradients alike) and the count is the global batch's.  The running
+    statistics, when given, advance by ``momentum`` as ``F.batch_norm``'s
+    do, the variance unbiased by the global count."""
+    from rtsds_tpu_torch.parallel.distributed import (
+        global_count, summed_over_ranks)
+
     lay, dev = x.layout, x.device
     acc = torch.promote_types(x.dtype, torch.float32)
     dims = [0] + list(range(2, x.ndim))
     view = [1, x.shape[1]] + [1] * (x.ndim - 2)
-    count = x.numel() // x.shape[1]
-    mean = sum(p.to(acc).sum(dims).to(dev) for p in x.parts) / count
+    count = global_count(x.numel() // x.shape[1])
+    mean = summed_over_ranks(
+        sum(p.to(acc).sum(dims).to(dev) for p in x.parts)) / count
     means = [lay.on(mean, i).view(view) for i in range(len(x.parts))]
     centred = [p.to(acc) - m for p, m in zip(x.parts, means)]
-    sq = sum((c * c).sum(dims).to(dev) for c in centred)
+    sq = summed_over_ranks(sum((c * c).sum(dims).to(dev) for c in centred))
     invstd = torch.rsqrt(sq / count + eps)
     if running_mean is not None:
         with torch.no_grad():

@@ -150,19 +150,24 @@ def test_validate_only_without_a_checkpoint_exits(tmp_path):
 
 @pytest.mark.parametrize("argv,extra,match", [
     # --multihost runs (tests/test_torch_multihost.py), and so do the
-    # model axis over its ranks (test_torch_fsdp.py) and the spatial axis
-    # in one process (test_torch_spatial_train.py); the spatial axis
-    # composed with the processes' axes exits before the process group is
-    # joined, naming ROADMAP item 17.5
-    pytest.param(["--multihost"], "mesh: {spatial: 2}", "spatial",
-                 id="argv0----multihost"),
-    pytest.param(["--multihost"], "mesh: {model: 2, spatial: 2}", "model",
-                 id="argv1-mesh: {model: 2}-model"),
-    ([], "mesh: {data: 2, spatial: 2}", "spatial"),
+    # model axis over its ranks (test_torch_fsdp.py), the spatial axis in
+    # one process (test_torch_spatial_train.py) and composed with the
+    # processes' axes (test_torch_composed.py); the training extras and
+    # the validation protocols on the spatial axis exit before the
+    # process group is joined, naming ROADMAP item 17.5
+    pytest.param(["--multihost"],
+                 "mesh: {spatial: 2}\nvalidation: {sliding: {enabled: "
+                 "true}}", "spatial", id="argv0----multihost"),
+    pytest.param(["--multihost"],
+                 "mesh: {model: 2, spatial: 2}\nmodel: {bisenet: {remat: "
+                 "true}}", "remat", id="argv1-mesh: {model: 2}-model"),
+    pytest.param([], "mesh: {data: 2, spatial: 2}\nvalidation: {ensemble: "
+                     "{enabled: true}}", "spatial",
+                 id="argv2-mesh: {data: 2, spatial: 2}-spatial"),
 ])
 def test_not_ported_switches_exit(tmp_path, argv, extra, match):
-    """Only the spatial axis composed with the data or model axis is left
-    of the mesh (``--multihost``, ``--wandb``, ``--debug`` and
+    """Only the extras and the validation protocols on the spatial axis
+    are left of the mesh (``--multihost``, ``--wandb``, ``--debug`` and
     ``callbacks.history`` run: test_torch_multihost.py,
     test_torch_tooling.py; the other refusals of ROADMAP item 17.5:
     test_torch_mesh_nd.py)."""
@@ -249,8 +254,10 @@ def test_supervised_and_da_checkpoints_keep_apart(tmp_path):
 
 @pytest.mark.parametrize("da,extra,match", [
     # a data mesh runs (tests/test_torch_multihost.py), and the spatial
-    # axis alone (test_torch_spatial_train.py); composed with data, not yet
-    pytest.param("", "mesh: {data: 2, spatial: 2}", "mesh",
+    # axis alone (test_torch_spatial_train.py) and composed with data
+    # (test_torch_composed.py); MinEnt on it, not yet
+    pytest.param(", entropy_min: {enabled: true}",
+                 "mesh: {data: 2, spatial: 2}", "mesh",
                  id="-mesh: {data: 2}-mesh"),
 ])
 def test_not_ported_da_switches_exit(tmp_path, da, extra, match):

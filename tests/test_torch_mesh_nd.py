@@ -17,9 +17,11 @@ what ROADMAP item 17.5 still holds, against the JAX package.
   map) over model axes of 2 and 4, and JAX's test's three arrays.
 * ``parallel/distributed.py:axis_groups``' grid, rank r at data index
   r // M and model index r % M, on 4 gloo CPU ranks.
-* The CLI: every combination queued for ROADMAP item 17.5 exits naming it;
-  a model axis without ``--multihost`` exits asking for one process per
-  GPU.
+* The CLI: every training extra and validation protocol on the spatial
+  axis, alone or composed with the model or data axis, exits naming
+  ROADMAP item 17.5 (the model axis runs them, test_torch_fsdp_extras.py;
+  the composed meshes run, test_torch_composed.py); a model axis without
+  ``--multihost`` exits asking for one process per GPU.
 """
 
 import warnings
@@ -236,26 +238,29 @@ def _with(tmp_path, mesh: str, seg: str = "", da: str = "",
     return path
 
 
+# the model axis runs every extra (test_torch_fsdp_extras.py): composed
+# with the spatial axis, they are what is left of ROADMAP item 17.5
+SM = "mesh: {model: 2, spatial: 2}"
 REFUSED = {
-    "model_ema": ("mesh: {model: 2}", ", ema: {enabled: true}", "", "",
+    "model_ema": (SM, ", ema: {enabled: true}", "", "",
                   False, "EMA"),
-    "model_accumulate": ("mesh: {model: 2}", ", accumulate_steps: 2", "",
+    "model_accumulate": (SM, ", accumulate_steps: 2", "",
                          "", False, "gradient accumulation"),
-    "model_distill": ("mesh: {model: 2}", ", distillation: {enabled: true}",
+    "model_distill": (SM, ", distillation: {enabled: true}",
                       "", "", False, "distillation"),
-    "model_remat": ("mesh: {model: 2}", "", "",
+    "model_remat": (SM, "", "",
                     "model: {bisenet: {remat: true}}", False, "remat"),
-    "model_da_v2": ("mesh: {model: 2}", "", ", variant: v2", "", True,
+    "model_da_v2": (SM, "", ", variant: v2", "", True,
                     "DA v2"),
-    "model_da_minent": ("mesh: {model: 2}", "",
+    "model_da_minent": (SM, "",
                         ", entropy_min: {enabled: true}", "", True,
                         "MinEnt"),
-    "model_da_fda": ("mesh: {model: 2}", "", ", fda: {enabled: true}", "",
+    "model_da_fda": (SM, "", ", fda: {enabled: true}", "",
                      True, "FDA"),
     "model_da_self_training": (
-        "mesh: {model: 2}", "", ", ema: {enabled: true}, self_training: "
+        SM, "", ", ema: {enabled: true}, self_training: "
         "{enabled: true}", "", True, "self-training"),
-    "model_da_grl": ("mesh: {model: 2}", "", "",
+    "model_da_grl": (SM, "", "",
                      "model: {adversarial_model: {discriminator: {grl: "
                      "{enabled: true}}}}", True, "reversal"),
     "spatial_ema": ("mesh: {spatial: 2}", ", ema: {enabled: true}", "", "",
@@ -265,10 +270,10 @@ REFUSED = {
                         "validation protocol"),
     "spatial_da_v2": ("mesh: {spatial: 2}", "", ", variant: v2", "", True,
                       "DA v2"),
-    "spatial_data": ("mesh: {data: 2, spatial: 2}", "", "", "", False,
-                     "composed"),
-    "spatial_model": ("mesh: {spatial: 2, model: 2}", "", "", "", False,
-                      "composed"),
+    "spatial_data": ("mesh: {data: 2, spatial: 2}", ", accumulate_steps: 2",
+                     "", "", False, "gradient accumulation"),
+    "spatial_model": (SM, "",
+                      ", fda: {enabled: true}", "", True, "FDA"),
 }
 
 
