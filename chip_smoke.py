@@ -8,6 +8,7 @@
     python3 chip_smoke.py --parallel-only # data, model, spatial, pipe axes
     python3 chip_smoke.py --axes-only     # the model and spatial axes alone
     python3 chip_smoke.py --composed-only # the composed meshes alone
+    python3 chip_smoke.py --spatial-extras-only  # the extras on bands alone
 
 Kernels are timed on the device alone with the L2 cold: each timed launch
 follows a write of a 256 MB buffer, as K2 follows the transform's write of
@@ -145,7 +146,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
      step on bands timed beside one device, with the peak memory) and
      spatial_sliding (DeepLabV2-R101 at 1024x2048 b1 with a 512x1024
      window on 2 bands: float64 masks equal to one device's, the bf16
-     agreement beside one device's b1-vs-b2 yardstick, both timed); then
+     agreement beside one device's b1-vs-b2 yardstick, both timed),
+     spatial_extras (``--spatial-extras-only`` runs it alone; ROADMAP
+     17.5b: on 2 bands of cuda:0 the float64 steps of the training extras
+     (the int8 teacher's among them) against one device, CBST's
+     thresholds equal; then bf16 at full width through the trainers, K2
+     before banding and K1 per band, each step timed beside one device
+     with its peak memory: BiSeNet-R18 720x1280 b8 with EMA +
+     accumulation 2 + remat, DA v1 with MinEnt + FDA + the reversal step,
+     DA v2, self-training with CBST and ClassMix, DeepLabV2-R101 512x1024
+     b2 distilled from an int8 teacher, and validation at 1024x2048 under
+     the sliding and the ensemble protocols); then
      the composed meshes (``--composed-only`` runs these two alone, and
      ``--axes-only`` runs them too): parallel_composed (two gloo ranks on
      cuda:0 with 2 bands each: float64 BiSeNet-R18 supervised and DA v1
@@ -160,7 +171,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
      ``{data: 2, spatial: 2, model: 2}``: BiSeNet-R18 720x1280 global b8
      and DA v1 (target 512x1024) through the trainers; every bf16 path
      with K2 before banding and K1 per band, its losses finite and its
-     ranks' gathered parameters bit-identical) and
+     ranks' gathered parameters bit-identical; on the four ranks also DA
+     v1 with MinEnt + FDA and 2-micro-batch accumulation, and the hybrid
+     mesh (ROADMAP 17.6): each rank's shard of a DA batch on a 2 x 2
+     (nodes x local GPUs) grid bit-identical to the flat data mesh's,
+     on which the step is the flat data group's) and
      parallel_composed_nccl_world1 (the CLI's ``--multihost`` on ``mesh:
      {spatial: 2}`` under NCCL at world size 1 with the data axis forced,
      its checkpoint served by ``Predictor.from_checkpoint``; a float64
@@ -2605,13 +2620,6 @@ def _int8_validation(model: torch.nn.Module, size: tuple[int, int],
     return miou, step_ms, launches["fast_hist_cuda"]
 
 
-def _tree_on(qtree: dict, device) -> dict:
-    return {kind: {name: tuple(None if t is None else t.to(device)
-                               for t in entry)
-                   for name, entry in qtree[kind].items()}
-            for kind in ("q8", "bf16")}
-
-
 def int8_walk_card_vs_cpu(model_name: str, qtree: dict,
                           x: torch.Tensor) -> dict:
     """The float32 int8 walk of ``qtree`` (``*_int8_apply(out_dtype=
@@ -2629,7 +2637,7 @@ def int8_walk_card_vs_cpu(model_name: str, qtree: dict,
                 torch.inference_mode():
             got = apply(qtree, x, out_dtype=torch.float32).cpu()
             t0 = time.perf_counter()
-            want = apply(_tree_on(qtree, "cpu"), x.cpu(),
+            want = apply(quant.tree_on(qtree, "cpu"), x.cpu(),
                          out_dtype=torch.float32)
             cpu_s = time.perf_counter() - t0
     finally:
@@ -3817,9 +3825,11 @@ def _held_to(got: dict, want: dict) -> dict:
 
 def _par_loader(n: int, size: tuple, seed: int, colour: bool,
                 infinite: bool = False, shuffle: bool = True,
-                drop_last: bool = True):
+                drop_last: bool = True, micro_batches: int = 1):
     """This rank's MultiHostDataLoader (global batch TRAIN_BATCH) over ``n``
-    synthetic frames at ``size`` (colour-coded labels with ``colour``)."""
+    synthetic frames at ``size`` (colour-coded labels with ``colour``;
+    ``micro_batches``: this rank's share of each of a K-step
+    accumulation's micro-batches)."""
     from rtsds_tpu_torch.data.multihost import MultiHostDataLoader
 
     ds = SyntheticSegDataset(n, size, CLASSES, seed=seed, fixed_tints=True)
@@ -3828,7 +3838,8 @@ def _par_loader(n: int, size: tuple, seed: int, colour: bool,
                               unmatched=UNMATCHED, seed=SEED)
     return MultiHostDataLoader(ds, TRAIN_BATCH, shuffle=shuffle,
                                num_workers=4, seed=SEED, infinite=infinite,
-                               drop_last=drop_last)
+                               drop_last=drop_last,
+                               micro_batches=micro_batches)
 
 
 class _StepClock(Callback):
@@ -5483,6 +5494,400 @@ def phase_spatial_sliding(frames: np.ndarray, dl_tree: dict) -> dict:
     return {"fast_hist_cuda": launches}
 
 
+# --- the training extras and the validation protocols on bands (ROADMAP
+# 17.5b) ----------------------------------------------------------------------
+
+SPATIAL_EXTRA_STEPS = 2     # bf16 steps of each extra's path, one epoch
+SPATIAL_EXTRA_REPS = 3      # per timed banded / one-device step
+SPATIAL_PROTOCOL_BATCH = 2  # the protocols' validation batch at SIZE
+# the LR schedules' length in steps: the fits take SPATIAL_EXTRA_STEPS,
+# the timings some more, all inside the schedule
+SPATIAL_SCHEDULE_STEPS = 1000
+EMA_F32_SHARE = 2.0 ** -22  # the EMA, float32 arithmetic: one rounding
+SPATIAL_F64_CASES = ("ema", "accumulate", "remat", "minent_fda", "v2",
+                     "grl", "self_training", "distillation",
+                     "distillation_int8")
+
+
+def _held_to_one_device(got: dict, want: dict, name: str) -> dict:
+    """A float64 extra's step on bands held to the one-device step at the
+    limits of the spatial training phase: each loss within 1e-10
+    relative, each tensor within F64_UPDATE_SHARE of its largest update
+    (BN statistics: of their magnitude; integer counters equal), the EMA
+    (float32 arithmetic, as the JAX package's) within EMA_F32_SHARE of its
+    magnitude.  Returns the worst of each over its limit."""
+    loss_err = max(abs(got["losses"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in want["losses"].items())
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got["after"], want["after"])):
+        start = want["before"][i]
+        for k, v in w.items():
+            if not v.is_floating_point():
+                if not torch.equal(g[k], v):
+                    raise AssertionError(f"{name} {k}: {g[k]} vs {v}")
+                continue
+            if name == "ema":
+                limit = EMA_F32_SHARE * float(v.abs().max())
+            elif k in start:
+                limit = F64_UPDATE_SHARE * float((v - start[k]).abs().max())
+            else:
+                limit = F64_UPDATE_SHARE * float(v.abs().max())
+            worst = max(worst, float((g[k] - v).abs().max())
+                        / (limit + 1e-15))
+    result = {"loss_rel_diff": loss_err, "worst_err_over_limit": worst}
+    if loss_err > 1e-10 or worst > 1.0:
+        raise AssertionError(f"float64 {name} on bands: {result}")
+    return result
+
+
+def _beside_one_device(step, plain_args: tuple, banded_args: tuple
+                       ) -> dict:
+    """``step(*args)`` timed on one device and on the bands of the same
+    card, each with its peak device memory (GB): not a scaling figure."""
+    out = {}
+    for name, args in (("one_device", plain_args),
+                       ("two_bands", banded_args)):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = {"ms": cuda_ms(lambda: step(*args),
+                                   reps=SPATIAL_EXTRA_REPS, warmup=1),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out
+
+
+def _banded(*batch) -> tuple:
+    """A (frames, labels) batch, or a target batch alone, cut into
+    SPATIAL_BANDS bands of cuda:0."""
+    from rtsds_tpu_torch.parallel.spatial import split_batch
+
+    if len(batch) == 1:
+        t = batch[0]
+        return split_batch(t, torch.zeros(t.shape[:3], dtype=torch.long,
+                                          device=t.device),
+                           _band_devices())[:1]
+    return split_batch(*batch, _band_devices())
+
+
+def _target_batch() -> torch.Tensor:
+    """A normalized DA target batch (b8, 512x1024) on the card."""
+    ds = SyntheticSegDataset(TRAIN_BATCH, DA_TGT_SIZE, CLASSES,
+                             seed=SEED + 85, fixed_tints=True)
+    return normalize(torch.from_numpy(np.stack(
+        [ds[i][0] for i in range(TRAIN_BATCH)])).cuda())
+
+
+def _banded_da_fit(config, make_step, seed: int, **fit_kwargs) -> tuple:
+    """One epoch of SPATIAL_EXTRA_STEPS DA steps of a fresh BiSeNet-R18 and
+    Tiny discriminator through ``adversarial_fit`` as a main path, source
+    (colour-coded, K2) and target banded apart, validated on bands (K1 per
+    band).  Returns ``(gen, dis, step, history, launches, losses)``."""
+    from rtsds_tpu_torch.parallel.spatial import BandedBatches
+
+    dev = torch.device("cuda")
+    n = SPATIAL_EXTRA_STEPS * TRAIN_BATCH
+    src_loader, src_tf = _gta5_stream(n, seed, infinite=True)
+    tgt_loader, tgt_tf = _target_stream(n, seed + 1)
+    gen, dis = build_adversarial(config, dev, seed=SEED)
+    step = make_step(gen)
+    val = _val_stream()
+    recorder = _DALossRecorder()
+    source = BandedBatches(device_batches(src_loader, src_tf, dev,
+                                          seed=SEED), _band_devices())
+    target = BandedBatches(device_batches(tgt_loader, tgt_tf, dev),
+                           _band_devices())
+    with contextlib.closing(source), contextlib.closing(target):
+        (_, _, history), launches, checked = on_main_path(
+            lambda: adversarial_fit(
+                gen, dis, step, iter(source), iter(target),
+                lambda epoch: BandedBatches(val(epoch), _band_devices()),
+                iterations=SPATIAL_EXTRA_STEPS, epochs=1,
+                num_classes=CLASSES, callbacks=[recorder], device=dev,
+                **fit_kwargs))
+    if checked != SPATIAL_EXTRA_STEPS or len(history) != 1:
+        raise AssertionError(f"{checked} K2 calls checked, {history}")
+    return gen, dis, step, history, launches, recorder.losses
+
+
+def _protocols_on_bands(tree: dict) -> tuple:
+    """Validation of BiSeNet-R18 (the seeded serving tree) at SIZE, batch
+    SPATIAL_PROTOCOL_BATCH, bf16, under the sliding protocol (a
+    SLIDING_WINDOW window) and the ensemble (DEEPLAB_SCALES with flip) on
+    SPATIAL_BANDS bands, each a main path through ``validate`` (K1 per
+    band, each summed matrix held against the plain version over the
+    gathered masks by the caller's check); the mIoU beside one device's,
+    the eval step timed beside one device's.  Returns ``(report,
+    launches)``."""
+    from rtsds_tpu_torch.eval.ensemble import make_ensemble_eval_step
+
+    dev = torch.device("cuda")
+    model = load_flax_variables(BiSeNet(), tree).to(dev).eval()
+    ds = SyntheticSegDataset(SPATIAL_PROTOCOL_BATCH, SIZE, CLASSES,
+                             seed=SEED + 86, fixed_tints=True)
+    tf = make_transform(SIZE, CLASSES, antialias=True)
+    images, labels = tf(
+        torch.from_numpy(np.stack([ds[i][0] for i in
+                                   range(SPATIAL_PROTOCOL_BATCH)])).to(dev),
+        torch.from_numpy(np.stack([ds[i][1] for i in
+                                   range(SPATIAL_PROTOCOL_BATCH)])).to(dev))
+    report, launches = {}, {}
+    for name, step in (
+            ("sliding", make_sliding_eval_step(
+                model, SIZE, CLASSES, window=SLIDING_WINDOW,
+                compute_dtype=torch.bfloat16)),
+            ("ensemble", make_ensemble_eval_step(
+                model, SIZE, CLASSES, scales=DEEPLAB_SCALES, flip=True,
+                compute_dtype=torch.bfloat16))):
+        (miou, _), launches[name], _ = on_main_path(lambda: validate(
+            model, [_banded(images, labels)], CLASSES, eval_step=step,
+            device=dev))
+        one, _ = validate(model, [(images, labels)], CLASSES, eval_step=step,
+                          device=dev)
+        zero = torch.zeros((CLASSES, CLASSES), dtype=torch.int32,
+                           device=dev)
+        report[name] = {"miou": miou, "miou_one_device": one,
+                        "one_card_not_a_scaling_figure": _beside_one_device(
+                            step, (images, labels, zero),
+                            (*_banded(images, labels), zero))}
+    del model
+    return report, launches
+
+
+def spatial_extras_launched(tree: dict) -> dict:
+    """:func:`phase_spatial_extras`, failing unless K1 and K2 launched on
+    each of its training paths and K1 on each validation path."""
+    launches = phase_spatial_extras(tree)
+    for path, counts in launches.items():
+        need = (("fast_hist_cuda",) if path.startswith("validation_")
+                else ("fast_hist_cuda", "rgb_to_train_ids_cuda"))
+        missed = [k for k in need if counts[k] < 1]
+        if missed:
+            raise AssertionError(f"spatial extras: {path} never launched "
+                                 f"{missed}")
+    return launches
+
+
+def phase_spatial_extras(tree: dict) -> dict:
+    """(k2) The training extras and the validation protocols on the
+    spatial axis (ROADMAP 17.5b), SPATIAL_BANDS bands of cuda:0 in one
+    process.  Float64 steps of the extras (EMA, accumulation, remat,
+    MinEnt + FDA, v2, the reversal step, self-training, distillation under
+    a float DeepLabV2-R101 teacher and under its int8 form, whose bf16
+    walk on the bands the first card run read equal to the whole frame's;
+    PAR_F64_SIZE, b4) on bands held to one device's at the spatial phase's
+    limits, CBST's thresholds equal; then bf16
+    at full width through the trainers, K2 before banding and K1 per band
+    (each summed matrix held against the plain version over the gathered
+    masks), each step timed beside its one-device step with the peak
+    memory: BiSeNet-R18 720x1280 b8 with EMA + accumulation 2 + remat; DA
+    v1 (target 512x1024) with MinEnt + FDA + the reversal step; DA v2;
+    self-training with CBST (calibrated on banded target batches) and
+    ClassMix; DeepLabV2-R101 512x1024 b2 distilled from an int8
+    DeepLabV2-R101 teacher; validation at 1024x2048 under the sliding and
+    the ensemble protocols.  Returns the K1/K2 launches of each path."""
+    from rtsds_tpu_torch.parallel.spatial import BandedBatches, gathered
+    from rtsds_tpu_torch.train.accumulate import (
+        make_accumulating_train_step, split_microbatches)
+    from rtsds_tpu_torch.train.distill import (
+        make_distill_step, quantize_teacher)
+    from rtsds_tpu_torch.train.ema import ema_init
+    from rtsds_tpu_torch.train.self_training import (
+        calibrate_class_thresholds, make_self_training_step)
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    one = _axis_extras_f64()
+    bands = _axis_extras_f64(bands=SPATIAL_BANDS)
+    f64 = {name: _held_to_one_device(bands[name], one[name], name)
+           for name in SPATIAL_F64_CASES}
+    if bands["cbst"] != one["cbst"]:
+        raise AssertionError(f"CBST on bands {bands['cbst']} vs "
+                             f"{one['cbst']}")
+    f64["cbst_thresholds_equal"] = True
+    del one, bands
+    torch.cuda.empty_cache()
+    f64_s = time.perf_counter() - t0
+
+    checks = []
+    val_mod, banded_hist, checked_hist = _banded_hist_check(checks)
+    val_mod.banded_hist = checked_hist
+    launches, out = {}, {}
+    try:
+        val = _val_stream()
+
+        def val_batches(epoch):
+            return BandedBatches(val(epoch), _band_devices())
+
+        # BiSeNet-R18 with EMA + accumulation over 2 micro-batches + remat
+        config = load_config(overrides={
+            "precision": {"compute_dtype": "bfloat16"},
+            "model": {"bisenet": {"remat": True}},
+            "training": {"segmentation": {
+                "epochs": 1, "do_validation": 1, "accumulate_steps": 2,
+                "ema": {"enabled": True, "decay": 0.999}}}})
+        loader, transform = _gta5_stream(SPATIAL_EXTRA_STEPS * TRAIN_BATCH,
+                                         SEED + 101)
+        state = build_supervised(config, "bisenet", SPATIAL_SCHEDULE_STEPS,
+                                 dev, seed=SEED)
+        acc = make_accumulating_train_step(19)
+
+        def acc_step(st, images, labels):
+            return acc(st, split_microbatches(images, 2),
+                       split_microbatches(labels, 2))
+        clock = _StepClock()
+        (_, history), launches["ema_accumulate_remat"], _ = on_main_path(
+            lambda: supervised_fit(
+                state, acc_step, lambda epoch: BandedBatches(device_batches(
+                    loader, transform, dev, seed=SEED, epoch=epoch),
+                    _band_devices()), val_batches, epochs=1,
+                num_classes=CLASSES, callbacks=[clock], device=dev,
+                ema_decay=0.999))
+        losses = [e["train_loss"] for e in clock.logs]
+        if len(losses) != SPATIAL_EXTRA_STEPS or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"EMA + accumulation + remat: {losses}")
+        batch = _full_size_batch()
+        out["ema_accumulate_remat"] = {
+            "losses": losses, "miou_on_ema": history[0]["validation_mIoU"],
+            "one_card_not_a_scaling_figure": _beside_one_device(
+                lambda *a: acc_step(state, *a), batch, _banded(*batch))}
+        del state
+        torch.cuda.empty_cache()
+
+        # DA v1 with MinEnt + FDA + the reversal step, then DA v2
+        src = _full_size_batch()
+        tgt = _target_batch()
+        da_args = (*src, tgt)
+        da_banded = (*_banded(*src), *_banded(tgt))
+        for name, da in (("da_v1_minent_fda_grl", {
+                "entropy_min": {"enabled": True, "lambda": 0.005},
+                "fda": {"enabled": True, "beta": 0.01}}),
+                         ("da_v2", {"variant": "v2"})):
+            config = _extras_config(domain_adaptation={
+                "epochs": 1, "iterations": SPATIAL_SCHEDULE_STEPS,
+                "do_validation": 1, **da})
+            kw = (dict(lambda_ent=0.005, fda_beta=0.01, grl_alpha=0.1)
+                  if name.startswith("da_v1") else dict(variant="v2"))
+            step = make_adversarial_step(
+                float(config.training["domain_adaptation"]["lambda"]),
+                SPATIAL_EXTRA_STEPS, 1, 19, **kw)
+            gen, dis, step, history, launches[name], losses = \
+                _banded_da_fit(config, lambda g, s=step: s,
+                               SEED + 102 + len(out))
+            check_da_losses(losses, SPATIAL_EXTRA_STEPS, tuple(losses[0]))
+            out[name] = {"losses": losses,
+                         "miou": history[0]["validation_mIoU"],
+                         "one_card_not_a_scaling_figure": _beside_one_device(
+                             lambda *a: step(gen, dis, *a), da_args,
+                             da_banded)}
+            del gen, dis, step
+            torch.cuda.empty_cache()
+
+        # self-training: CBST on banded target batches, ClassMix, the EMA
+        # teacher
+        config = _extras_config(domain_adaptation={
+            "epochs": 1, "iterations": SPATIAL_SCHEDULE_STEPS,
+            "do_validation": 1, "ema": {"enabled": True, "decay": 0.999},
+            "self_training": {"enabled": True, "classmix": {"enabled": True},
+                              "calibration": {"enabled": True,
+                                              "batches": 2}}})
+        calibrated = {}
+
+        def build(gen):
+            cal_loader, cal_tf = _target_stream(2 * TRAIN_BATCH, SEED + 108)
+            cal = BandedBatches(device_batches(cal_loader, cal_tf, dev),
+                                _band_devices())
+            with contextlib.closing(cal):
+                drawn = iter(cal)
+                thr = calibrate_class_thresholds(
+                    gen.model, [next(drawn) for _ in range(2)],
+                    CLASSES, portion=0.5, compute_dtype=gen.compute_dtype)
+            calibrated["thresholds"] = [float(v) for v in thr]
+            return make_self_training_step(
+                float(config.training["domain_adaptation"]["lambda"]),
+                SPATIAL_EXTRA_STEPS, 19, threshold=thr, ema_decay=0.999,
+                classmix=True, classmix_seed=SEED)
+        gen, dis, step, history, launches["self_training"], losses = \
+            _banded_da_fit(config, build, SEED + 106, ema_in_step=True)
+        check_da_losses(losses, SPATIAL_EXTRA_STEPS, tuple(losses[0]))
+        ema = ema_init(gen.model)
+        out["self_training"] = {
+            "losses": losses, "miou": history[0]["validation_mIoU"],
+            **calibrated,
+            "one_card_not_a_scaling_figure": _beside_one_device(
+                lambda *a: step(gen, dis, ema, *a), da_args, da_banded)}
+        del gen, dis, step, ema, src, tgt, da_args, da_banded
+        torch.cuda.empty_cache()
+
+        # DeepLabV2-R101 at 512x1024 b2, distilled from its int8 form
+        config = load_config(overrides={
+            "precision": {"compute_dtype": "bfloat16"},
+            "training": {"segmentation": {"epochs": 1,
+                                          "do_validation": 1}}})
+        ds = ColorCodedLabels(SyntheticSegDataset(
+            SPATIAL_EXTRA_STEPS * SPATIAL_DL_BATCH, DEEPLAB_SIZE, CLASSES,
+            seed=SEED + 109, fixed_tints=True), class_colors_for_remap(),
+            unmatched=UNMATCHED, seed=SEED)
+        loader = DataLoader(ds, SPATIAL_DL_BATCH, shuffle=True,
+                            num_workers=4, seed=SEED)
+        tf = make_transform(DEEPLAB_SIZE, CLASSES, antialias=False,
+                            augment_cfg=AugmentConfig.from_config(config),
+                            decode_label_colors=True)
+        teacher_model, _ = make_segmentor(config, "deeplab", seed=SEED + 22)
+        # the calibration sees the frames one device sees: the bands
+        # gathered, as the CLI hands them to it
+        calib = [gathered(images).permute(0, 3, 1, 2) for images, _ in
+                 BandedBatches(device_batches(loader, tf, dev, seed=SEED),
+                               _band_devices())]
+        teacher = quantize_teacher("deeplab", teacher_model.state_dict(),
+                                   calib, device=dev)
+        del teacher_model, calib
+        state = build_supervised(config, "deeplab", SPATIAL_SCHEDULE_STEPS,
+                                 dev, seed=SEED)
+        step = make_distill_step(teacher, 19)
+        clock = _StepClock()
+        (_, history), launches["deeplab_distill_int8"], _ = on_main_path(
+            lambda: supervised_fit(
+                state, step, lambda epoch: BandedBatches(device_batches(
+                    loader, tf, dev, seed=SEED, epoch=epoch),
+                    _band_devices()), val_batches, epochs=1,
+                num_classes=CLASSES, callbacks=[clock], device=dev))
+        losses = [{k: e[k] for k in ("train_loss", "loss_ce", "loss_distill")}
+                  for e in clock.logs]
+        if len(losses) != SPATIAL_EXTRA_STEPS or not all(
+                math.isfinite(v) for row in losses for v in row.values()):
+            raise AssertionError(f"int8-teacher distillation: {losses}")
+        dl_batch = next(iter(device_batches(loader, tf, dev, seed=SEED)))
+        out["deeplab_distill_int8"] = {
+            "losses": losses, "miou": history[0]["validation_mIoU"],
+            "one_card_not_a_scaling_figure": _beside_one_device(
+                lambda *a: step(state, *a), dl_batch, _banded(*dl_batch))}
+        del state, teacher, step, dl_batch
+        torch.cuda.empty_cache()
+
+        # the validation protocols at 1024x2048
+        out["protocols"], protocol_launches = _protocols_on_bands(tree)
+        launches.update({f"validation_{k}": v
+                         for k, v in protocol_launches.items()})
+        torch.cuda.empty_cache()
+    finally:
+        val_mod.banded_hist = banded_hist
+    if not checks:
+        raise AssertionError("no banded K1 matrix was checked")
+    emit({"phase": "spatial_extras", "bands": SPATIAL_BANDS,
+          "devices": "cuda:0 twice",
+          "float64_vs_one_device": f64, "float64_s": f64_s,
+          "bisenet_size": list(TRAIN_SIZE), "batch": TRAIN_BATCH,
+          "da_target_size": list(DA_TGT_SIZE),
+          "deeplab_size": list(DEEPLAB_SIZE),
+          "deeplab_batch": SPATIAL_DL_BATCH, "protocol_size": list(SIZE),
+          "protocol_batch": SPATIAL_PROTOCOL_BATCH,
+          "steps": SPATIAL_EXTRA_STEPS,
+          "banded_k1_matrices_checked": len(checks), **out,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 # --- composed meshes and the model axis's extras (ROADMAP 17.5a) -----------
 
 COMPOSED_STEPS = 2          # bf16 steps of each composed path, one epoch
@@ -5498,11 +5903,13 @@ def _spec_name(spec: dict) -> str:
     return "_".join(f"{k}{v}" for k, v in spec.items())
 
 
-def _axis_extras_f64(mesh=None) -> dict:
+def _axis_extras_f64(mesh=None, bands: int = 0) -> dict:
     """Float64 steps of every training extra of ROADMAP 17.5a on the card
     at PAR_F64_SIZE on the global batch 4 of :func:`_par_f64_inputs`
-    (a model group's ranks take the same frames), each state placed on
-    ``mesh`` (``{model: 2}``: sharded) or, without one, whole: the EMA
+    (a model group's ranks take the same frames; ``bands``: the frames cut
+    into that many height bands of cuda:0, source and target apart), each
+    state placed on ``mesh`` (``{model: 2}``: sharded) or, without one,
+    whole: the EMA
     after a supervised step (its chunks gathered whole), 2-micro-batch
     accumulation, remat, DA v1 with MinEnt + FDA, v2 with both, the
     reversal step, self-training (ClassMix, FDA, MinEnt, the EMA teacher),
@@ -5520,8 +5927,14 @@ def _axis_extras_f64(mesh=None) -> dict:
     from rtsds_tpu_torch.train.self_training import (
         calibrate_class_thresholds, classmix_scores, make_self_training_step)
 
+    from rtsds_tpu_torch.parallel.spatial import gathered, split_batch
+
     images, labels, target = _par_f64_inputs()
     x, y, t = (a.cuda() for a in (images, labels, target))
+    if bands:
+        x, y = split_batch(x, y, ["cuda:0"] * bands)
+        t, _ = split_batch(t, torch.zeros(t.shape[:3], dtype=torch.long,
+                                          device=t.device), ["cuda:0"] * bands)
     config = load_config()
     out = {}
 
@@ -5606,7 +6019,8 @@ def _axis_extras_f64(mesh=None) -> dict:
         teacher.eval()
         t32 = {k: v.float() for k, v in teacher.state_dict().items()}
         int8_teacher = quantize_teacher(
-            "deeplab", t32, [x.float().permute(0, 3, 1, 2)], device="cuda")
+            "deeplab", t32, [gathered(x).float().permute(0, 3, 1, 2)],
+            device="cuda")
         for name, tch in (("distillation", teacher),
                           ("distillation_int8", int8_teacher)):
             model, _ = _f64_model(config, "bisenet", SEED)
@@ -5906,12 +6320,101 @@ def _composed_quad_rank(rank: int, world: int) -> dict:
                     callbacks=[clock], device=dev), clock, [gen, dis])
             del gen, dis
             torch.cuda.empty_cache()
+            _composed_extras(out, mesh, dev, val, src_tf, tgt_tf)
     finally:
         val_mod.banded_hist = banded_hist
+    # the hybrid mesh over the four ranks
+    with distributed.data_parallel():
+        out["hybrid"] = _hybrid_shards(dev)
     if not checks:
         raise AssertionError("no banded K1 matrix was checked")
     out["banded_k1_matrices_checked"] = len(checks)
     return out
+
+
+def _composed_extras(out: dict, mesh, dev, val, src_tf, tgt_tf) -> None:
+    """On ``{data: 2, spatial: 2, model: 2}`` (ROADMAP 17.5b): DA v1 with
+    MinEnt and FDA, and the supervised step accumulated over 2
+    micro-batches (each rank's loader holding its share of each), through
+    the trainers on banded batches, as :func:`_composed_fit` paths."""
+    from rtsds_tpu_torch.parallel.mesh import place_state
+    from rtsds_tpu_torch.parallel.spatial import BandedBatches
+    from rtsds_tpu_torch.train.accumulate import (
+        make_accumulating_train_step, split_microbatches)
+
+    config = da_config()
+    tcfg = config.training["domain_adaptation"]
+    gen, dis = build_adversarial(config, dev, seed=SEED)
+    place_state(gen, mesh)
+    place_state(dis, mesh)
+    src = _par_loader(COMPOSED_STEPS * TRAIN_BATCH, TRAIN_SIZE, SEED + 110,
+                      True, infinite=True)
+    tgt = _par_loader(COMPOSED_STEPS * TRAIN_BATCH, DA_TGT_SIZE, SEED + 111,
+                      False, infinite=True)
+    source = BandedBatches(device_batches(src, src_tf, dev, seed=SEED),
+                           _band_devices())
+    target = BandedBatches(device_batches(tgt, tgt_tf, dev), _band_devices())
+    clock = _StepClock()
+    with contextlib.closing(source), contextlib.closing(target):
+        _composed_fit(out, "da_v1_minent_fda", lambda: adversarial_fit(
+            gen, dis, make_adversarial_step(
+                float(tcfg["lambda"]), COMPOSED_STEPS, 1, 19, "v1",
+                lambda_ent=0.005, fda_beta=0.01),
+            iter(source), iter(target), val, iterations=COMPOSED_STEPS,
+            epochs=1, num_classes=CLASSES, callbacks=[clock], device=dev),
+            clock, [gen, dis])
+    del gen, dis
+    torch.cuda.empty_cache()
+
+    config = train_config()
+    loader = _par_loader(COMPOSED_STEPS * TRAIN_BATCH, TRAIN_SIZE,
+                         SEED + 112, True, micro_batches=2)
+    tf = make_transform(TRAIN_SIZE, CLASSES, antialias=False,
+                        augment_cfg=AugmentConfig.from_config(config),
+                        decode_label_colors=True, micro_batches=2)
+    state = place_state(build_supervised(config, "bisenet", len(loader), dev,
+                                         seed=SEED), mesh)
+    acc = make_accumulating_train_step(19)
+    clock = _StepClock()
+    _composed_fit(out, "accumulate", lambda: supervised_fit(
+        state, lambda st, xb, yb: acc(st, split_microbatches(xb, 2),
+                                      split_microbatches(yb, 2)),
+        lambda epoch: BandedBatches(device_batches(
+            loader, tf, dev, seed=SEED, epoch=epoch), _band_devices()),
+        val, epochs=1, num_classes=CLASSES, callbacks=[clock], device=dev),
+        clock, [state])
+    del state
+    torch.cuda.empty_cache()
+
+
+def _hybrid_shards(dev) -> dict:
+    """The hybrid mesh (ROADMAP 17.6) on the job's four ranks as 2 nodes x
+    2 local GPUs: each rank's shard of a global b8 DA batch (720x1280
+    source, 512x1024 target) under ``shard_batch`` over
+    ``make_hybrid_mesh(2)``, bit-identical to its shard on the flat data
+    mesh of the same ranks.  The step on those shards is the flat data
+    group's step (NCCL reduces hierarchically itself), which the phase
+    runs above; the float64 2 x 1 grid's DA step against one process is
+    tests/test_torch_spatial_extras_composed.py's."""
+    from rtsds_tpu_torch.parallel import distributed
+    from rtsds_tpu_torch.parallel import mesh as pm
+
+    rank = distributed.rank()
+    hybrid = pm.make_hybrid_mesh(2, devices=pm.job_devices(dev))
+    flat = pm.make_mesh(pm.job_devices(dev))
+    batch = (*_full_size_batch(), _target_batch())
+    shards = {name: [pm.shard_batch(a, m)[rank] for a in batch]
+              for name, m in (("flat", flat), ("hybrid", hybrid))}
+    result = {"grid": list(hybrid.grid.shape),
+              "axis_names": list(hybrid.axis_names),
+              "spec": [list(hybrid_spec) for hybrid_spec in
+                       pm.hybrid_batch_sharding(hybrid).spec],
+              "shards_bit_identical": all(
+                  torch.equal(a, b) for a, b in
+                  zip(shards["flat"], shards["hybrid"]))}
+    if not result["shards_bit_identical"] or result["grid"] != [2, 2]:
+        raise AssertionError(f"the hybrid mesh's shards: {result}")
+    return result
 
 
 def phase_parallel_composed() -> dict:
@@ -5948,7 +6451,8 @@ def phase_parallel_composed() -> dict:
     for ranks, names, prefix in (
             (pair, ("deeplab_spatial2_model2", "model2_ema_accumulate",
                     "model2_self_training"), ""),
-            (quad, ("bisenet", "da_v1"), "data2_spatial2_model2_")):
+            (quad, ("bisenet", "da_v1", "da_v1_minent_fda", "accumulate"),
+             "data2_spatial2_model2_")):
         for name in names:
             runs = [r[name] for r in ranks]
             if not all(r["params_bit_identical"] for r in runs):
@@ -5969,7 +6473,9 @@ def phase_parallel_composed() -> dict:
                    "steps": COMPOSED_STEPS,
                    **{name: {k: v for k, v in quad[0][name].items()
                              if k != "launches"}
-                      for name in ("bisenet", "da_v1")},
+                      for name in ("bisenet", "da_v1", "da_v1_minent_fda",
+                                   "accumulate")},
+                   "hybrid_2x2_shards": quad[0]["hybrid"],
                    "banded_k1_matrices_checked": [
                        r["banded_k1_matrices_checked"] for r in quad],
                    "peak_mb_per_rank": [r["bisenet"]["peak_mb"]
@@ -6183,6 +6689,8 @@ def parallel_phases(tree: dict, frames: np.ndarray, dl_tree: dict,
     torch.cuda.empty_cache()
     sliding = phase_spatial_sliding(frames, dl_tree)
     torch.cuda.empty_cache()
+    extras_on_bands = spatial_extras_launched(tree)
+    torch.cuda.empty_cache()
     composed = composed_phases()
     paths = {"dp2_bisenet_training": shared["supervised"],
              "dp2_bisenet_da": shared["da"],
@@ -6195,6 +6703,8 @@ def parallel_phases(tree: dict, frames: np.ndarray, dl_tree: dict,
              "spatial2_bisenet_training": spatial_train["bisenet"],
              "spatial2_bisenet_da": spatial_train["da"],
              "spatial2_deeplab_training": spatial_train["deeplab"],
+             **{f"spatial2_{k}": n for k, n in extras_on_bands.items()
+                if not k.startswith("validation_")},
              **composed}
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
     launches = {kernel: {path: n[kernel] for path, n in paths.items()}
@@ -6203,6 +6713,10 @@ def parallel_phases(tree: dict, frames: np.ndarray, dl_tree: dict,
         spatial["fast_hist_cuda"]
     launches["fast_hist_cuda"]["deeplab_spatial_sliding"] = \
         sliding["fast_hist_cuda"]
+    for k, n in extras_on_bands.items():
+        if k.startswith("validation_"):
+            launches["fast_hist_cuda"][f"spatial2_bisenet_{k}"] = \
+                n["fast_hist_cuda"]
     return launches
 
 
@@ -6430,7 +6944,7 @@ def main() -> int:
         return 0
     if sys.argv[1:] in (["--int8-only"], ["--tooling-only"],
                         ["--parallel-only"], ["--spatial-only"],
-                        ["--axes-only"]):
+                        ["--axes-only"], ["--spatial-extras-only"]):
         phase_device()
         frames, labels, tree, dl_frames, dl_tree = serving_data()
         if sys.argv[1] == "--axes-only":
@@ -6439,11 +6953,16 @@ def main() -> int:
                 "nccl_world1": phase_parallel_model_nccl_world1(),
                 **{f"spatial2_{k}": v for k, v in
                    phase_parallel_spatial_training(frames).items()},
-                "sliding": phase_spatial_sliding(frames, dl_tree)}
+                "sliding": phase_spatial_sliding(frames, dl_tree),
+                **{f"spatial2_{k}": v for k, v in
+                   spatial_extras_launched(tree).items()}}
             composed = composed_phases()
             _check_launched(composed)
             launches.update(composed)
             emit({"phase": "axes_only", "launches": launches})
+        elif sys.argv[1] == "--spatial-extras-only":
+            emit({"phase": "spatial_extras_only",
+                  "launches": spatial_extras_launched(tree)})
         elif sys.argv[1] == "--int8-only":
             int8_phases(frames, labels, tree, dl_frames, dl_tree)
         elif sys.argv[1] == "--tooling-only":
@@ -6464,7 +6983,8 @@ def main() -> int:
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only | "
                          f"--int8-only | --tooling-only | --parallel-only | "
-                         f"--spatial-only | --axes-only | --composed-only]")
+                         f"--spatial-only | --axes-only | --composed-only | "
+                         f"--spatial-extras-only]")
     device = phase_device()
     hist_err = phase_hist_check()
     remap_err = phase_remap_check()

@@ -40,19 +40,18 @@ Entry points run on the GPU unless the caller asks for the CPU: see
   {model: M}`` or ``{data: D, model: M}``: FSDP, each rank keeping its
   shard of every large parameter and of its moments), the spatial axis in
   training over one process's devices (``mesh: {spatial: S}``: each
-  frame's rows in bands), batch-sharded and height-banded (spatial)
-  serving over a mesh of devices, under every protocol
-  (``Predictor(mesh=, sharding=)``, ``--mesh batch|spatial``), and the
-  GPipe-pipelined DeepLabV2 step (``mesh: {pipe: N}``);
+  frame's rows in bands), alone and composed with the data and model
+  axes, every training extra and validation protocol on each,
+  batch-sharded and height-banded (spatial) serving over a mesh of
+  devices, under every protocol (``Predictor(mesh=, sharding=)``,
+  ``--mesh batch|spatial``), the GPipe-pipelined DeepLabV2 step
+  (``mesh: {pipe: N}``), and the hybrid (nodes x local GPUs) mesh of the
+  data axis (``parallel.make_hybrid_mesh``, ``hybrid_batch_sharding``);
 * tools: ``ckpt_info`` (what a checkpoint directory holds),
   ``export_torch`` (a checkpoint's weights in the reference models'
   layouts), tracing (:mod:`rtsds_tpu_torch.utils.profiling`), and the
   benches (:mod:`rtsds_tpu_torch.bench`; ``python -m
   rtsds_tpu_torch.bench`` prints the one-line record).
 
-Not ported yet (``ROADMAP.md``): the training extras (EMA, accumulation,
-distillation, remat, MinEnt, FDA, the reversal step, DA v2,
-self-training) and the validation protocols on the spatial axis, alone
-or composed with the data and model axes, which run them (item 17.5b),
-and hybrid meshes (item 17.6).
+It does all that the JAX package does (``ROADMAP.md``, queue A).
 """

@@ -65,13 +65,16 @@ GPUs of its own (local rank ``r`` holds ``cuda:r*S`` to ``cuda:r*S+S-1``;
 on a box with one GPU every band is ``cuda:0``; too few GPUs raise; on
 the CPU, ``RTSDS_CPU_DEVICES`` counts the devices), BatchNorm sums the
 bands' statistics and then the data group's, and validation sums K1's
-band matrices, then the data group's.  ``mesh: {pipe: N}`` pipelines
-DeepLab's layer3 over N of this process's GPUs (``train/pipelined.py``).
-What stays refused, with a message naming ROADMAP item 17.5: the
-training extras (EMA, accumulation, distillation, remat, MinEnt, FDA,
-the reversal step, DA v2, self-training) and the validation protocols on
-the spatial axis, alone or composed; and the JAX CLI's own refusals of
-the pipe.
+band matrices, then the data group's.  Every training extra (EMA,
+accumulation, distillation with a float or an int8 teacher, remat,
+MinEnt, FDA, the reversal step, DA v2, self-training with CBST and
+ClassMix) and both validation protocols (sliding, ensemble) run on the
+spatial axis, alone or composed, as on one device: the ops they add run
+per band, or over the bands where they read across rows
+(``parallel/spatial.py``); FDA restyles frames gathered on the first
+band's device; K1 counts each band's pixels.  ``mesh: {pipe: N}``
+pipelines DeepLab's layer3 over N of this process's GPUs
+(``train/pipelined.py``), with the JAX CLI's own refusals of the pipe.
 """
 
 from __future__ import annotations
@@ -125,12 +128,6 @@ def argument_parser(argv=None):
     return parser.parse_args(argv)
 
 
-def _not_ported(what: str, item: str = "17.5") -> SystemExit:
-    return SystemExit(f"{what} is not ported yet to rtsds_tpu_torch "
-                      f"(ROADMAP item {item}); use the JAX package (python "
-                      f"main.py) for it")
-
-
 def _enabled(node) -> bool:
     return bool(node and node.get("enabled", False))
 
@@ -177,58 +174,18 @@ def _check_domain_adaptation(config) -> None:
                              f"{net} with {want}")
 
 
-def _axis_extras(args, config) -> list[str]:
-    """The switches on that the spatial axis does not run yet."""
-    on = []
-    if args.domain_adaptation:
-        tcfg = config.training["domain_adaptation"]
-        adv = config.model["adversarial_model"]
-        gen = adv["generator"]["name"]
-        if str(tcfg.get("variant", "v1")) != "v1":
-            on.append("DA v2")
-        if _enabled(adv["discriminator"].get("grl")):
-            on.append("the gradient-reversal step")
-        for key, name in (("ema", "EMA"), ("entropy_min", "MinEnt"),
-                          ("fda", "FDA"), ("self_training",
-                                           "self-training")):
-            if _enabled(tcfg.get(key)):
-                on.append(name)
-    else:
-        tcfg = config.training["segmentation"]
-        gen = args.model
-        if _enabled(tcfg.get("ema")):
-            on.append("EMA")
-        if int(tcfg.get("accumulate_steps", 1)) > 1:
-            on.append("gradient accumulation")
-        if _enabled(tcfg.get("distillation")):
-            on.append("distillation")
-    if bool((config.model.get(gen) or {}).get("remat", False)):
-        on.append("remat")
-    vcfg = config.get("validation") or {}
-    if _enabled(vcfg.get("ensemble")) or _enabled(vcfg.get("sliding")):
-        on.append("a validation protocol")
-    return on
-
-
 def _check_mesh(args, config) -> None:
     """The mesh axes the port runs: ``data`` and ``model`` over
     ``--multihost``'s processes, ``spatial`` over each process's devices
-    (alone or composed with both), and ``pipe`` (alone, one process).  The
-    training extras and the validation protocols do not run on the
-    spatial axis yet."""
+    (alone or composed with both, every training extra and validation
+    protocol on each), and ``pipe`` (alone, one process)."""
     mesh = dict(config.get("mesh") or {})
-    spatial = int(mesh.get("spatial", 1) or 1)
     model = int(mesh.get("model", 1) or 1)
     if model > 1 and not args.multihost:
         raise SystemExit(
             f"mesh {mesh}: the model axis spans processes, one per GPU: "
             f"launch one process per GPU with torchrun (or --multihost "
             f"and the RTSDS_* variables)")
-    if spatial > 1:
-        extras = _axis_extras(args, config)
-        if extras:
-            raise _not_ported(f"mesh {mesh}: {', '.join(extras)} on the "
-                              f"spatial axis", item="17.5b")
     pipe = int(mesh.get("pipe", 1) or 1)
     if pipe != 1 and args.multihost:
         raise SystemExit(
@@ -577,12 +534,13 @@ def _calibration_pass(stream):
 
 
 def _calibrated_threshold(cal_cfg, gen_state, teacher_ema, data, device,
-                          num_classes: int):
+                          num_classes: int, mesh):
     """CBST thresholds of the teacher (the resumed EMA, else the generator
     as it starts) over the first ``calibration.batches`` target batches, of
     a pass of its own over the target set (:func:`_calibration_pass`); with
     several ranks each reads its shards and the histogram is summed over
-    them."""
+    them; under the spatial axis the batches are banded and so is the
+    histogram's count."""
     from rtsds_tpu_torch.data.pipeline import device_batches
     from rtsds_tpu_torch.train.ema import ema_weights
     from rtsds_tpu_torch.train.self_training import (
@@ -590,7 +548,8 @@ def _calibrated_threshold(cal_cfg, gen_state, teacher_ema, data, device,
 
     portion = float(cal_cfg.get("portion", 0.5))
     loader = _calibration_pass(data["cs_train"])
-    batches = device_batches(loader, data["cs_transform"], device)
+    batches = _banded(device_batches(loader, data["cs_transform"], device),
+                      mesh)
     model = gen_state.model
     with contextlib.closing(batches), (
             ema_weights(model, teacher_ema) if teacher_ema is not None
@@ -680,7 +639,8 @@ def run_domain_adaptation(args, config, data, callbacks, checkpoint,
     if self_training:
         if threshold is None:
             threshold = _calibrated_threshold(
-                cal_cfg, gen_state, resumed_ema, data, device, num_classes)
+                cal_cfg, gen_state, resumed_ema, data, device, num_classes,
+                mesh)
         da_step = make_self_training_step(
             lambda_=float(tcfg["lambda"]), iterations=iterations,
             ignore_index=19 if ignore_index is None else ignore_index,
@@ -786,6 +746,7 @@ def supervised_train_step(args, config, tcfg, train_loader, device,
     accumulation over ``accumulate_steps`` micro-batches, or the plain
     step."""
     from rtsds_tpu_torch.models.pretrained import load_segmentor_state
+    from rtsds_tpu_torch.parallel.spatial import gathered
     from rtsds_tpu_torch.train.accumulate import (
         make_accumulating_train_step, split_microbatches)
     from rtsds_tpu_torch.train.distill import (
@@ -816,10 +777,12 @@ def supervised_train_step(args, config, tcfg, train_loader, device,
         if t_cfg.get("quantize") and not args.validate_only:
             # W8A8 the frozen teacher, calibrated on batches as the step
             # sees them (augmented when augmentation is on); skipped under
-            # --validate_only, where the step never runs
+            # --validate_only, where the step never runs; under the spatial
+            # axis the bands gathered on the first band's device: the
+            # frames one device sees, so the same scales
             calib = []
             for images, _ in calib_batches():
-                calib.append(images.permute(0, 3, 1, 2))
+                calib.append(gathered(images).permute(0, 3, 1, 2))
                 if len(calib) >= int(t_cfg.get("calib_batches", 2)):
                     break
             # the calibration started a shuffle pass; rewind, so epoch 0

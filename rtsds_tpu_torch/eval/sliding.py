@@ -13,6 +13,11 @@ window's rows are gathered onto the band that holds its first row, the
 window runs through that device's forward, and its probabilities are
 scattered back into each band's accumulator beside the band's count map;
 the argmax is per band.  No device ever holds the whole frame.
+:func:`make_sliding_predict` takes that path itself when its frames come
+as bands (validation in spatial training): each band's windows run
+through the one model as a single band on that band's device, so the
+banded ops carry the weights there (``_Layout.on``) as they do in the
+training step, and the model is never copied.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from rtsds_tpu_torch.eval.validate import make_eval_step
+from rtsds_tpu_torch.parallel.spatial import Bands, _Layout, bands_of
 
 
 def _grid(image_size: tuple[int, int], window: tuple[int, int],
@@ -55,6 +61,16 @@ def _positions(total: int, window: int, stride: int) -> list[int]:
     return pos
 
 
+def _on_band(forward: Callable, device) -> Callable:
+    """``forward`` on (M, C, h, w) windows on ``device``: the windows as one
+    band there, so that the model's banded ops read each weight through
+    ``_Layout.on`` (a copy on ``device``, whatever the model axis gathered
+    this step) and the model itself is neither copied nor moved."""
+    def run(batch: torch.Tensor) -> torch.Tensor:
+        return forward(bands_of([batch], _Layout([device]))).parts[0]
+    return run
+
+
 def make_sliding_predict(forward: Callable, image_size: tuple[int, int],
                          window: tuple[int, int] = (512, 1024),
                          stride: tuple[int, int] | None = None,
@@ -81,6 +97,13 @@ def make_sliding_predict(forward: Callable, image_size: tuple[int, int],
         raise ValueError(f"window_chunk {window_chunk} must be >= 1")
 
     def predict(images: torch.Tensor) -> torch.Tensor:
+        if isinstance(images, Bands):
+            # height bands (validation under the spatial axis): each window
+            # on the band holding its first row, through the one model
+            return make_banded_sliding_predict(
+                [_on_band(forward, d) for d in images.layout.devices],
+                image_size, window, stride, return_probs=return_probs,
+                window_chunk=window_chunk)(images)
         n = images.shape[0]
         acc = None
         count = torch.zeros((1, 1, h, w), dtype=torch.float32,

@@ -23,6 +23,7 @@ from torch import nn
 
 from rtsds_tpu_torch.models.layers import conv, global_avg_pool
 from rtsds_tpu_torch.ops.resize import upsample_bilinear
+from rtsds_tpu_torch.parallel.spatial import Bands
 from rtsds_tpu_torch.utils.dtypes import at_least_f32
 
 LEAKY_SLOPE = 0.2
@@ -43,6 +44,11 @@ class GradientReversal(torch.autograd.Function):
 
 
 def gradient_reversal(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    """:class:`GradientReversal` of ``x``; of height bands
+    (``parallel/spatial.py``) band by band, so that each band's gradient is
+    reversed."""
+    if isinstance(x, Bands):
+        return x._per_band(lambda p: GradientReversal.apply(p, alpha))
     return GradientReversal.apply(x, alpha)
 
 

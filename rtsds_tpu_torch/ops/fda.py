@@ -11,6 +11,14 @@ train steps take them, so FDA runs before a step's permute to NCHW.
 The JAX package computes in float32 whatever the input's dtype; this one
 in at least float32, so a float64 batch stays float64 (the tests hold the
 two to the same algorithm in float64, and to each other in float32).
+
+Under the spatial axis the frames come as height bands
+(``parallel/spatial.py:FrameBands``), and the FFTs read every row: the
+source and target frames are gathered on the first band's device,
+restyled there, and the result is cut at the source's rows again.  The
+frames have 3 channels, so a float32 1024x2048 frame is 25 MB beside the
+activations the bands split; this is the one gather of a banded batch in
+a training step.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 
 from rtsds_tpu_torch.ops.resize import resize_bilinear
 from rtsds_tpu_torch.parallel.distributed import cyclic_partners, world_size
+from rtsds_tpu_torch.parallel.spatial import FrameBands, gathered
 from rtsds_tpu_torch.utils.dtypes import at_least_f32
 
 
@@ -53,6 +62,9 @@ def fda_source_to_target(src_images: torch.Tensor, tgt_images: torch.Tensor,
     """
     if float(beta) <= 0.0:
         return src_images
+    if isinstance(src_images, FrameBands):
+        return src_images.cut(fda_source_to_target(
+            src_images.gather(), gathered(tgt_images), beta))
     ns, h, w, _ = src_images.shape
     src = at_least_f32(src_images)
     tgt = tgt_images.to(src.dtype)

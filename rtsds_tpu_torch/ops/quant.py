@@ -52,6 +52,7 @@ from rtsds_tpu_torch.device import resolve_device
 from rtsds_tpu_torch.models.layers import BN_EPS
 from rtsds_tpu_torch.parallel.distributed import (
     global_count, global_max, global_sum)
+from rtsds_tpu_torch.parallel.spatial import Bands, banded_walk
 from rtsds_tpu_torch.utils.dtypes import at_least_f32
 
 HIST_BINS = 4096
@@ -439,8 +440,30 @@ class QuantizedSegmentor(nn.Module):
         return tree
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, Bands):
+            # height bands (a distillation teacher under the spatial axis):
+            # each band's convs run on its device, the tree copied there
+            tree = self.qtree
+            ops = [make_quant_op(tree_on(tree, dev))
+                   for dev in x.layout.devices]
+            return banded_walk(self._walk, ops, kernel_heights(tree), x)
         with torch.autocast(device_type=x.device.type, enabled=False):
             return self._walk(make_quant_op(self.qtree), x.to(torch.bfloat16))
+
+
+def tree_on(tree: dict, device) -> dict:
+    """A quantized tree with its tensors on ``device`` (each tensor itself
+    where it is there already)."""
+    return {kind: {name: tuple(None if t is None else t.to(device)
+                               for t in entry)
+                   for name, entry in convs.items()}
+            for kind, convs in tree.items()}
+
+
+def kernel_heights(tree: dict) -> dict:
+    """Each conv of a quantized tree by name -> its kernel's height."""
+    return {name: entry[0].shape[2] for kind in ("q8", "bf16")
+            for name, entry in tree[kind].items()}
 
 
 def check_topology(model_name: str, act_scales: dict, folded: dict) -> None:

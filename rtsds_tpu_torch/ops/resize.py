@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from rtsds_tpu_torch.parallel.spatial import Bands, take_rows
+
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
                     antialias: bool = False) -> torch.Tensor:
@@ -67,7 +69,9 @@ def resize_labels_nearest(labels: torch.Tensor,
     """Nearest resize of (H, W), (N, H, W) or (N, H, W, 1) integer labels.
 
     Source index ``floor(out_index * in / out)``, computed in float32 as
-    the JAX package computes it; rank and dtype are kept.
+    the JAX package computes it; rank and dtype are kept.  (N, H, W)
+    height bands (``parallel/spatial.py``) resize band by band, each output
+    row taking the source row of the GLOBAL heights' rule.
     """
     if labels.ndim == 4:
         h, w = labels.shape[1:3]
@@ -81,6 +85,8 @@ def resize_labels_nearest(labels: torch.Tensor,
                        * (h / out_h)).long()
     cols = torch.floor(torch.arange(out_w, dtype=torch.float32, device=dev)
                        * (w / out_w)).long()
+    if isinstance(labels, Bands):
+        return take_rows(labels, rows)._per_band(lambda p: p[..., cols])
     if labels.ndim == 4:
         return labels[:, rows][:, :, cols]
     return labels[..., rows, :][..., cols]

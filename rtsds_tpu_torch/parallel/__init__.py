@@ -21,8 +21,10 @@ from rtsds_tpu_torch.parallel.mesh import (  # noqa: F401
     band_devices,
     batch_sharding,
     dp_spatial_sharding,
+    hybrid_batch_sharding,
     initialize_multihost,
     input_sharding,
+    make_hybrid_mesh,
     make_mesh,
     make_mesh_2d,
     make_mesh_from_config,

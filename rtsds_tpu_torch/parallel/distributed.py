@@ -227,7 +227,13 @@ def cyclic_partners(partner: torch.Tensor, n: int) -> torch.Tensor:
     takes its partners from its own shard when every rank finds all of its
     partners in its own shard; otherwise the ranks' shards are assembled
     into the global batch by one all-reduce (each shard at its rows, zeros
-    elsewhere), and each rank takes its partners from it."""
+    elsewhere), and each rank takes its partners from it.  Height bands
+    (``parallel/spatial.py``) pair band by band: every rank runs the same
+    bands in the same order."""
+    from rtsds_tpu_torch.parallel.spatial import Bands, FrameBands
+
+    if isinstance(partner, (Bands, FrameBands)):
+        return partner._per_band(lambda p: cyclic_partners(p, n))
     if _GROUP is None:
         return partner[torch.arange(n, device=partner.device)
                        % partner.shape[0]]

@@ -30,6 +30,9 @@ each axis onto what PyTorch runs:
   ``cuda:r*S+S-1``; on a box with one GPU every band of every rank is
   ``cuda:0``; too few GPUs raise).
 
+A hybrid mesh (:func:`make_hybrid_mesh`) names the data axis's ranks as
+(nodes x local GPUs); the data axis spans both.
+
 A :class:`Mesh` is a row-major device grid with its axis names and sizes.
 On the axes over processes a rank knows its own devices only, so every
 entry is this rank's device at that entry's spatial index.  The CPU
@@ -428,6 +431,34 @@ def place_state(state, mesh: Mesh):
                     f"process group of that many ranks (--multihost)")
             shard_state(state, group)
     return state
+
+
+def make_hybrid_mesh(n_slices: int, devices=None,
+                     axis_names=("dcn", "ici")) -> Mesh:
+    """A 2-D (nodes x local GPUs) mesh for jobs of several nodes: the job's
+    devices (default: one per rank) laid out row-major by rank, node
+    ``rank // local world size`` on the outer axis, as the JAX package's
+    ``make_hybrid_mesh`` lays out slices (DCN) x chips (ICI).
+
+    The data axis spans both axes (:func:`hybrid_batch_sharding`): a
+    rank's shard is its shard on the flat data mesh of the same ranks, and
+    the step runs on the flat data group, whose NCCL all-reduces already
+    run hierarchically (within a node over NVLink, across nodes over the
+    network)."""
+    if devices is None:
+        devices = job_devices(_current_device("cuda"))
+    devices = list(devices)
+    if len(devices) % n_slices != 0:
+        raise ValueError(
+            f"{len(devices)} devices do not split into {n_slices} slices")
+    return Mesh(tuple(devices), tuple(axis_names),
+                (n_slices, len(devices) // n_slices))
+
+
+def hybrid_batch_sharding(mesh: Mesh) -> Sharding:
+    """The batch dimension split over every axis of ``mesh`` (nodes x
+    local GPUs), in the rank order of the flat data mesh."""
+    return Sharding(mesh, (mesh.axis_names,))
 
 
 def planned_process_count() -> int:

@@ -54,9 +54,22 @@ runs on a band alone when it reads across rows.
   discriminators pool their logits over H (a plain tensor), so their BCE
   never meets a band.
 * Every other op is per band: elementwise ops (a plain operand must not
-  vary along H: the pooled gates), eval-mode ``batch_norm``, ``softmax``,
-  ``leaky_relu``, ``argmax``, comparisons and ``cat`` over the channel or
-  batch dims, batch slicing and width flips.
+  vary along H: the pooled gates), eval-mode ``batch_norm``, ``softmax``
+  and ``log_softmax``, ``exp``, ``leaky_relu``, ``argmax`` and ``max``
+  over channels, ``where``, comparisons, sums and ``cat`` over the
+  channel or batch dims, batch slicing and width flips, and a small
+  plain table indexed by banded ids (a per-class threshold).
+* The training extras' ops over H (ROADMAP item 17.5b): a nearest resize
+  of labels (:func:`take_rows`: each output row's source row by the rule
+  on the global heights, from whichever band holds it); the adaptive
+  average pool (to the map's own height each band pools its own rows,
+  to another one each output band reads the rows its windows span); the
+  gradient reversal and an int8 teacher's conv walk (:func:`banded_walk`)
+  band by band; remat, whose recompute meets the same partitions
+  (``_Layout.partitions`` is filled by the first forward); a banded batch
+  split into micro-batches (:func:`split_micro_batches`).  FDA's FFTs read
+  every row: ``ops/fda.py`` gathers the frames on the first band's
+  device, the one gather of a training step.
 
 The int8 walks (``models/{bisenet,deeplab}_int8.py``) take their convs
 through an ``op(name, x, stride, padding, dilation)`` argument:
@@ -85,7 +98,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn.modules.utils import _pair
 
-NOT_BANDED = "has no height-band form (ROADMAP item 17.5)"
+NOT_BANDED = ("has no height-band form: gather the map first "
+              "(parallel/spatial.py:gather)")
 
 
 class _Layout:
@@ -190,11 +204,50 @@ class Bands:
             raise NotImplementedError(f"flip over H {NOT_BANDED}")
         return self._per_band(lambda p: p.flip(dims))
 
-    def __getitem__(self, key) -> "Bands":
-        if not isinstance(key, slice):
-            raise NotImplementedError(f"indexing with {key!r} {NOT_BANDED}"
-                                      f" (batch slices only)")
-        return self._per_band(lambda p: p[key])
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            return self._per_band(lambda p: p[key])
+        if key == (Ellipsis, None) and self.ndim == 3:
+            # (N, H, W) maps -> (N, H, W, 1): NHWC, rows at dim 1
+            return FrameBands([p[..., None] for p in self.parts],
+                              self.starts, self.height, self.layout)
+        raise NotImplementedError(f"indexing with {key!r} {NOT_BANDED}"
+                                  f" (batch slices and [..., None] only)")
+
+    def permute(self, *dims) -> "FrameBands":
+        if tuple(dims) != (0, 2, 3, 1):
+            raise NotImplementedError(f"permute{tuple(dims)} of a banded "
+                                      f"map {NOT_BANDED}")
+        return FrameBands([p.permute(0, 2, 3, 1) for p in self.parts],
+                          self.starts, self.height, self.layout)
+
+    def max(self, dim=None, keepdim: bool = False):
+        """Per band over a dim before the rows: ``(values, indices)``."""
+        if dim is None:
+            raise NotImplementedError(f"a flat max {NOT_BANDED}")
+        self._below_rows(dim, "max")
+        outs = [p.max(dim=dim, keepdim=keepdim) for p in self.parts]
+        return (self._like([o.values for o in outs]),
+                self._like([o.indices for o in outs]))
+
+    def exp(self) -> "Bands":
+        return self._per_band(torch.exp)
+
+    def neg(self) -> "Bands":
+        return self._per_band(torch.neg)
+
+    __neg__ = neg
+
+    def clamp(self, min=None, max=None) -> "Bands":  # noqa: A002
+        return self._per_band(lambda p: p.clamp(min, max))
+
+    def sub(self, other):
+        return _binary(torch.sub, self, other)
+
+    __sub__ = sub
+
+    def __rsub__(self, other):
+        return _binary(torch.sub, other, self)
 
     def argmax(self, dim=None, keepdim: bool = False) -> "Bands":
         if dim is None:
@@ -239,6 +292,9 @@ class Bands:
 
     def __ne__(self, other):
         return _binary(torch.ne, self, other)
+
+    def __ge__(self, other):
+        return _binary(torch.ge, self, other)
 
     __hash__ = object.__hash__
 
@@ -498,14 +554,9 @@ def _binary(fn, a, b):
         b = _repartition(b, a.starts)
         return a._like([fn(p, q) for p, q in zip(a.parts, b.parts)])
     other = b if x is a else a
-    if isinstance(other, torch.Tensor) and other.dim() >= 2 \
-            and other.shape[-2] != 1:
-        raise NotImplementedError(f"a plain tensor of shape "
-                                  f"{tuple(other.shape)} varies along H "
-                                  f"and {NOT_BANDED}")
     parts = []
     for i, p in enumerate(x.parts):
-        o = x.layout.on(other, i)
+        o = _plain_on(x, other, i)
         parts.append(fn(p, o) if x is a else fn(o, p))
     return x._like(parts)
 
@@ -604,6 +655,91 @@ def _cross_entropy(input, target, weight=None, size_average=None,
     return total / (target != ignore_index).sum().to(total.dtype)
 
 
+def _plain_on(first, t, i: int):
+    """A plain operand of a banded op on band ``i``'s device: a number, or
+    a tensor that does not vary along the rows of ``first``."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    row_dim = 1 if isinstance(first, FrameBands) else -2
+    if t.dim() >= (4 if row_dim == 1 else 2) and t.shape[row_dim] != 1:
+        raise NotImplementedError(f"a plain tensor of shape "
+                                  f"{tuple(t.shape)} varies along H and "
+                                  f"{NOT_BANDED}")
+    return first.layout.on(t, i)
+
+
+def _on_partition(t, starts):
+    """A banded map or batch on the row partition ``starts``; anything else
+    as it is."""
+    if isinstance(t, Bands):
+        return _repartition(t, starts)
+    if isinstance(t, FrameBands) and t.starts != tuple(starts):
+        return _repartition(t.permute(0, 3, 1, 2), starts).permute(
+            0, 2, 3, 1)
+    return t
+
+
+def _where(condition, input=None, other=None):  # noqa: A002
+    """``torch.where`` band by band: every banded operand (maps or NHWC
+    batches alike) on the partition of the first."""
+    args = (condition, input, other)
+    first = next(a for a in args if isinstance(a, (Bands, FrameBands)))
+    args = [_on_partition(a, first.starts) for a in args]
+    return first._like([
+        torch.where(*[a.parts[i] if isinstance(a, (Bands, FrameBands))
+                      else _plain_on(first, a, i) for a in args])
+        for i in range(len(first.parts))])
+
+
+def _full_like(input, fill_value, **kwargs):  # noqa: A002
+    return input._per_band(lambda p: torch.full_like(p, fill_value,
+                                                     **kwargs))
+
+
+def _getitem(t, key):
+    """A plain (small) tensor indexed by a banded map of indices: a lookup
+    table read band by band, on each band's device."""
+    if not isinstance(t, torch.Tensor) or not isinstance(key, Bands):
+        raise NotImplementedError(f"indexing a banded map {NOT_BANDED}")
+    return key._like([key.layout.on(t, i)[p]
+                      for i, p in enumerate(key.parts)])
+
+
+def _adaptive_avg_pool2d(input, output_size):  # noqa: A002
+    """Adaptive average pooling over bands, by torch's windows: output row
+    ``o`` averages the global input rows ``[floor(o * H / OH), ceil((o + 1)
+    * H / OH))``.  To the map's own height each band pools its own rows
+    (exactly ``F.adaptive_avg_pool2d``'s); to another height each output
+    band reads the rows its windows span from whichever bands hold them,
+    averages them over the rows in at least float32, then pools the width
+    with torch's kernel."""
+    x, lay = input, input.layout
+    out_h, out_w = (int(v) for v in _pair(output_size))
+    if out_h == x.height:
+        return x._per_band(
+            lambda p: F.adaptive_avg_pool2d(p, (p.shape[-2], out_w))
+            if p.shape[-2] else p[..., :0].new_zeros((*p.shape[:-1], out_w)))
+    starts = lay.partitions.get(out_h) or [
+        min(-(-a * out_h // x.height), out_h) for a in x.starts]
+    ends = [*starts[1:], out_h]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    parts = []
+    for i, (oa, ob) in enumerate(zip(starts, ends)):
+        n = ob - oa  # a band with no output row pools one and keeps none
+        rows = torch.arange(oa, ob if n else oa + 1).clamp(max=out_h - 1)
+        lo_row = (rows * x.height) // out_h
+        hi_row = -((-(rows + 1) * x.height) // out_h)
+        lo, hi = int(lo_row.min()), int(hi_row.max())
+        src = _rows(x, lo, hi, i).to(acc)
+        j = torch.arange(lo, hi)[None, :]
+        inside = (j >= lo_row[:, None]) & (j < hi_row[:, None])
+        w = inside.to(acc) / (hi_row - lo_row)[:, None].to(acc)
+        tmp = torch.einsum("oh,nchw->ncow", w.to(src.device), src)
+        out = F.adaptive_avg_pool2d(tmp, (tmp.shape[-2], out_w)).to(x.dtype)
+        parts.append(out if n else out[..., :0, :])
+    return Bands(parts, starts, out_h, lay)
+
+
 _HANDLERS = {
     F.conv2d: _conv2d,
     F.max_pool2d: _max_pool2d,
@@ -611,11 +747,18 @@ _HANDLERS = {
     F.batch_norm: _batch_norm,
     F.cross_entropy: _cross_entropy,
     F.relu: _unary(F.relu),
+    torch.relu: _unary(torch.relu),
     F.leaky_relu: _unary(F.leaky_relu),
     torch.sigmoid: _unary(torch.sigmoid),
     torch.softmax: _softmax(torch.softmax),
     F.softmax: _softmax(F.softmax),
+    torch.log_softmax: _softmax(torch.log_softmax),
+    F.log_softmax: _softmax(F.log_softmax),
     torch.cat: _cat,
+    torch.where: _where,
+    torch.full_like: _full_like,
+    torch.Tensor.__getitem__: _getitem,
+    F.adaptive_avg_pool2d: _adaptive_avg_pool2d,
 }
 
 
@@ -645,13 +788,35 @@ class FrameBands:
     def device(self) -> torch.device:
         return self.layout.devices[0]
 
+    @property
+    def ndim(self) -> int:
+        return self.parts[0].dim()
+
+    def _like(self, parts) -> "FrameBands":
+        return FrameBands(parts, self.starts, self.height, self.layout)
+
+    def _per_band(self, fn) -> "FrameBands":
+        return self._like([fn(p) for p in self.parts])
+
     def to(self, *args, **kwargs) -> "FrameBands":
         if "device" in kwargs or any(isinstance(a, (torch.device, str))
                                      for a in args):
             raise NotImplementedError("a banded batch stays on its "
                                       "devices; gather it first")
-        return FrameBands([p.to(*args, **kwargs) for p in self.parts],
-                          self.starts, self.height, self.layout)
+        return self._per_band(lambda p: p.to(*args, **kwargs))
+
+    def __getitem__(self, key) -> "FrameBands":
+        if not isinstance(key, slice):
+            raise NotImplementedError(f"indexing banded frames with "
+                                      f"{key!r} {NOT_BANDED} (batch slices "
+                                      f"only)")
+        return self._per_band(lambda p: p[key])
+
+    def cut(self, frames: torch.Tensor) -> "FrameBands":
+        """Whole NHWC ``frames`` (on the first band's device) cut at these
+        bands' rows, each cut on its band's device."""
+        return self._like(split_rows(frames, self.layout.devices, dim=1,
+                                     starts=self.starts))
 
     def permute(self, *dims) -> Bands:
         if tuple(dims) != (0, 3, 1, 2):
@@ -663,6 +828,13 @@ class FrameBands:
     def gather(self, device=None) -> torch.Tensor:
         device = self.device if device is None else torch.device(device)
         return torch.cat([p.to(device) for p in self.parts], dim=1)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func is torch.where:  # ClassMix's paste of source frames
+            return _where(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", repr(func))
+        raise NotImplementedError(f"{name} of banded frames {NOT_BANDED}")
 
 
 def split_batch(images: torch.Tensor, labels: torch.Tensor, devices
@@ -707,6 +879,72 @@ class BandedBatches:
             close()
 
 
+class MicroBatches(list):
+    """K micro-batches of one banded batch (each a batch slice of every
+    band), stacked as a (K, micro, ...) batch is: ``shape``, ``device`` and
+    ``numel`` are the stack's."""
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((len(self), *self[0].shape))
+
+    @property
+    def device(self) -> torch.device:
+        return self[0].device
+
+    def numel(self) -> int:
+        return len(self) * self[0].numel()
+
+
+def split_micro_batches(batch, k: int) -> MicroBatches:
+    """A banded batch (maps or NHWC frames) of ``k * micro`` frames -> its
+    ``k`` micro-batches of ``micro`` consecutive frames, each banded on the
+    same rows."""
+    n = batch.shape[0]
+    if n % k:
+        raise ValueError(f"batch {n} does not split into {k} micro-batches")
+    m = n // k
+    return MicroBatches(batch[i * m:(i + 1) * m] for i in range(k))
+
+
+def take_rows(x: Bands, rows: torch.Tensor) -> Bands:
+    """The global rows ``rows`` (one source row per output row, as a
+    nearest resize picks them) of a banded map: each output band gathers
+    its rows from whichever bands hold them, on the partition met before
+    at the output height (else bands in proportion to the input's)."""
+    out_h = int(rows.shape[0])
+    lay = x.layout
+    starts = lay.partitions.get(out_h) or [
+        min(-(-a * out_h // x.height), out_h) for a in x.starts]
+    ends = [*starts[1:], out_h]
+    parts = []
+    for i, (oa, ob) in enumerate(zip(starts, ends)):
+        n = ob - oa
+        src = rows[oa:ob] if n else rows[min(oa, out_h - 1)][None]
+        lo, hi = int(src.min()), int(src.max()) + 1
+        band = _rows(x, lo, hi, i).index_select(
+            -2, (src - lo).to(lay.devices[i]))
+        parts.append(band if n else band[..., :0, :])
+    return Bands(parts, starts, out_h, lay)
+
+
+def banded_walk(walk, ops, kernel_h: dict, x: Bands):
+    """An int8 model's conv walk (``walk(op, x)``, a
+    :class:`~rtsds_tpu_torch.ops.quant.QuantizedSegmentor`'s) on banded
+    input: each conv a :func:`banded_conv` whose band ``i`` runs ``ops[i]``
+    (the quantized convs on device ``i``), ``kernel_h`` each conv's kernel
+    height; outside autocast, in bf16, as the walk runs on one device."""
+    def op(name, h, stride, padding, dilation):
+        if not isinstance(h, Bands):
+            return ops[0](name, h, stride, padding, dilation)
+        return banded_conv(
+            h, kernel_h[name], stride, padding, dilation,
+            lambda rows, i, pad: ops[i](name, rows, stride, pad, dilation))
+
+    with torch.autocast(device_type=x.device.type, enabled=False):
+        return walk(op, x.to(torch.bfloat16))
+
+
 def banded_hist(labels: Bands, preds: Bands, num_classes: int
                 ) -> torch.Tensor:
     """The confusion matrix of banded labels and predictions: the
@@ -749,14 +987,11 @@ class SpatialModel:
             self._copies[(t.data_ptr(), t.dtype, tuple(t.shape))] = {
                 i: n[name] for i, n in enumerate(named)}
         from rtsds_tpu_torch.ops.quant import (
-            QuantizedSegmentor, make_quant_op)
+            QuantizedSegmentor, kernel_heights, make_quant_op)
         self.int8 = isinstance(first, QuantizedSegmentor)
         if self.int8:
             self._ops = [make_quant_op(r.qtree) for r in self.replicas]
-            tree = first.qtree
-            self._kernel_h = {name: entry[0].shape[2]
-                              for kind in ("q8", "bf16")
-                              for name, entry in tree[kind].items()}
+            self._kernel_h = kernel_heights(first.qtree)
         self.compute_dtype = getattr(first, "compute_dtype", None)
 
     def layout(self) -> _Layout:
@@ -766,14 +1001,5 @@ class SpatialModel:
     def __call__(self, x: Bands) -> Bands:
         if not self.int8:
             return self.replicas[0](x)
-
-        def op(name, h, stride, padding, dilation):
-            if not isinstance(h, Bands):
-                return self._ops[0](name, h, stride, padding, dilation)
-            return banded_conv(
-                h, self._kernel_h[name], stride, padding, dilation,
-                lambda rows, i, pad: self._ops[i](name, rows, stride, pad,
-                                                  dilation))
-
-        with torch.autocast(device_type=self.devices[0].type, enabled=False):
-            return self.replicas[0]._walk(op, x.to(torch.bfloat16))
+        return banded_walk(self.replicas[0]._walk, self._ops, self._kernel_h,
+                           x)

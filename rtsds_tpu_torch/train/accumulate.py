@@ -18,7 +18,10 @@ shard, and micro-batch k is the union of the ranks' k-th slices: its
 BatchNorm statistics and loss denominators are that union's.  The loader
 gives rank r its share of each of the global batch's K contiguous
 micro-batches (``data/multihost.py``, ``shard_positions``), so that union
-is the JAX package's micro-batch k of the same global batch.
+is the JAX package's micro-batch k of the same global batch.  Under the
+spatial axis micro-batch k is the k-th batch slice of every band: its
+BatchNorm runs over its bands (and the data group's), and its ``correct``
+sums over them.
 """
 
 from __future__ import annotations
@@ -29,12 +32,19 @@ import torch
 
 from rtsds_tpu_torch.ops.losses import segmentation_loss
 from rtsds_tpu_torch.parallel.distributed import reduce_metrics, world_size
+from rtsds_tpu_torch.parallel.spatial import (
+    Bands, FrameBands, split_micro_batches)
 from rtsds_tpu_torch.train.state import TrainState
 
 
 def split_microbatches(batch: torch.Tensor, accum_steps: int) -> torch.Tensor:
     """(K * micro, ...) -> (K, micro, ...), a view; raises when K does not
-    divide the batch."""
+    divide the batch.  A height-banded batch (``parallel/spatial.py``)
+    splits into K micro-batches of consecutive frames, each a batch slice
+    of every band (:func:`~rtsds_tpu_torch.parallel.spatial.
+    split_micro_batches`)."""
+    if isinstance(batch, (Bands, FrameBands)):
+        return split_micro_batches(batch, accum_steps)
     n = batch.shape[0]
     if n % accum_steps:
         raise ValueError(

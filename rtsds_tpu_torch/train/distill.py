@@ -102,9 +102,12 @@ def quantize_teacher(teacher_name: str, teacher_state, calib_batches,
     production preprocess, on ``device`` (the distribution the teacher will
     see in the step; under the data axis this rank's shards of the first
     global batches, whose bounds ``ops/quant.py:abs_bound`` takes over the
-    ranks).  Returns the
-    :class:`~rtsds_tpu_torch.ops.quant.QuantizedSegmentor`, a drop-in
-    ``teacher`` for :func:`make_distill_step`."""
+    ranks).  Under the spatial axis the CLI gathers each banded batch on
+    the first band's device first: the calibration sees the frames the
+    one-device run sees, so its scales are the same, and the teacher then
+    runs its walk on the bands (``ops/quant.py:QuantizedSegmentor``).
+    Returns the :class:`~rtsds_tpu_torch.ops.quant.QuantizedSegmentor`, a
+    drop-in ``teacher`` for :func:`make_distill_step`."""
     return quantize_model(teacher_name, teacher_state, calib_batches,
                           policy=policy, device=device)
 

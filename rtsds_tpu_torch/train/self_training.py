@@ -25,6 +25,13 @@ its rows), a target frame pairs with the source frame of its global index,
 the coverages and losses divide by global counts and the metrics come back
 summed over the ranks.  The EMA needs no collective: every rank holds the
 same parameters.
+
+Under the spatial axis the frames and maps are height bands
+(``parallel/spatial.py``): the teacher and the generator run on the bands,
+the pseudo-labels and the ClassMix mixes are per band, ClassMix chooses
+each frame's classes among those of all its bands, the labels resize
+nearest by the global heights, and CBST counts its histogram per band,
+sums it on the first band's device and then over the data group.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from rtsds_tpu_torch.ops.losses import (
 from rtsds_tpu_torch.ops.resize import resize_images, resize_labels_nearest
 from rtsds_tpu_torch.parallel.distributed import (
     cyclic_partners, global_sum, rank_rows, reduce_metrics, world_size)
+from rtsds_tpu_torch.parallel.spatial import Bands
 from rtsds_tpu_torch.train.adversarial import (
     _accuracy, _check_batches, _forward, _frozen, _with_entropy,
     v1_discriminator_update)
@@ -82,20 +90,40 @@ def classmix_scores(seed: int, step: int, n: int, num_classes: int
     return torch.rand((n, num_classes), generator=gen)
 
 
+def _class_ids(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(N, H * W) class ids of (N, H, W) labels, ``num_classes`` for the
+    ids outside [0, C)."""
+    lab = labels.reshape(labels.shape[0], -1).long()
+    return torch.where((lab >= 0) & (lab < num_classes), lab, num_classes)
+
+
+def _present(ids: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(N, C + 1) bool: the classes (and the void id) present per frame."""
+    present = torch.zeros((ids.shape[0], num_classes + 1), dtype=torch.bool,
+                          device=ids.device)
+    return present.scatter_(1, ids, True)
+
+
 def classmix_masks(labels: torch.Tensor, scores: torch.Tensor,
                    num_classes: int) -> torch.Tensor:
     """(N, H, W) bool masks of the pixels of ``ceil(present / 2)`` of the
     classes present in each label map: the classes of least score among
     those present, ``scores`` being (N, C) numbers.  Ids outside [0, C)
-    (void, ignore) are never chosen."""
-    n = labels.shape[0]
-    lab = labels.reshape(n, -1).long()
-    ids = torch.where((lab >= 0) & (lab < num_classes), lab, num_classes)
-    present = torch.zeros((n, num_classes + 1), dtype=torch.bool,
-                          device=labels.device)
-    present.scatter_(1, ids, True)
+    (void, ignore) are never chosen.  Height bands (``parallel/
+    spatial.py``): a frame's classes are those of all its bands, gathered
+    on the first band's device, and each band's mask is taken from that
+    choice."""
+    if isinstance(labels, Bands):
+        ids = [_class_ids(p, num_classes) for p in labels.parts]
+        present = None
+        for part in ids:
+            p = _present(part, num_classes).to(labels.device)
+            present = p if present is None else present | p
+    else:
+        ids = _class_ids(labels, num_classes)
+        present = _present(ids, num_classes)
     present = present[:, :num_classes]
-    scores = torch.where(present, scores.to(labels.device),
+    scores = torch.where(present, scores.to(present.device),
                          torch.full_like(present, float("inf"),
                                          dtype=scores.dtype))
     k = (present.sum(dim=1) + 1) // 2
@@ -103,6 +131,10 @@ def classmix_masks(labels: torch.Tensor, scores: torch.Tensor,
         1, (k - 1).clamp(0, num_classes - 1)[:, None])
     selected = (scores <= kth) & present
     selected = F.pad(selected, (0, 1))  # the void id selects nothing
+    if isinstance(labels, Bands):
+        return labels._like([
+            labels.layout.on(selected, i).gather(1, part).reshape(p.shape)
+            for i, (part, p) in enumerate(zip(ids, labels.parts))])
     return selected.gather(1, ids).reshape(labels.shape)
 
 
@@ -138,8 +170,12 @@ def calibrate_class_thresholds(model: nn.Module, batches: Iterable,
                 out = out[0]
             conf, cls = F.softmax(at_least_f32(out), dim=1).max(dim=1)
             b = (conf * bins).to(torch.int32).clamp(0, bins - 1)
-            joint = (cls.to(torch.int32) * bins + b).reshape(-1)
-            counts = torch.bincount(joint, minlength=num_classes * bins)
+            joint = cls.to(torch.int32) * bins + b
+            # height bands: each band's counts, summed on the first device
+            counts = sum(torch.bincount(
+                p.reshape(-1), minlength=num_classes * bins).to(out.device)
+                for p in (joint.parts if isinstance(joint, Bands)
+                          else [joint]))
             hist = counts if hist is None else hist + counts
     finally:
         model.train(was_training)

@@ -131,3 +131,84 @@ def test_a_micro_batch_of_one_frame_is_refused_with_the_reason():
                                          "accumulate_steps"):
         make_accumulating_train_step()(state, images, labels)
     assert state.step == 0
+
+
+# --- on height bands (the spatial axis) ------------------------------------
+
+SAME = dict(rtol=1e-9, atol=1e-12)  # bands against one device
+BAND_CASES = {"2": (2, False), "4": (4, False), "2_remat": (2, True)}
+
+
+@pytest.fixture(scope="module")
+def band_runs(jax_step):
+    """The K = 2 step on one device, and on 2 and 4 height bands (on 4,
+    two bands of the 1/32 map hold no row) and on 2 with remat (the
+    context path recomputed in the backward, its batch norms' running
+    statistics left as they were): the metrics and the state after."""
+    from rtsds_tpu_torch.parallel.spatial import split_batch
+
+    variables = jax_step[0]
+    images, labels = (torch.from_numpy(a) for a in _batch())
+    runs = {}
+    for name, (bands, remat) in {"0": (0, False), **BAND_CASES}.items():
+        model = load_flax_variables(BiSeNet(remat=remat).double(),
+                                    variables)
+        state = TrainState(model, make_optimizer(
+            "SGD", model.parameters(), LR, momentum=0.9))
+        x, y = ((images, labels) if not bands else
+                split_batch(images, labels, ["cpu"] * bands))
+        got = make_accumulating_train_step(ignore_index=19)(
+            state, split_microbatches(x, K), split_microbatches(y, K))
+        runs[name] = ({k: float(v) for k, v in got.items()},
+                      {k: v.numpy().copy()
+                       for k, v in model.state_dict().items()})
+    return runs
+
+
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_accumulated_step_on_bands_equals_one_device_and_jax(band_runs,
+                                                             jax_step, case):
+    """Micro-batch k is the k-th batch slice of every band: its BatchNorm
+    runs over its bands, and ``correct`` sums over them."""
+    (got, new), (one, one_new) = band_runs[case], band_runs["0"]
+    for k in one:
+        np.testing.assert_allclose(got[k], one[k], err_msg=k, **SAME)
+    for k in one_new:
+        np.testing.assert_allclose(new[k], one_new[k], err_msg=k, **SAME)
+    _, want, after = jax_step
+    np.testing.assert_allclose(got["train_loss"], float(want["train_loss"]),
+                               rtol=1e-8)
+    assert got["correct"] == int(want["correct"])
+    assert got["total"] == int(want["total"])
+    for path, arr in _leaves(after["params"]):
+        key = _torch_key(path)
+        np.testing.assert_allclose(new[key], _torch_layout(arr), rtol=1e-6,
+                                   atol=1e-10, err_msg=key)
+    for path, arr in _leaves(after["batch_stats"]):
+        key = _torch_key(path, stats=True)
+        np.testing.assert_allclose(new[key], arr, rtol=1e-6, atol=1e-10,
+                                   err_msg=key)
+
+
+def test_remat_recompute_on_bands_leaves_the_running_stats_bit_equal():
+    """Remat's recompute runs the batch norms with momentum 0
+    (``models/layers.py:_running_stats_untouched``): on height bands, as
+    in ``nn.BatchNorm2d``, the running statistics come out bit-equal."""
+    from rtsds_tpu_torch.models.layers import _running_stats_untouched
+    from rtsds_tpu_torch.parallel.spatial import Bands, _Layout, split_rows
+
+    bn = torch.nn.BatchNorm2d(5).double().train()
+    with torch.no_grad():
+        bn.running_mean.uniform_(-1, 1)
+        bn.running_var.uniform_(0.5, 2)
+    x = torch.randn((2, 5, 9, 4), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(0)) * 3 + 1
+    bands = Bands(split_rows(x, ["cpu"] * 2, starts=[0, 4]), [0, 4], 9,
+                  _Layout(["cpu"] * 2))
+    mean, var = bn.running_mean.clone(), bn.running_var.clone()
+    with _running_stats_untouched(bn):
+        bn(bands)
+    assert torch.equal(bn.running_mean, mean)
+    assert torch.equal(bn.running_var, var)
+    bn(bands)  # outside the block they advance
+    assert not torch.equal(bn.running_mean, mean)

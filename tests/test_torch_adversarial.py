@@ -396,3 +396,108 @@ def test_da_step_takes_a_batch_of_one_from_a_deeplab_generator():
         torch.randn((1, 32, 64, 3), generator=g))
     assert gen.step == dis.step == 1
     assert torch.isfinite(metrics["loss_adversarial"])
+
+
+# --- the steps on height bands (the spatial axis) --------------------------
+
+SAME = dict(rtol=1e-9, atol=1e-12)  # bands against one device
+
+
+def _da_inputs(bands: int):
+    """The DA batch as tensors; with ``bands``, source and target each cut
+    into that many height bands on CPU "devices", each on its own row
+    partition."""
+    from rtsds_tpu_torch.parallel.spatial import split_batch
+
+    src, labels, tgt = (torch.from_numpy(a) for a in _batch())
+    if not bands:
+        return src, labels, tgt
+    src, labels = split_batch(src, labels, ["cpu"] * bands)
+    tgt, _ = split_batch(tgt, torch.zeros(tgt.shape[:3]), ["cpu"] * bands)
+    return src, labels, tgt
+
+
+def _numpy_sd(model) -> dict:
+    return {k: v.detach().numpy().copy()
+            for k, v in model.state_dict().items()}
+
+
+def da_runs(trees, bands_list, **step_kwargs) -> dict:
+    """One port DA step from the trees per entry of ``bands_list`` (0: one
+    device): the metrics, G's and D's state after it."""
+    runs = {}
+    for bands in bands_list:
+        gen, dis = _port_states(trees)
+        step = make_adversarial_step(LAMBDA, ITERATIONS, 1, 19,
+                                     **step_kwargs)
+        got = step(gen, dis, *_da_inputs(bands))
+        runs[bands] = ({k: float(v) for k, v in got.items()},
+                       _numpy_sd(gen.model), _numpy_sd(dis.model))
+    return runs
+
+
+def held_to_one_device_and_jax(runs: dict, bands: int, want, want_gen,
+                               want_dis, limits, extra=()) -> None:
+    """The banded run equals the one-device run (``runs[0]``) at rtol 1e-9
+    / atol 1e-12, and JAX's step within ``limits`` (loss rtol, tensor
+    rtol, tensor atol), as test_da_step_matches_jax_in_float64 holds the
+    one-device step.  ``extra``: further (got, one device's) dict pairs
+    held alike."""
+    (metrics, gen, dis), (m1, g1, d1) = runs[bands], runs[0]
+    for got, one, what in ((metrics, m1, "metrics"), (gen, g1, "G"),
+                           (dis, d1, "D"), *extra):
+        assert sorted(got) == sorted(one), what
+        for k in one:
+            np.testing.assert_allclose(got[k], one[k], err_msg=f"{what} {k}",
+                                       **SAME)
+    loss_rtol, rtol, atol = limits
+    for k in want:
+        if k not in ("correct", "total"):
+            np.testing.assert_allclose(metrics[k], float(want[k]),
+                                       rtol=loss_rtol, atol=1e-12, err_msg=k)
+    assert metrics["correct"] == int(want["correct"])
+    assert metrics["total"] == int(want["total"])
+    for path, arr in _leaves(want_gen["params"]):
+        key = _torch_key(path)
+        np.testing.assert_allclose(gen[key], _torch_layout(arr), rtol=rtol,
+                                   atol=atol, err_msg=f"G {key}")
+    for path, arr in _leaves(want_gen["batch_stats"]):
+        key = _torch_key(path, stats=True)
+        np.testing.assert_allclose(gen[key], arr, rtol=rtol, atol=atol,
+                                   err_msg=f"G {key}")
+    for path, arr in _leaves(want_dis["params"]):
+        key = _torch_key(path)
+        np.testing.assert_allclose(dis[key], _torch_layout(arr), rtol=rtol,
+                                   atol=atol, err_msg=f"D {key}")
+
+
+def test_da_step_on_bands_equals_one_device_and_jax(jax_step, trees):
+    """Each variant (v1, the reversal step with its reversal band by band,
+    v2 with its pooling to the target's size) on 2 height bands of source
+    and target."""
+    name, want, (want_gen, want_dis) = jax_step
+    variant, grl_alpha = VARIANTS[name]
+    runs = da_runs(trees, (0, 2), variant=variant, grl_alpha=grl_alpha)
+    held_to_one_device_and_jax(runs, 2, want, want_gen, want_dis,
+                               LIMITS[name])
+
+
+@pytest.mark.parametrize("size", [(64, 128), (37, 20), (80, 50), (3, 7)])
+def test_banded_adaptive_pool_equals_the_whole_maps(size):
+    """v2 pools the source's logits to the target's size: on 3 height
+    bands (one holding no row) against ``F.adaptive_avg_pool2d`` on the
+    whole map, to the map's own height (each band alone) and to others
+    (each output band reading the rows its windows span), at rtol 1e-12."""
+    from rtsds_tpu_torch.ops.pool import adaptive_avg_pool2d
+    from rtsds_tpu_torch.parallel.spatial import (
+        Bands, _Layout, gather, split_rows)
+
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 19, 64, 96)))
+    starts = [0, 40, 40]
+    bands = Bands(split_rows(x, ["cpu"] * 3, starts=starts), starts, 64,
+                  _Layout(["cpu"] * 3))
+    np.testing.assert_allclose(
+        gather(adaptive_avg_pool2d(bands, size)).numpy(),
+        torch.nn.functional.adaptive_avg_pool2d(x, size).numpy(),
+        rtol=1e-12, atol=1e-15)

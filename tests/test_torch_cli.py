@@ -6,7 +6,8 @@ DA generator, validated under the sliding and ensemble protocols; the
 training extras (EMA, gradient accumulation, distillation, MinEnt, FDA,
 self-training with CBST calibration and ClassMix) and the JAX CLI's
 refusals of their combinations; the checkpoint and early-stopping
-callbacks; and the switches not ported yet (ROADMAP item 17.5)."""
+callbacks; and the switches on the spatial axis once refused (ROADMAP item
+17.5b), which pass the checks now."""
 
 import shutil
 
@@ -148,34 +149,30 @@ def test_validate_only_without_a_checkpoint_exits(tmp_path):
                   "--validate_only"])
 
 
-@pytest.mark.parametrize("argv,extra,match", [
-    # --multihost runs (tests/test_torch_multihost.py), and so do the
-    # model axis over its ranks (test_torch_fsdp.py), the spatial axis in
-    # one process (test_torch_spatial_train.py) and composed with the
-    # processes' axes (test_torch_composed.py); the training extras and
-    # the validation protocols on the spatial axis exit before the
-    # process group is joined, naming ROADMAP item 17.5
+@pytest.mark.parametrize("argv,extra,what", [
+    # the training extras and the validation protocols on the spatial
+    # axis, once refused as ROADMAP item 17.5b, alone and composed with
+    # the processes' axes: each passes the checks and builds its mesh (the
+    # runs: test_torch_mesh_nd.py on {spatial: 2} in one process,
+    # test_torch_spatial_extras_composed.py on the composed meshes)
     pytest.param(["--multihost"],
                  "mesh: {spatial: 2}\nvalidation: {sliding: {enabled: "
-                 "true}}", "spatial", id="argv0----multihost"),
+                 "true}}", "sliding", id="argv0----multihost"),
     pytest.param(["--multihost"],
                  "mesh: {model: 2, spatial: 2}\nmodel: {bisenet: {remat: "
                  "true}}", "remat", id="argv1-mesh: {model: 2}-model"),
     pytest.param([], "mesh: {data: 2, spatial: 2}\nvalidation: {ensemble: "
-                     "{enabled: true}}", "spatial",
+                     "{enabled: true}}", "ensemble",
                  id="argv2-mesh: {data: 2, spatial: 2}-spatial"),
 ])
-def test_not_ported_switches_exit(tmp_path, argv, extra, match):
-    """Only the extras and the validation protocols on the spatial axis
-    are left of the mesh (``--multihost``, ``--wandb``, ``--debug`` and
-    ``callbacks.history`` run: test_torch_multihost.py,
-    test_torch_tooling.py; the other refusals of ROADMAP item 17.5:
-    test_torch_mesh_nd.py)."""
-    with pytest.raises(SystemExit, match=match) as info:
-        cli.main(["--config", _config(tmp_path, extra), "--synthetic",
-                  *argv])
-    assert "not ported yet" in str(info.value)
-    assert "ROADMAP item 17.5" in str(info.value)
+def test_switches_once_refused_on_the_spatial_axis_pass(tmp_path, argv,
+                                                        extra, what):
+    from test_torch_mesh_nd import passes_the_checks
+
+    config = _config(tmp_path, extra)
+    size = 2 if "{spatial: 2}" in extra else 4
+    passes_the_checks(["--config", config, "--synthetic", *argv], size)
+    assert what in (tmp_path / "config.yaml").read_text()
 
 
 def _da_config(tmp_path, da="", extra=""):
@@ -252,20 +249,22 @@ def test_supervised_and_da_checkpoints_keep_apart(tmp_path):
                      "--domain_adaptation"]) == []
 
 
-@pytest.mark.parametrize("da,extra,match", [
-    # a data mesh runs (tests/test_torch_multihost.py), and the spatial
-    # axis alone (test_torch_spatial_train.py) and composed with data
-    # (test_torch_composed.py); MinEnt on it, not yet
+@pytest.mark.parametrize("da,extra,what", [
+    # MinEnt on {data: 2, spatial: 2}, once refused as ROADMAP item 17.5b:
+    # it passes the checks (the composed run:
+    # test_torch_spatial_extras_composed.py)
     pytest.param(", entropy_min: {enabled: true}",
-                 "mesh: {data: 2, spatial: 2}", "mesh",
+                 "mesh: {data: 2, spatial: 2}", "entropy_min",
                  id="-mesh: {data: 2}-mesh"),
 ])
-def test_not_ported_da_switches_exit(tmp_path, da, extra, match):
-    with pytest.raises(SystemExit, match=match) as info:
-        cli.main(["--config", _da_config(tmp_path, da, extra), "--synthetic",
-                  "--domain_adaptation"])
-    assert "not ported yet" in str(info.value)
-    assert "ROADMAP item 17.5" in str(info.value)
+def test_da_switches_once_refused_on_the_spatial_axis_pass(tmp_path, da,
+                                                           extra, what):
+    from test_torch_mesh_nd import passes_the_checks
+
+    passes_the_checks(["--config", _da_config(tmp_path, da, extra),
+                       "--synthetic", "--domain_adaptation", "--multihost"],
+                      4)
+    assert what in (tmp_path / "config.yaml").read_text()
 
 
 @pytest.mark.parametrize("da,extra", [

@@ -231,3 +231,68 @@ def test_load_teacher_reads_export_torch_files(tmp_path, rng):
     want = load_flax_variables(BiSeNet().double(), _f64(b_vars)).eval()
     with torch.no_grad():
         torch.testing.assert_close(got(x), want(x), rtol=1e-6, atol=1e-6)
+
+
+# --- on height bands (the spatial axis) ------------------------------------
+
+SAME = dict(rtol=1e-9, atol=1e-12)  # bands against one device
+
+
+def test_banded_kd_loss_equals_the_whole_map(rng):
+    """``distillation_kl`` of logits on 2 height bands (``log_softmax``,
+    the difference, the per-pixel sum and the mean over the bands) against
+    the whole map's at rtol 1e-12."""
+    from rtsds_tpu_torch.parallel.spatial import Bands, _Layout, split_rows
+
+    s = torch.from_numpy(rng.normal(size=(2, 19, 11, 14)))
+    t = torch.from_numpy(rng.normal(scale=2.0, size=(2, 19, 11, 14)))
+    lay = _Layout(["cpu"] * 2)
+    sb, tb = (Bands(split_rows(a, ["cpu"] * 2, starts=[0, 4]), [0, 4], 11,
+                    lay) for a in (s, t))
+    np.testing.assert_allclose(float(distillation_kl(sb, tb, 3.0)),
+                               float(distillation_kl(s, t, 3.0)), rtol=1e-12)
+
+
+@pytest.fixture(scope="module")
+def band_runs(trees):
+    """The port's distillation step on one device and on 2 and 4 height
+    bands (on 4, two bands of the student's 1/32 map hold no row; the thin
+    DeepLab teacher runs on the same bands in eval mode)."""
+    from rtsds_tpu_torch.parallel.spatial import split_batch
+
+    s_vars, t_vars = trees
+    runs = {}
+    for bands in (0, 2, 4):
+        state = _student(s_vars)
+        images, labels = (torch.from_numpy(a) for a in _batch())
+        if bands:
+            images, labels = split_batch(images, labels, ["cpu"] * bands)
+        got = make_distill_step(_teacher(t_vars), 19, temperature=T,
+                                alpha=ALPHA)(state, images, labels)
+        runs[bands] = ({k: float(v) for k, v in got.items()},
+                       {k: v.numpy().copy()
+                        for k, v in state.model.state_dict().items()})
+    return runs
+
+
+@pytest.mark.parametrize("bands", [2, 4])
+def test_distill_step_on_bands_equals_one_device_and_jax(band_runs, jax_step,
+                                                         bands):
+    (got, new), (one, one_new) = band_runs[bands], band_runs[0]
+    for k in one:
+        np.testing.assert_allclose(got[k], one[k], err_msg=k, **SAME)
+    for k in one_new:
+        np.testing.assert_allclose(new[k], one_new[k], err_msg=k, **SAME)
+    want, after = jax_step
+    for k in ("train_loss", "loss_ce", "loss_distill"):
+        np.testing.assert_allclose(got[k], float(want[k]), rtol=1e-8,
+                                   err_msg=k)
+    assert got["correct"] == int(want["correct"])
+    for path, arr in _leaves(after["params"]):
+        key = _torch_key(path)
+        np.testing.assert_allclose(new[key], _torch_layout(arr), rtol=1e-6,
+                                   atol=1e-10, err_msg=key)
+    for path, arr in _leaves(after["batch_stats"]):
+        key = _torch_key(path, stats=True)
+        np.testing.assert_allclose(new[key], arr, rtol=1e-6, atol=1e-10,
+                                   err_msg=key)

@@ -161,3 +161,43 @@ def test_cli_distils_from_an_int8_teacher(tmp_path, monkeypatch):
                   f"int8}}}}", epochs=1)
     miou = cli.main(["--config", config, "--synthetic", "--validate_only"])
     assert 0.0 <= miou <= 1.0 and made == [2]
+
+
+def test_int8_teacher_on_bands_equals_one_device(teachers):
+    """The int8 teacher on 2 height bands (its walk with a banded conv op,
+    as spatial serving runs it): its logits equal the whole frame's, and
+    a float64 student's distillation step on the bands equals the step on
+    one device at rtol 1e-9 / atol 1e-12, its loss the KL of the banded
+    outputs."""
+    from rtsds_tpu_torch.parallel.spatial import gather, split_batch
+
+    teacher = teachers["teacher"]
+    x = torch.from_numpy(teachers["x"])
+    labels = torch.randint(0, 19, x.shape[:3],
+                           generator=torch.Generator().manual_seed(1))
+    frames, bands = split_batch(x, labels, ["cpu"] * 2)
+    with torch.no_grad():
+        whole = teacher(x.permute(0, 3, 1, 2))
+        banded = teacher(frames.permute(0, 3, 1, 2))
+    assert banded.dtype == torch.bfloat16
+    assert torch.equal(gather(banded), whole)
+
+    config = load_config()
+    student, _ = make_segmentor(config, "bisenet", seed=3)
+    runs = []
+    for images, lab in ((x.double(), labels), (frames.to(torch.float64),
+                                               bands)):
+        model = student.__class__().double()
+        model.load_state_dict(student.state_dict())
+        state = TrainState(model, make_optimizer("SGD", model.parameters(),
+                                                 0.01))
+        metrics = distill.make_distill_step(teacher, 19)(state, images, lab)
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {k: v.numpy() for k, v in model.state_dict().items()}))
+    (one, one_sd), (got, got_sd) = runs
+    for k in one:
+        np.testing.assert_allclose(got[k], one[k], rtol=1e-9, atol=1e-12,
+                                   err_msg=k)
+    for k in one_sd:
+        np.testing.assert_allclose(got_sd[k], one_sd[k], rtol=1e-9,
+                                   atol=1e-12, err_msg=k)

@@ -18,6 +18,7 @@ from torch import nn
 
 from rtsds_tpu.train.ema import ema_update as jax_ema_update
 from rtsds_tpu_torch import cli
+from rtsds_tpu_torch.eval.validate import make_eval_step
 from rtsds_tpu_torch.models.pretrained import ema_from_flax
 from rtsds_tpu_torch.train.ema import (
     EMA, ema_init, ema_update, ema_weights, setup_ema, warmup_decay)
@@ -287,3 +288,58 @@ def test_checkpoint_without_ema_restores_the_model_and_restarts_the_ema(
     assert seeds[0] is None  # no stored EMA: it restarts ...
     for k, v in seeds[1].items():  # ... from the restored parameters
         assert torch.equal(v, saved["model"]["model"][k]), k
+
+
+def test_fit_on_bands_keeps_one_devices_ema_and_validates_on_it():
+    """A two-epoch fit with EMA on 2 height bands (the steps, then each
+    validation on the EMA's weights through the banded eval step): the EMA
+    after each epoch equals one device's within one float32 rounding (the
+    update is float32 arithmetic, as JAX's), JAX's ``ema_update`` replayed
+    on the banded steps' parameters at this file's float32 limits, and the
+    validations report one device's mIoU."""
+    from rtsds_tpu_torch.parallel.spatial import split_batch
+
+    g = torch.Generator().manual_seed(0)
+    batch = (torch.randn((2, 12, 8, 3), generator=g, dtype=torch.float64),
+             torch.randint(0, 19, (2, 12, 8), generator=g))
+    runs = {}
+    for bands in (0, 2):
+        torch.manual_seed(0)
+        net = _Net().double()
+        state = TrainState(net, make_optimizer("SGD", net.parameters(), 0.5))
+        seen, params = [], []
+        step = make_train_step(19)
+
+        def train_step(state, images, labels):
+            metrics = step(state, images, labels)
+            params.append({k: p.detach().clone()
+                           for k, p in state.model.named_parameters()})
+            return metrics
+
+        def eval_step(images, labels, hist, _step=make_eval_step(net, 19)):
+            seen.append({k: p.detach().clone()
+                         for k, p in net.named_parameters()})
+            return _step(images, labels, hist)
+
+        def batches(_epoch):
+            return [split_batch(*batch, ["cpu"] * bands) if bands else batch]
+
+        _, history = supervised_fit(
+            state, train_step, batches, batches, epochs=2, num_classes=19,
+            device="cpu", eval_step=eval_step, ema_decay=0.9)
+        runs[bands] = (seen, params, [h["validation_mIoU"] for h in history])
+    (seen, params, mious), (seen1, _, mious1) = runs[2], runs[0]
+    assert mious == mious1
+    torch.manual_seed(0)
+    ema = {k: jnp.asarray(p.detach().float().numpy())
+           for k, p in _Net().named_parameters()}
+    for epoch, (got, want) in enumerate(zip(seen, seen1)):
+        ema = jax_ema_update(ema, {k: jnp.asarray(v.float().numpy())
+                                   for k, v in params[epoch].items()},
+                             decay=0.9, step=epoch + 1)
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                       rtol=2.0 ** -22, atol=1e-12,
+                                       err_msg=k)
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(ema[k]),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)

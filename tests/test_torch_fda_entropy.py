@@ -206,3 +206,56 @@ def test_da_step_with_minent_and_fda_matches_jax_in_float64(jax_step, trees):
         key = _torch_key(path)
         np.testing.assert_allclose(new_dis[key].numpy(), _torch_layout(arr),
                                    rtol=rtol, atol=atol, err_msg=f"D {key}")
+
+
+# --- on height bands (the spatial axis) ------------------------------------
+
+def test_banded_log_softmax_and_entropy_equal_the_whole_map(rng):
+    """``F.log_softmax`` and MinEnt's entropy on 2 height bands against the
+    whole map at rtol 1e-12, and the loss against JAX's at rtol 1e-10."""
+    import torch.nn.functional as F
+
+    from rtsds_tpu_torch.parallel.spatial import (
+        Bands, _Layout, gather, split_rows)
+
+    logits = rng.normal(scale=3.0, size=(2, 19, 13, 20))
+    x = torch.from_numpy(logits)
+    bands = Bands(split_rows(x, ["cpu"] * 2, starts=[0, 6]), [0, 6], 13,
+                  _Layout(["cpu"] * 2))
+    np.testing.assert_allclose(gather(F.log_softmax(bands, dim=1)).numpy(),
+                               F.log_softmax(x, dim=1).numpy(), rtol=1e-12,
+                               atol=1e-14)
+    got = float(entropy_loss(bands))
+    np.testing.assert_allclose(got, float(entropy_loss(x)), rtol=1e-12)
+    with jax.enable_x64(True):
+        want = float(jax_entropy_loss(jnp.asarray(logits.transpose(0, 2, 3,
+                                                                   1))))
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+
+
+def test_fda_on_banded_frames_cuts_the_one_device_result_at_the_bands(rng):
+    from rtsds_tpu_torch.parallel.spatial import FrameBands, split_batch
+
+    src = torch.from_numpy(rng.normal(size=(2, 40, 56, 3)))
+    tgt = torch.from_numpy(rng.normal(size=(2, 32, 48, 3)))
+    frames, _ = split_batch(src, torch.zeros(src.shape[:3]), ["cpu"] * 2)
+    t_frames, _ = split_batch(tgt, torch.zeros(tgt.shape[:3]), ["cpu"] * 2)
+    got = fda_source_to_target(frames, t_frames, 0.1)
+    assert isinstance(got, FrameBands) and got.starts == frames.starts
+    want = fda_source_to_target(src, tgt, 0.1)
+    assert torch.equal(got.gather(), want)
+
+
+def test_da_step_with_minent_and_fda_on_bands_equals_one_device_and_jax(
+        jax_step, trees):
+    """MinEnt (banded logits) and FDA (frames gathered on the first band's
+    device, restyled, cut again) in each variant on 2 height bands."""
+    from test_torch_adversarial import da_runs, held_to_one_device_and_jax
+
+    name, want, (want_gen, want_dis) = jax_step
+    variant, grl_alpha = VARIANTS[name]
+    runs = da_runs(trees, (0, 2), variant=variant, grl_alpha=grl_alpha,
+                   lambda_ent=LAMBDA_ENT, fda_beta=FDA_BETA)
+    assert "loss_entropy" in runs[2][0]
+    held_to_one_device_and_jax(runs, 2, want, want_gen, want_dis,
+                               LIMITS[name])

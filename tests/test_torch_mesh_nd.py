@@ -1,6 +1,7 @@
 """The port's N-D meshes (``rtsds_tpu_torch/parallel/mesh.py``), the FSDP
-placement rule (``parallel/fsdp.py:shard_dim``) and the CLI's refusals of
-what ROADMAP item 17.5 still holds, against the JAX package.
+placement rule (``parallel/fsdp.py:shard_dim``), against the JAX
+package, and the CLI on the training extras on the spatial axis, which it
+once refused.
 
 * The composed mesh rules of ``make_mesh_from_config`` and
   ``make_mesh_2d`` (``tests/test_parallel_2d.py:48,79``), case by case on
@@ -18,10 +19,12 @@ what ROADMAP item 17.5 still holds, against the JAX package.
 * ``parallel/distributed.py:axis_groups``' grid, rank r at data index
   r // M and model index r % M, on 4 gloo CPU ranks.
 * The CLI: every training extra and validation protocol on the spatial
-  axis, alone or composed with the model or data axis, exits naming
-  ROADMAP item 17.5 (the model axis runs them, test_torch_fsdp_extras.py;
-  the composed meshes run, test_torch_composed.py); a model axis without
-  ``--multihost`` exits asking for one process per GPU.
+  axis, alone or composed with the model or data axis, once refused as
+  ROADMAP item 17.5b, passes the CLI's checks and builds its mesh; on
+  ``{spatial: 2}`` in one process each trains an iteration and validates
+  on 2 CPU bands (the composed runs: test_torch_spatial_extras_composed.py);
+  a model axis without ``--multihost`` exits asking for one process per
+  GPU.
 """
 
 import warnings
@@ -40,12 +43,23 @@ from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.deeplabv2 import DeepLabV2
 from rtsds_tpu_torch.models.pretrained import torch_scope
 from rtsds_tpu_torch.parallel import mesh as port_mesh
+from rtsds_tpu_torch.parallel import spatial
 from rtsds_tpu_torch.parallel.fsdp import shard_dim
 from rtsds_tpu_torch.parallel.launch import run_ranks
 from test_torch_cli import _config
 
 # the port's stand-ins for JAX's devices 0-7
 DEVICES = [torch.device("cuda", i) for i in range(8)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The CLI runs' tiny shapes gain nothing from many threads, and the
+    test workers share the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _outcome(build, ids):
@@ -238,10 +252,12 @@ def _with(tmp_path, mesh: str, seg: str = "", da: str = "",
     return path
 
 
-# the model axis runs every extra (test_torch_fsdp_extras.py): composed
-# with the spatial axis, they are what is left of ROADMAP item 17.5
+# every extra composed with the spatial axis, once refused as ROADMAP item
+# 17.5b: each case now passes the CLI's checks, and a case of one process
+# trains an iteration and validates on 2 CPU bands (the multi-process runs:
+# test_torch_spatial_extras_composed.py)
 SM = "mesh: {model: 2, spatial: 2}"
-REFUSED = {
+ONCE_REFUSED = {
     "model_ema": (SM, ", ema: {enabled: true}", "", "",
                   False, "EMA"),
     "model_accumulate": (SM, ", accumulate_steps: 2", "",
@@ -266,8 +282,8 @@ REFUSED = {
     "spatial_ema": ("mesh: {spatial: 2}", ", ema: {enabled: true}", "", "",
                     False, "EMA"),
     "spatial_sliding": ("mesh: {spatial: 2}", "", "",
-                        "validation: {sliding: {enabled: true}}", False,
-                        "validation protocol"),
+                        "validation: {sliding: {enabled: true, window: "
+                        "'16, 32'}}", False, "validation protocol"),
     "spatial_da_v2": ("mesh: {spatial: 2}", "", ", variant: v2", "", True,
                       "DA v2"),
     "spatial_data": ("mesh: {data: 2, spatial: 2}", ", accumulate_steps: 2",
@@ -277,19 +293,56 @@ REFUSED = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_what_item_17_5_holds_is_refused(tmp_path, case, monkeypatch):
-    mesh, seg, da, extra, adapt, match = REFUSED[case]
-    argv = ["--config", _with(tmp_path, mesh, seg, da, extra), "--synthetic"]
-    if mesh.startswith("mesh: {model"):
-        argv.append("--multihost")
-    if adapt:
-        argv.append("--domain_adaptation")
-    # the refusal comes before the process group is joined
-    monkeypatch.setattr(port_mesh, "initialize_multihost", None)
-    with pytest.raises(SystemExit, match=match) as info:
-        cli.main(argv)
-    assert "ROADMAP item 17.5" in str(info.value)
+def passes_the_checks(argv, mesh_size: int) -> None:
+    """``argv``'s config passes ``check_ported`` and builds its mesh by
+    ``make_mesh_from_config`` over ``mesh_size`` CPU entries, the job's
+    (data, spatial, model) grid."""
+    from rtsds_tpu_torch.config import load_config
+
+    args = cli.argument_parser(argv)
+    config = load_config(args.config)
+    cli.check_ported(args, config)
+    spec = dict(config.mesh)
+    mesh = port_mesh.make_mesh_from_config(
+        spec, devices=["cpu"] * mesh_size, device_type="cpu",
+        batch_size=int(config.data["cityscapes"]["batch_size"]))
+    assert mesh.size == mesh_size
+    assert mesh.axis_size("spatial") == spec["spatial"] == 2
+
+
+def one_iteration(path: str) -> str:
+    """The config at ``path`` cut to one epoch of one training step (the
+    16 synthetic Cityscapes frames in one batch; DA: one iteration)."""
+    from pathlib import Path
+
+    text = Path(path).read_text().replace("epochs: 2,", "epochs: 1,")
+    text = text.replace("iterations: 2,", "iterations: 1,").replace(
+        'image_size: "32, 64"\n    batch_size: 2',
+        'image_size: "32, 64"\n    batch_size: 16')
+    Path(path).write_text(text)
+    return path
+
+
+@pytest.mark.parametrize("case", sorted(ONCE_REFUSED))
+def test_what_item_17_5_held_now_runs(tmp_path, case, monkeypatch):
+    mesh, seg, da, extra, adapt, what = ONCE_REFUSED[case]
+    argv = ["--config", one_iteration(_with(tmp_path, mesh, seg, da, extra)),
+            "--synthetic"] + (["--domain_adaptation"] if adapt else [])
+    if not mesh.startswith("mesh: {spatial: 2}"):
+        # a mesh over processes: the composed file runs its ranks
+        passes_the_checks(argv + ["--multihost"], 4)
+        return
+    monkeypatch.setenv("RTSDS_CPU_DEVICES", "2")
+    banded = []
+    split = spatial.split_batch
+    monkeypatch.setattr(spatial, "split_batch",
+                        lambda *a: banded.append(1) or split(*a))
+    history = cli.main(argv)
+    assert len(history) == 1, what
+    assert np.isfinite(history[0]["train_loss" if not adapt
+                                  else "loss_gen_source"])
+    assert 0.0 <= history[0]["validation_mIoU"] <= 1.0
+    assert banded  # the training and validation batches came as bands
 
 
 def test_model_axis_without_multihost_asks_for_a_process_per_gpu(tmp_path):

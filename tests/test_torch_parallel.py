@@ -179,8 +179,8 @@ def test_make_mesh_of_several_processes_raises_instead_of_trimming(
 def test_spatial_and_model_axes_are_not_ported(spec):
     """The spatial and model axes are ported now (ROADMAP 17.3-17.4): the
     port builds JAX's mesh for each spec (test_torch_mesh_nd.py holds
-    the composed rules case by case; the CLI's refusals of what is left,
-    ROADMAP item 17.5, test_torch_cli.py)."""
+    the composed rules case by case; the CLI runs every extra on them,
+    test_torch_spatial_extras_composed.py)."""
     want = _mesh_outcome(lambda: jax_mesh.make_mesh_from_config(
         spec, devices=jax.devices()[:4]))
     got = _mesh_outcome(lambda: port_mesh.make_mesh_from_config(

@@ -88,11 +88,24 @@ def test_stride_larger_than_the_window_raises():
         make_sliding_predict(lambda x: x, (64, 128), window_chunk=0)
 
 
-def test_sliding_probabilities_match_jax(models, images):
-    flax_model, variables, port = models
-    want = np.asarray(jax_sliding(flax_model.apply, BASE, window=WINDOW,
-                                  return_probs=True)(variables,
-                                                     jnp.asarray(images)))
+@pytest.fixture(scope="module")
+def jax_probs(models, images):
+    """JAX's sliding and ensemble probabilities of ``images`` (NHWC), each
+    compiled once for the tests that hold the port to them."""
+    flax_model, variables, _ = models
+    x = jnp.asarray(images)
+    return {
+        "sliding": np.asarray(jax_sliding(
+            flax_model.apply, BASE, window=WINDOW, return_probs=True)(
+                variables, x)),
+        "ensemble": np.asarray(jax_ensemble(
+            flax_model.apply, BASE, scales=(0.75, 1.0, 1.25), flip=True,
+            return_probs=True)(variables, x))}
+
+
+def test_sliding_probabilities_match_jax(models, images, jax_probs):
+    _, _, port = models
+    want = jax_probs["sliding"]
     with torch.no_grad():
         got = make_sliding_predict(port, BASE, window=WINDOW,
                                    return_probs=True)(_nchw(images))
@@ -124,12 +137,9 @@ def test_window_chunk_schedules_agree(models, images):
                                    atol=1e-7)
 
 
-def test_ensemble_probabilities_match_jax(models, images):
-    flax_model, variables, port = models
-    want = np.asarray(jax_ensemble(flax_model.apply, BASE,
-                                   scales=(0.75, 1.0, 1.25), flip=True,
-                                   return_probs=True)(variables,
-                                                      jnp.asarray(images)))
+def test_ensemble_probabilities_match_jax(models, images, jax_probs):
+    _, _, port = models
+    want = jax_probs["ensemble"]
     with torch.no_grad():
         got = make_ensemble_predict(port, BASE, scales=(0.75, 1.0, 1.25),
                                     flip=True, return_probs=True)(
@@ -238,3 +248,67 @@ def test_serve_cli_runs_deeplab(tmp_path, argv):
                 "--out", str(tmp_path / "out"), "--device", "cpu", *argv])
     mask = np.asarray(Image.open(tmp_path / "out" / "frame_mask.png"))
     assert mask.shape == (64, 128) and mask.max() < 19
+
+
+# --- on height bands (validation in spatial training) ----------------------
+
+def _predict(protocol, model, **kwargs):
+    if protocol == "sliding":
+        return make_sliding_predict(model, BASE, window=WINDOW, **kwargs)
+    return make_ensemble_predict(model, BASE, scales=(0.75, 1.0, 1.25),
+                                 flip=True, **kwargs)
+
+
+def _eval_step(protocol, model):
+    if protocol == "sliding":
+        return make_sliding_eval_step(model, BASE, 19, window=WINDOW,
+                                      return_preds=True)
+    return make_ensemble_eval_step(model, BASE, 19,
+                                   scales=(0.75, 1.0, 1.25),
+                                   return_preds=True)
+
+
+@pytest.mark.parametrize("protocol", ["sliding", "ensemble"])
+def test_protocols_on_bands_equal_one_device_and_jax(models, images,
+                                                     jax_probs, protocol):
+    """A float64 copy of the thin DeepLab validates a frame on 2 height
+    bands under the protocol, as spatial training does: the probabilities
+    (gathered) equal one device's at rtol 1e-9 / atol 1e-12 and JAX's at
+    this file's limits, and the banded eval step's K1 matrix, each band's matrix
+    summed on the first device, equals the matrix of one device's masks
+    exactly.  The second band lies on another handle of the CPU
+    (``cpu:0``, which is not ``cpu``), as it would on a second GPU: every
+    window runs through the one model, never a copy of it."""
+    from rtsds_tpu_torch.parallel.spatial import (
+        Bands, gather, split_batch)
+
+    _, _, port = models
+    model = DeepLabV2(layers=THIN).double().eval()
+    model.load_state_dict(port.state_dict())
+    x = torch.from_numpy(images[:1]).double()  # one frame: float64 is slow
+    labels = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 20, size=x.shape[:3]))
+    frames, bands = split_batch(x, labels, ["cpu", "cpu:0"])
+    with torch.no_grad():
+        one = _predict(protocol, model, return_probs=True)(
+            x.permute(0, 3, 1, 2))
+        ran = []
+        hook = model.register_forward_pre_hook(
+            lambda module, args: ran.append(module))
+        got = _predict(protocol, model, return_probs=True)(
+            frames.permute(0, 3, 1, 2))
+        hook.remove()
+    assert ran and all(m is model for m in ran)
+    assert isinstance(got, Bands)
+    got = gather(got)
+    np.testing.assert_allclose(got.numpy(), one.numpy(), rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               jax_probs[protocol][:1], rtol=RTOL,
+                               atol=ATOL)
+    zero = torch.zeros((19, 19), dtype=torch.int32)
+    hist, preds = _eval_step(protocol, model)(frames, bands, zero)
+    want_preds = one.argmax(dim=1)
+    assert torch.equal(gather(preds).long(), want_preds)
+    assert torch.equal(hist, fast_hist(labels, want_preds, 19))
+    assert int(hist.sum()) == int((labels < 19).sum())

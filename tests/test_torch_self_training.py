@@ -38,6 +38,7 @@ from rtsds_tpu.train.self_training import pseudo_labels as jax_pseudo_labels
 from rtsds_tpu.train.state import TrainState as JaxTrainState
 from rtsds_tpu_torch.models.bisenet import BiSeNet
 from rtsds_tpu_torch.models.pretrained import load_flax_variables
+from rtsds_tpu_torch.ops.resize import resize_labels_nearest
 from rtsds_tpu_torch.train.ema import ema_init
 from rtsds_tpu_torch.train.self_training import (
     calibrate_class_thresholds, classmix_masks, classmix_scores,
@@ -244,3 +245,105 @@ def test_the_same_seed_and_step_give_the_same_mix(trees):
 def test_self_training_needs_an_ignore_index():
     with pytest.raises(ValueError, match="ignore_index"):
         make_self_training_step(LAMBDA, ITERATIONS, None)
+
+
+# --- on height bands (the spatial axis) ------------------------------------
+
+EMA_F32 = dict(rtol=2.0 ** -22, atol=1e-12)  # one float32 rounding
+
+
+def _label_bands(labels: torch.Tensor, starts):
+    from rtsds_tpu_torch.parallel.spatial import Bands, _Layout, split_rows
+
+    return Bands(split_rows(labels, ["cpu"] * len(starts), starts=starts),
+                 starts, labels.shape[-2], _Layout(["cpu"] * len(starts)))
+
+
+@pytest.mark.parametrize("size", [(20, 11), (64, 40), (5, 7), (37, 20)])
+def test_banded_nearest_resize_is_exact(rng, size):
+    """Each output row takes its source row by the rule on the GLOBAL
+    heights, from whichever band holds it (down, up, to a height with
+    fewer rows than bands of rows, and to the same height)."""
+    from rtsds_tpu_torch.parallel.spatial import gather
+
+    labels = torch.from_numpy(rng.integers(0, 20, size=(2, 37, 20)))
+    got = resize_labels_nearest(_label_bands(labels, [0, 9, 30]), size)
+    assert torch.equal(gather(got), resize_labels_nearest(labels, size))
+
+
+def test_classmix_on_bands_chooses_among_every_bands_classes(rng):
+    """A frame whose classes split across its bands: the mask of the banded
+    labels is the whole frame's (the classes present are those of every
+    band), where a band-local choice differs."""
+    from rtsds_tpu_torch.parallel.spatial import gather
+
+    labels = torch.from_numpy(rng.integers(0, 21, size=(2, 12, 16)))
+    labels[0, :6] = 3          # frame 0: class 3 in band 0 only,
+    labels[0, 6:, :8] = 7      # classes 7 and 11 in band 1 only
+    labels[0, 6:, 8:] = 11
+    scores = torch.from_numpy(rng.uniform(size=(2, 19)).astype(np.float32))
+    scores[0, 3] = 1.0  # band 0's lone class loses among the frame's three
+    want = classmix_masks(labels, scores, 19)
+    got = classmix_masks(_label_bands(labels, [0, 6]), scores, 19)
+    assert torch.equal(gather(got), want)
+    band_local = torch.cat([classmix_masks(labels[:, :6], scores, 19),
+                            classmix_masks(labels[:, 6:], scores, 19)], 1)
+    assert not torch.equal(band_local, want)
+
+
+def test_cbst_thresholds_on_bands_are_exact(trees, rng):
+    """The calibration on 2 height bands (the joint histogram counted per
+    band and summed on the first device) gives one device's thresholds
+    exactly, on test_calibration_is_exact_on_the_same_teacher's images,
+    where one device's equal JAX's."""
+    from rtsds_tpu_torch.parallel.spatial import split_batch
+
+    gen_vars, _ = trees
+    images = [torch.from_numpy(rng.normal(size=(2, 32, 48, 3)))
+              for _ in range(2)]
+    model = load_flax_variables(BiSeNet().double(), gen_vars).train()
+    want = calibrate_class_thresholds(model, [(x, None) for x in images], 19,
+                                      portion=0.5)
+    got = calibrate_class_thresholds(
+        model, [split_batch(x, torch.zeros(x.shape[:3]), ["cpu"] * 2)
+                for x in images], 19, portion=0.5)
+    np.testing.assert_array_equal(got, want)
+    assert (got < 0.999).any()
+
+
+def test_self_training_step_on_bands_equals_one_device_and_jax(jax_step,
+                                                               trees):
+    """The teacher's forward, the pseudo-labels, ClassMix's resizes, mask
+    and paste, MinEnt and FDA on 2 height bands of source and target; the
+    EMA, float32 arithmetic as JAX's, within one float32 rounding of one
+    device's."""
+    from test_torch_adversarial import _da_inputs, held_to_one_device_and_jax
+
+    name, want, (want_gen, want_dis, want_ema), scores = jax_step
+    classmix, lambda_ent, fda_beta, per_class = CASES[name]
+    runs, emas = {}, {}
+    for bands in (0, 2):
+        gen, dis = _port_states(trees)
+        ema = ema_init(gen.model)
+        step = make_self_training_step(
+            LAMBDA, ITERATIONS, 19, threshold=_threshold(per_class),
+            lambda_pl=0.7, ema_decay=0.99, lambda_ent=lambda_ent,
+            fda_beta=fda_beta, classmix=classmix, classmix_seed=SEED)
+        got = step(gen, dis, ema, *_da_inputs(bands),
+                   scores=torch.from_numpy(scores) if classmix else None)
+        runs[bands] = ({k: float(v) for k, v in got.items()},
+                       {k: v.numpy() for k, v in
+                        gen.model.state_dict().items()},
+                       {k: v.numpy() for k, v in
+                        dis.model.state_dict().items()})
+        emas[bands] = {k: v.numpy() for k, v in ema.items()}
+    held_to_one_device_and_jax(runs, 2, want, want_gen, want_dis,
+                               (1e-8, 1e-6, 1e-10))
+    for k in emas[0]:
+        np.testing.assert_allclose(emas[2][k], emas[0][k], err_msg=k,
+                                   **EMA_F32)
+    for path, _ in _leaves(want_gen["params"]):
+        key = _torch_key(path)
+        np.testing.assert_allclose(
+            emas[2][key], _torch_layout(np.asarray(_dig(want_ema, path))),
+            rtol=1e-6, atol=1e-10, err_msg=f"EMA {key}")

@@ -25,8 +25,9 @@ device and against the JAX package's spatial ``Predictor``.
   DeepLab's mean probabilities within rtol 1e-10 (atol 1e-13 of the peak)
   of one device's, with windows that span up to three bands.
 * JAX's errors: a height that does not divide over the mesh, an unknown
-  sharding; ops with no banded form are refused naming ROADMAP item
-  17.5.
+  sharding; ops with no banded form (a flip, a cumulative sum or an
+  argmax over H, a plain tensor varying along H, a sum over H alone) are
+  refused, asking for the map to be gathered first.
 * ``from_checkpoint`` and ``predict_iter`` on bands; ``--mesh spatial``
   through the serve CLI and the server.
 """
@@ -291,7 +292,9 @@ def test_jax_errors_and_what_has_no_banded_form():
     for fn in (lambda b: b.flip(-2), lambda b: torch.cumsum(b, 2),
                lambda b: b.argmax(-2), lambda b: b * torch.ones(1, 1, 8, 1),
                lambda b: b.sum(dim=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 17.5"):
+        with pytest.raises(NotImplementedError,
+                           match="no height-band form: gather the map "
+                                 "first"):
             fn(bands)
 
 

@@ -221,3 +221,36 @@ callbacks:
     assert 0.0 <= history[0]["validation_mIoU"] <= 1.0
     assert seen and set(seen) == {"FrameBands"}
     assert (tmp_path / "ckpt" / "m" / "epoch_0.pt").exists()
+
+
+@pytest.mark.parametrize("protocol", [
+    "sliding: {enabled: true, window: '16, 32'}",
+    "ensemble: {enabled: true}"], ids=["sliding", "ensemble"])
+def test_cli_protocol_on_bands_reports_one_devices_miou(tmp_path,
+                                                        monkeypatch,
+                                                        protocol):
+    """A validation protocol in spatial training (``mesh: {spatial: 2}``,
+    one process): the run validates on the bands; ``--validate_only`` on
+    its checkpoint reports the run's mIoU, and one device's on the same
+    checkpoint (the mesh dropped) to 1e-12; ``--resume`` of a longer
+    config trains the next epoch on the bands."""
+    from test_torch_mesh_nd import _with, one_iteration
+
+    monkeypatch.setenv("RTSDS_CPU_DEVICES", "2")
+    config = one_iteration(_with(tmp_path, "mesh: {spatial: 2}",
+                                 extra=f"validation: {{{protocol}}}"))
+    flags = ["--config", config, "--synthetic"]
+    history = cli.main(flags)
+    banded = cli.main(flags + ["--validate_only"])
+    assert banded == pytest.approx(history[0]["validation_mIoU"], abs=1e-12)
+    one_device = tmp_path / "one_device.yaml"
+    one_device.write_text((tmp_path / "config.yaml").read_text().replace(
+        "mesh: {spatial: 2}", ""))
+    miou = cli.main(["--config", str(one_device), "--synthetic",
+                     "--validate_only"])
+    assert miou == pytest.approx(banded, abs=1e-12)
+    longer = tmp_path / "longer.yaml"
+    longer.write_text((tmp_path / "config.yaml").read_text().replace(
+        "epochs: 1,", "epochs: 2,"))
+    resumed = cli.main(["--config", str(longer), "--synthetic", "--resume"])
+    assert [h["epoch"] for h in resumed] == [1]
